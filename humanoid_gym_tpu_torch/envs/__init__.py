@@ -1,0 +1,6 @@
+"""Batched legged-robot environments for the PyTorch port (flat ground)."""
+
+from .env import HumanoidEnv, Transition, make_env
+from .state import EnvState
+
+__all__ = ["EnvState", "HumanoidEnv", "Transition", "make_env"]

@@ -28,6 +28,11 @@ def resolve_compute_dtype(name: str, device: torch.device) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+def dtype_name(dt: torch.dtype) -> str:
+    """'float32' / 'bfloat16': the name a checkpoint records."""
+    return str(dt).replace("torch.", "")
+
+
 def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
     """flax's default Dense kernel init: truncated normal (+-2 sigma) with
     variance 1/fan_in."""
@@ -72,6 +77,7 @@ class ActorCritic(nn.Module):
     ):
         super().__init__()
         self.num_actions = num_actions
+        self.compute_dtype = compute_dtype
         self.actor = MLP(num_obs, actor_hidden, num_actions, compute_dtype)
         self.critic = MLP(num_priv, critic_hidden, 1, compute_dtype)
         self.std = nn.Parameter(torch.full((num_actions,), float(init_noise_std)))
@@ -79,6 +85,10 @@ class ActorCritic(nn.Module):
         gen.manual_seed(seed)
         self.actor.reset_parameters(gen)
         self.critic.reset_parameters(gen)
+
+    def set_compute_dtype(self, name: str) -> None:
+        """Switch the hidden-layer compute dtype of both MLPs."""
+        self.compute_dtype = self.actor.compute_dtype = self.critic.compute_dtype = name
 
     def act(self, obs):
         """Policy distribution parameters; the raw std is floored at 1e-3."""

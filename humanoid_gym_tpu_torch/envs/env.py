@@ -1,10 +1,10 @@
 """HumanoidEnv: the flat-ground XBot-L locomotion environment, batched.
 
-Port of humanoid_gym_tpu/envs/env.py for flat ground and the mega solver.
-One call of `step(state, actions)` keeps the reference's per-step order:
+Port of humanoid_gym_tpu/envs/env.py for flat ground. One call of `step(state, actions)` keeps the reference's per-step order:
 
   action pipeline (ref-action add, clip, delay mix, multiplicative noise)
-  -> decimation x 1 kHz PD physics (one mega-kernel launch on the card)
+  -> decimation x 1 kHz PD physics (solver "mega": one kernel launch on
+     the card; the other solvers: a loop of substeps)
   -> episode counters, base quantities
   -> command resample / heading / push
   -> termination probes
@@ -18,7 +18,8 @@ package splits a per-env key). Masked draws (command resample, push, reset)
 are made for every env each step, so the step never waits on the host;
 the action delay and noise draws are skipped when their scale is zero.
 Feet and knee kinematics come from the mega kernel's end-of-step `fk_out`
-rows. Not ported here: terrain (heightfield/trimesh
+rows, or from `fk` / `body_velocities` with any other solver (static
+dispatch, by solver type). Not ported here: terrain (heightfield/trimesh
 ground, terrain curriculum, measured heights) and the command curriculum.
 """
 
@@ -33,7 +34,7 @@ import torch
 
 from ..config.base import LeggedRobotCfg
 from ..physics import spatial as S
-from ..physics.kinematics import use_full_f32_matmul
+from ..physics.kinematics import body_velocities, fk, use_full_f32_matmul
 from ..physics.mega import flat_height_fn
 from ..physics.model import RobotModel, build_model_from_urdf
 from ..physics.step import PhysicsState, make_physics_step
@@ -117,6 +118,7 @@ class HumanoidEnv:
         self.resampling_interval = int(cfg.commands.resampling_time / self.dt)
         self.push_interval = int(math.ceil(cfg.domain_rand.push_interval_s / self.dt))
 
+        self._kernel_fk = cfg.sim.solver.solver_type == "mega"
         self._phys_step = make_physics_step(
             m, cfg.sim.dt, cfg.control.decimation, self.p_gains, self.d_gains,
             self.torque_limits, solver_iterations=cfg.sim.solver.solver_iterations,
@@ -359,13 +361,24 @@ class HumanoidEnv:
             qvel_pushed = torch.cat([pf, phys.qvel[:, 2:3], pt, phys.qvel[:, 6:]], dim=1)
             phys = phys.replace(qvel=torch.where(dp, qvel_pushed, phys.qvel))
 
-        # ---- kinematics from the mega kernel's end-of-step rows ----
-        rel = phys.fk_out
-        base_xy = phys.qpos[:, None, :2]
-        feet_z = rel[:, 4:6] + phys.qpos[:, 2:3]
-        feet_pos_xy = torch.stack([rel[:, 0:2], rel[:, 2:4]], dim=2) + base_xy
-        knee_pos_xy = torch.stack([rel[:, 6:8], rel[:, 8:10]], dim=2) + base_xy
-        feet_vel_xy = torch.stack([rel[:, 10:12], rel[:, 12:14]], dim=2)
+        # ---- feet / knee kinematics ----
+        if self._kernel_fk:
+            # the mega kernel's end-of-step rows: positions base-relative,
+            # velocities world-frame
+            rel = phys.fk_out
+            base_xy = phys.qpos[:, None, :2]
+            feet_z = rel[:, 4:6] + phys.qpos[:, 2:3]
+            feet_pos_xy = torch.stack([rel[:, 0:2], rel[:, 2:4]], dim=2) + base_xy
+            knee_pos_xy = torch.stack([rel[:, 6:8], rel[:, 8:10]], dim=2) + base_xy
+            feet_vel_xy = torch.stack([rel[:, 10:12], rel[:, 12:14]], dim=2)
+        else:
+            kfk = fk(m, phys.qpos)
+            bv = body_velocities(m, phys.qpos, phys.qvel, kfk)
+            fidx, kidx = list(m.feet_body_idx), list(m.knee_body_idx)
+            feet_z = kfk.p[:, fidx, 2]
+            feet_pos_xy = kfk.p[:, fidx, :2]
+            knee_pos_xy = kfk.p[:, kidx, :2]
+            feet_vel_xy = bv.v_origin[:, fidx, :2]
         feet_force = phys.contact_forces[:, list(m.feet_body_idx)]
         contact = feet_force[..., 2] > 5.0
         term_flags, pen_flags = self._probe_flags(phys.qpos)

@@ -1,8 +1,11 @@
-"""Batched contact + joint-limit rows and the APGD contact solve.
+"""Batched contact + joint-limit rows and the contact solvers.
 
-Port of the parts of humanoid_gym_tpu/physics/contact.py that the mega
-solver's plain path runs: `build_contact_setup`, `joint_limit_bounds`,
-`_project_cone` and `apgd_solve`. Everything takes the env axis first.
+Port of humanoid_gym_tpu/physics/contact.py for flat ground:
+`build_contact_setup`, `joint_limit_bounds`, `_project_cone`, `apgd_solve`,
+`pgs_solve` and `resolve_contacts`, which dispatches on the solver name
+("apgd", "pgs" in plain PyTorch; "apgd_pallas" to the APGD kernel of
+physics/solve.py). Everything takes the env axis first. Sloped contact
+frames (heightfield terrain) are not ported.
 
 Unilateral normal rows obey v_n+ >= b complementary to lambda_n >= 0, with
 PhysX-like depenetration: approach-limited within contact_offset of the
@@ -19,7 +22,9 @@ import torch
 
 from .dynamics import Dyn
 from .kinematics import ancestor_mask, dof_basis, point_jacobian
+from .linalg import solve_lower_unrolled, solve_upper_unrolled
 from .model import RobotModel
+from .solve import apgd_solve_kernel
 
 
 class ContactSetup(NamedTuple):
@@ -163,3 +168,145 @@ def apgd_solve(
         lam = lam_new
         theta = theta_new
     return lam
+
+
+def pgs_solve(
+    A: torch.Tensor,  # (N, nrow, nrow) Delassus
+    u0: torch.Tensor,  # (N, nrow) J v_free
+    n_points: int,
+    lo_bound: torch.Tensor,  # (N, n_points)
+    limit_sign: torch.Tensor,  # (N, nlim)
+    limit_bound: torch.Tensor,  # (N, nlim)
+    mu: torch.Tensor,  # (N,)
+    iterations: int,
+    lam0: torch.Tensor | None = None,  # (N, nrow) warm start, physical signs
+) -> torch.Tensor:
+    """Projected Gauss-Seidel over 3D friction blocks + 1D limit rows:
+    per contact a scalar normal update clamped at 0, scalar tangential
+    updates, then disk projection onto the cone. The sweeps are sequential
+    in the rows; the batch runs over the envs."""
+    nlim = limit_sign.shape[1]
+    diag = torch.diagonal(A, dim1=-2, dim2=-1) + 1e-7
+    if lam0 is None:
+        lam = torch.zeros_like(u0)
+        u = u0.clone()
+    else:
+        lam = _project_cone(lam0, n_points, mu, limit_sign)
+        u = u0 + (A @ lam[..., None])[..., 0]
+    lam = lam.clone()
+    for _ in range(iterations):
+        for kk in range(n_points):
+            r = 3 * kk
+            lam_k, u_k, d_k = lam[:, r:r + 3], u[:, r:r + 3], diag[:, r:r + 3]
+            ln = torch.clamp(lam_k[:, 2] + (lo_bound[:, kk] - u_k[:, 2]) / d_k[:, 2], min=0.0)
+            lt = lam_k[:, :2] - u_k[:, :2] / d_k[:, :2]
+            tn = torch.linalg.norm(lt, dim=-1) + 1e-12
+            scale = torch.clamp(mu * ln / tn, max=1.0)
+            new_k = torch.cat([lt * scale[:, None], ln[:, None]], dim=1)
+            d = new_k - lam_k
+            lam[:, r:r + 3] = new_k
+            u = u + (A[:, :, r:r + 3] @ d[..., None])[..., 0]
+        for jj in range(nlim):
+            r = 3 * n_points + jj
+            sgn = limit_sign[:, jj]
+            viol = limit_bound[:, jj] - sgn * u[:, r]
+            cand = (lam[:, r] + viol / diag[:, r] * sgn) * sgn
+            new = torch.clamp(cand, min=0.0) * sgn
+            d = new - lam[:, r]
+            lam[:, r] = new
+            u = u + A[:, :, r] * d[:, None]
+    return lam
+
+
+class ContactResult(NamedTuple):
+    qvel_new: torch.Tensor  # (N, nv)
+    impulses: torch.Tensor  # (N, K, 3) per force-solved point (world frame)
+    phi: torch.Tensor  # (N, K) gaps
+    pos_w: torch.Tensor  # (N, K, 3)
+    lam: torch.Tensor  # (N, nrow) full impulse vector (physical signs): the
+    # warm-start carry for the next substep's solve
+
+
+def delassus_operands(
+    model: RobotModel,
+    dyn: Dyn,
+    qpos: torch.Tensor,
+    v_free: torch.Tensor,
+    terrain_height_fn,
+    dt: float,
+    contact_offset=0.01,
+    max_depen_vel: float = 1.0,
+    baumgarte=0.2,
+    compliance=0.0,
+):
+    """What a contact solver is handed at v_free: (setup, limit_sign,
+    limit_bound, B, A, u0, step_bound). A = J Mtilde^-1 J^T through the
+    half-factor B = L^-1 J^T (A = B^T B), with the CFM regularizer
+    compliance * trace(A) / nrow on the diagonal; u0 = J v_free; the APGD
+    step bound ||B B^T||_inf + reg, which every APGD path shares (same
+    nonzero spectrum as A, invariant to limit-row sign folding).
+    compliance is a float or an (N,) tensor."""
+    setup = build_contact_setup(
+        model, dyn, terrain_height_fn, dt, contact_offset=contact_offset,
+        max_depen_vel=max_depen_vel, baumgarte=baumgarte,
+    )
+    sign, lb = joint_limit_bounds(model, qpos, dt)
+    n = setup.phi.shape[0]
+    B = solve_lower_unrolled(dyn.Mtilde_chol, setup.J.transpose(1, 2))  # (N, nv, nrow)
+    A = B.transpose(1, 2) @ B
+    nrow = A.shape[-1]
+    comp = torch.as_tensor(compliance, dtype=A.dtype, device=A.device).expand(n)
+    reg = comp * torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) / nrow
+    A = A + reg[:, None, None] * torch.eye(nrow, device=A.device, dtype=A.dtype)
+    u0 = (setup.J @ v_free[..., None])[..., 0]
+    G = B @ B.transpose(1, 2)
+    step_bound = torch.amax(torch.sum(torch.abs(G), dim=-1), dim=-1) + reg
+    return setup, sign, lb, B, A, u0, step_bound
+
+
+def resolve_contacts(
+    model: RobotModel,
+    dyn: Dyn,
+    qpos: torch.Tensor,
+    v_free: torch.Tensor,
+    terrain_height_fn,
+    dt: float,
+    mu: torch.Tensor,
+    iterations: int = 8,
+    contact_offset=0.01,
+    max_depen_vel: float = 1.0,
+    solver: str = "apgd",
+    baumgarte=0.2,
+    compliance=0.0,
+    lam0: torch.Tensor | None = None,
+    frames_override=None,
+) -> ContactResult:
+    """Contact and joint-limit impulses at v_free (solver "apgd",
+    "apgd_pallas" or "pgs" on the operands of `delassus_operands`) and the
+    velocity after them, qvel_new = v_free + L^-T (B lam)."""
+    if frames_override is not None:
+        raise ValueError("the PyTorch port has no sloped contact frames yet (flat ground only)")
+    setup, sign, lb, B, A, u0, step_bound = delassus_operands(
+        model, dyn, qpos, v_free, terrain_height_fn, dt, contact_offset=contact_offset,
+        max_depen_vel=max_depen_vel, baumgarte=baumgarte, compliance=compliance,
+    )
+    n, K = setup.phi.shape
+    L = dyn.Mtilde_chol
+    if solver == "apgd":
+        lam = apgd_solve(A, u0, K, setup.lo_bound, sign, lb, mu, iterations,
+                         step_bound=step_bound, lam0=lam0)
+    elif solver == "apgd_pallas":
+        lam = apgd_solve_kernel(
+            A.contiguous(), u0.contiguous(), setup.lo_bound.contiguous(), sign.contiguous(),
+            lb.contiguous(), mu.contiguous(), step_bound.contiguous(),
+            None if lam0 is None else lam0.contiguous(), iterations=iterations,
+        )
+    elif solver == "pgs":
+        lam = pgs_solve(A, u0, K, setup.lo_bound, sign, lb, mu, iterations, lam0=lam0)
+    else:
+        raise ValueError(f"unknown contact solver {solver!r}")
+    qvel_new = v_free + solve_upper_unrolled(L.transpose(1, 2), (B @ lam[..., None])[..., 0])
+    return ContactResult(
+        qvel_new=qvel_new, impulses=lam[:, : 3 * K].reshape(n, K, 3), phi=setup.phi,
+        pos_w=setup.pos_w, lam=lam,
+    )

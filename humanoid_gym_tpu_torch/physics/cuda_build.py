@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/) with nvcc and ctypes.
 
-The sources compile into one shared library with a plain C interface
-(`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`),
-built at first use into `build/kernels/` at the repo root and named by a
-hash of the sources, so an edited source never loads a stale build.
+Each `.cu` source compiles into its own shared library with a plain C
+interface (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`), all compilers started together, at first use into `build/kernels/`
+at the repo root; a library is named by a hash of its sources, so an edited
+source never loads a stale build.
 Every pointer and the stream pass as `ctypes.c_void_p`; each C entry returns
 `cudaGetLastError()` and the caller raises if it is not 0.
 """
@@ -20,7 +21,11 @@ import time
 from .. import HGT_ROOT_DIR
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("mega.cu", "solve.cuh")
+# library name -> (the .cu to compile, the headers it includes)
+SOURCES = {
+    "mega": ("mega.cu", "solve.cuh"),
+    "dense": ("dense_solve.cu", "apgd.cuh"),
+}
 BUILD_DIR = os.path.join(HGT_ROOT_DIR, "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -29,12 +34,15 @@ NVCC_FLAGS = [
 
 
 class KernelLibrary:
-    """The loaded library, its build record, and the model constants last
-    uploaded to its __constant__ memory."""
+    """The loaded libraries (`lib`: mega.cu, `dense`: dense_solve.cu), their
+    build record, and the model constants last uploaded to the mega
+    library's __constant__ memory."""
 
-    def __init__(self, lib: ctypes.CDLL, path: str, build_seconds: float, log: str):
+    def __init__(self, lib: ctypes.CDLL, dense: ctypes.CDLL, paths: dict, build_seconds: float,
+                 log: str):
         self.lib = lib
-        self.path = path
+        self.dense = dense
+        self.paths = paths
         self.build_seconds = build_seconds
         self.log = log
         self.uploaded_consts: bytes | None = None
@@ -47,6 +55,12 @@ class KernelLibrary:
         lib.hgt_mega_step.restype = ci
         lib.hgt_solve.argtypes = [vp] * 11 + [ci, ci, vp]
         lib.hgt_solve.restype = ci
+        dense.hgt_dense_nv.argtypes = []
+        dense.hgt_dense_nv.restype = ci
+        dense.hgt_apgd.argtypes = [vp] * 9 + [ci, ci, ci, ci, vp]
+        dense.hgt_apgd.restype = ci
+        dense.hgt_fused_dense.argtypes = [vp] * 12 + [ci, ci, ci, ci, vp]
+        dense.hgt_fused_dense.restype = ci
 
 
 _LIBRARY: KernelLibrary | None = None
@@ -63,25 +77,35 @@ def _nvcc() -> str:
 
 
 def build_library() -> KernelLibrary:
-    """Compile (once per source hash) and load the kernel library."""
-    h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
-    path = os.path.join(BUILD_DIR, f"libhgt_kernels_{h.hexdigest()[:16]}.so")
-    log = ""
+    """Compile (once per source hash, one nvcc per library, all running at
+    the same time) and load the kernel libraries."""
+    paths, procs = {}, {}
     t0 = time.perf_counter()
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, "mega.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-        os.replace(tmp, path)
+    for name, files in SOURCES.items():
+        h = hashlib.sha256()
+        for fname in files:
+            with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+                h.update(f.read())
+        paths[name] = os.path.join(BUILD_DIR, f"libhgt_{name}_{h.hexdigest()[:16]}.so")
+        if not os.path.exists(paths[name]):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{paths[name]}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, files[0])]
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+    log, failed = "", []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {SOURCES[name][0]} ({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
-    return KernelLibrary(ctypes.CDLL(path), path, seconds, log)
+    return KernelLibrary(ctypes.CDLL(paths["mega"]), ctypes.CDLL(paths["dense"]), paths,
+                         seconds, log)
 
 
 def kernel_library() -> KernelLibrary:

@@ -96,11 +96,16 @@ def compute_dynamics(
     dt: float,
     implicit_damping: torch.Tensor,  # (N,nj) kd gains + URDF damping
     mass_scale: torch.Tensor,  # (N,nb)
+    factor: bool = True,
 ) -> Dyn:
+    """factor=False leaves Mtilde_chol None, for a caller whose solver
+    factors Mtilde itself."""
     k = fk(model, qpos)
     mask = ancestor_mask(model)
     M = mass_matrix(model, k, mask, mass_scale)
     h = bias_forces_explicit(model, qpos, qvel, k, mask, mass_scale)
+    if not factor:
+        return Dyn(k=k, M=M, Mtilde_chol=None, h=h)
     D = torch.cat([torch.zeros_like(implicit_damping[:, :6]), implicit_damping], dim=1)
     Mt = M + dt * torch.diag_embed(D)
     return Dyn(k=k, M=M, Mtilde_chol=chol_unrolled(Mt), h=h)

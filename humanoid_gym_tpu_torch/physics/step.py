@@ -1,10 +1,15 @@
-"""The policy-step physics: PhysicsState and the mega-solver step.
+"""The policy-step physics: PhysicsState, the substep and the policy step.
 
-Port of humanoid_gym_tpu/physics/step.py for `solver="mega"`: one call
-runs `decimation` 1 kHz substeps (PD actuation -> dynamics -> contacts ->
-integration) for a batch of envs through physics/mega.py. A CUDA state runs
-the CUDA kernel, a CPU state its plain version; there is no other branch.
-All state tensors carry the env axis first.
+Port of humanoid_gym_tpu/physics/step.py for flat ground: one call runs
+`decimation` 1 kHz substeps (PD actuation -> dynamics -> contacts ->
+integration) for a batch of envs. Solver "mega" hands the whole policy step
+to physics/mega.py (one kernel launch on the card); every other solver
+("apgd", "pgs", "apgd_pallas", "fused_pallas") loops `make_substep` in
+Python, with the contact solve of "apgd_pallas" / "fused_pallas" in the
+CUDA kernels of physics/solve.py. A CUDA state runs the kernels, a CPU
+state their plain versions; there is no interpret mode, so the
+`*_interpret` solver names are refused. All state tensors carry the env
+axis first.
 """
 
 from __future__ import annotations
@@ -14,8 +19,14 @@ from dataclasses import dataclass
 
 import torch
 
-from .mega import make_mega_step_batched, pd_torques  # noqa: F401  (re-export)
+from . import spatial as S
+from .contact import ContactResult, build_contact_setup, joint_limit_bounds, resolve_contacts
+from .dynamics import compute_dynamics, solve_mtilde
+from .mega import flat_height_fn, make_mega_step_batched, pd_torques
 from .model import RobotModel
+from .solve import fused_dense_solve
+
+SOLVERS = ("mega", "apgd", "pgs", "apgd_pallas", "fused_pallas")
 
 
 @dataclass
@@ -71,6 +82,114 @@ def default_state(model: RobotModel, n: int, base_pos, base_quat_wxyz, qj=None) 
     )
 
 
+def substep_dynamics(model: RobotModel, dt: float, state: PhysicsState, targets, kp, kd,
+                     torque_limit, factor: bool = True):
+    """The part of a substep before the contact solve: (tau, dyn,
+    implicit_d, rhs) with tau the clipped PD torques under the DR-scaled
+    gains, dyn the mass matrix / bias forces (and the Cholesky factor of
+    Mtilde when `factor`), implicit_d the damping on Mtilde's diagonal and
+    rhs = dt * (S tau + tau_fric - h), the delta-v form
+    (M + dt D)(v+ - v) = rhs."""
+    qpos, qvel = state.qpos, state.qvel
+    n = qpos.shape[0]
+    # motor-strength DR scales the effective PD gains per env
+    kp_eff = kp * state.kp_scale[:, None]
+    kd_eff = kd * state.kd_scale[:, None]
+    tau = pd_torques(qpos, qvel, targets, kp_eff, kd_eff, torque_limit)
+    # implicit damping: PD kd + URDF viscous damping on joint DOFs
+    implicit_d = kd_eff + model.dof_damping
+    mass_scale = torch.ones((n, model.nbody), device=qpos.device, dtype=qpos.dtype)
+    mass_scale[:, 0] = state.base_mass_scale
+    dyn = compute_dynamics(model, qpos, qvel, dt, implicit_d, mass_scale, factor=factor)
+    # Coulomb joint friction (smooth sign) plus the explicit part of the
+    # URDF viscous damping
+    dq = qvel[:, 6:]
+    tau_fric = -model.dof_friction * torch.tanh(dq / 0.05) - model.dof_damping * dq
+    gen_force = torch.cat([torch.zeros_like(qvel[:, :6]), tau + tau_fric], dim=1)
+    return tau, dyn, implicit_d, dt * (gen_force - dyn.h)
+
+
+def fused_operands(model: RobotModel, dt: float, state: PhysicsState, targets, kp, kd,
+                   torque_limit, terrain_height_fn=flat_height_fn, max_depen_vel: float = 1.0):
+    """(tau, setup, operands): the ten operands `solve.fused_dense_solve`
+    takes at this state, contiguous, in the external DOF order."""
+    tau, dyn, implicit_d, rhs = substep_dynamics(
+        model, dt, state, targets, kp, kd, torque_limit, factor=False)
+    setup = build_contact_setup(
+        model, dyn, terrain_height_fn, dt, max_depen_vel=max_depen_vel,
+        baumgarte=0.2 * state.contact_stiffness, contact_offset=state.contact_offset,
+    )
+    sign, lb = joint_limit_bounds(model, state.qpos, dt)
+    D = torch.cat([torch.zeros_like(state.qvel[:, :6]), implicit_d], dim=1)
+    Mt = dyn.M + dt * torch.diag_embed(D)
+    ops = (Mt, setup.J, state.qvel, rhs, setup.lo_bound, sign, lb, state.friction,
+           state.contact_compliance, state.contact_lam)
+    return tau, setup, tuple(t.contiguous() for t in ops)
+
+
+def make_substep(
+    model: RobotModel,
+    dt: float,
+    kp,
+    kd,
+    torque_limit,
+    terrain_height_fn=flat_height_fn,
+    solver_iterations: int = 24,
+    max_depen_vel: float = 1.0,
+    solver: str = "apgd",
+):
+    """Returns substep(state, joint_targets (N, nj)) -> state: one 1 kHz
+    step of PD actuation, dynamics, the contact solve and semi-implicit
+    integration, for every env."""
+    if solver not in SOLVERS or solver == "mega":
+        raise ValueError(f"make_substep runs solvers {SOLVERS[1:]}, got {solver!r}")
+    nb = model.nbody
+    body_idx = torch.as_tensor(model.contact_point_body, device=model.device)
+
+    def substep(state: PhysicsState, targets: torch.Tensor, frames_override=None) -> PhysicsState:
+        if frames_override is not None:
+            raise ValueError("the PyTorch port has no sloped contact frames yet (flat ground only)")
+        qpos, qvel = state.qpos, state.qvel
+        n = qpos.shape[0]
+        if solver == "fused_pallas":
+            # Cholesky + v_free + Delassus + APGD + dv in one kernel launch
+            tau, setup, ops = fused_operands(model, dt, state, targets, kp, kd, torque_limit,
+                                             terrain_height_fn, max_depen_vel)
+            qvel_new, lam = fused_dense_solve(*ops, iterations=solver_iterations)
+            K = setup.phi.shape[1]
+            res = ContactResult(
+                qvel_new=qvel_new, impulses=lam[:, : 3 * K].reshape(n, K, 3), phi=setup.phi,
+                pos_w=setup.pos_w, lam=lam,
+            )
+        else:
+            tau, dyn, _, rhs = substep_dynamics(model, dt, state, targets, kp, kd, torque_limit)
+            v_free = qvel + solve_mtilde(dyn.Mtilde_chol, rhs)
+            res = resolve_contacts(
+                model, dyn, qpos, v_free, terrain_height_fn, dt, state.friction,
+                iterations=solver_iterations, max_depen_vel=max_depen_vel, solver=solver,
+                baumgarte=0.2 * state.contact_stiffness, contact_offset=state.contact_offset,
+                compliance=state.contact_compliance, lam0=state.contact_lam,
+            )
+        # DOF velocity limits (URDF <limit velocity>)
+        vj = torch.maximum(torch.minimum(res.qvel_new[:, 6:], model.dof_vel_limit),
+                           -model.dof_vel_limit)
+        qvel_new = torch.cat([res.qvel_new[:, :6], vj], dim=1)
+
+        # integrate (semi-implicit Euler; quaternion exponential map)
+        pos_new = qpos[:, 0:3] + dt * qvel_new[:, 0:3]
+        quat_new = S.quat_integrate(qpos[:, 3:7], qvel_new[:, 3:6], dt)
+        qpos_new = torch.cat([pos_new, quat_new, qpos[:, 7:] + dt * vj], dim=1)
+
+        # net contact force per body (world frame, Newtons)
+        cf = torch.zeros((n, nb, 3), device=qpos.device, dtype=qpos.dtype)
+        cf.index_add_(1, body_idx, res.impulses / dt)
+        return state.replace(
+            qpos=qpos_new, qvel=qvel_new, contact_forces=cf, torques=tau, contact_lam=res.lam,
+        )
+
+    return substep
+
+
 def make_physics_step(
     model: RobotModel,
     sim_dt: float,
@@ -83,9 +202,29 @@ def make_physics_step(
     max_depen_vel: float = 1.0,
 ):
     """Returns step(state, joint_targets (N, nj)) -> state, running
-    `decimation` substeps at sim_dt with the targets held."""
+    `decimation` substeps at sim_dt with the targets held. Solver "mega"
+    is one kernel launch per call; the others loop `make_substep` and leave
+    `fk_out` untouched (zeros), so the env computes its own kinematics."""
+    if solver.endswith("_interpret"):
+        raise ValueError(
+            f"solver {solver!r}: the PyTorch port has no interpret mode (a CPU tensor takes the "
+            f"plain version, a CUDA tensor the kernel); use {solver[:-len('_interpret')]!r}")
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}; the PyTorch port runs {SOLVERS}")
     if solver != "mega":
-        raise ValueError(f"the PyTorch port runs solver 'mega' only, got {solver!r}")
+        dev = model.device
+        f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+        substep = make_substep(
+            model, sim_dt, f(kp), f(kd), f(torque_limit), flat_height_fn, solver_iterations,
+            max_depen_vel=max_depen_vel, solver=solver,
+        )
+
+        def substep_loop(state: PhysicsState, targets: torch.Tensor) -> PhysicsState:
+            for _ in range(decimation):
+                state = substep(state, targets)
+            return state
+
+        return substep_loop
     mega = make_mega_step_batched(
         model, sim_dt, decimation, kp, kd, torque_limit,
         iterations=solver_iterations, max_depen_vel=max_depen_vel,

@@ -77,3 +77,99 @@ def test_env_step_runs_on_the_card(dev):
     for _ in range(3):
         state, tr = env.step(state, torch.zeros((64, 12), device=dev))
     assert tr.obs.is_cuda and torch.isfinite(tr.obs).all() and torch.isfinite(tr.reward).all()
+
+
+def _dense_operands(model, n, dev):
+    """Operands of the two dense solver kernels at n states one policy step
+    into contact: (fused operands, apgd operands)."""
+    from humanoid_gym_tpu_torch.physics import step as ST
+    from humanoid_gym_tpu_torch.physics.contact import delassus_operands
+    from humanoid_gym_tpu_torch.physics.dynamics import solve_mtilde
+    from humanoid_gym_tpu_torch.physics.mega import flat_height_fn
+
+    kp = torch.tensor([200, 200, 350, 350, 15, 15] * 2, dtype=torch.float32, device=dev)
+    kd = torch.full((12,), 10.0, device=dev)
+    tl = model.dof_effort * 0.85
+    st, tgt = _states(model, n, dev)
+    st = ST.make_physics_step(model, 0.001, 10, kp, kd, tl, 8, solver="apgd")(st, tgt)
+    _, _, fused = ST.fused_operands(model, 0.001, st, tgt, kp, kd, tl)
+    _, dyn, _, rhs = ST.substep_dynamics(model, 0.001, st, tgt, kp, kd, tl)
+    v_free = st.qvel + solve_mtilde(dyn.Mtilde_chol, rhs)
+    setup, sign, lb, _, A, u0, bound = delassus_operands(
+        model, dyn, st.qpos, v_free, flat_height_fn, 0.001, contact_offset=st.contact_offset,
+        baumgarte=0.2 * st.contact_stiffness, compliance=st.contact_compliance)
+    apgd = [t.contiguous() for t in (A, u0, setup.lo_bound, sign, lb, st.friction, bound,
+                                     st.contact_lam)]
+    return fused, apgd
+
+
+@pytest.mark.parametrize("n", [300, 37])
+def test_dense_solver_kernels_match_plain(dev, n):
+    """The APGD kernel and the fused dense kernel within the chip_smoke
+    tolerances of their plain versions (lam 2e-3, qvel 5e-4) at 8
+    iterations; 37 envs is not a multiple of the block's 4 envs, so the
+    last block runs with one warp; the counters count."""
+    from humanoid_gym_tpu_torch.physics import solve as SV
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model().to(dev)
+    fused, apgd = _dense_operands(model, n, dev)
+    n3, n4 = SV.fused_dense_solve.launches, SV.apgd_solve_kernel.launches
+    q, lam = SV.fused_dense_solve(*fused, iterations=8)
+    q_p, lam_p = SV.fused_dense_solve_plain(*fused, iterations=8)
+    assert q.shape == (n, 18) and lam.shape == (n, 60)
+    assert float((q - q_p).abs().max()) <= 5e-4
+    assert float((lam - lam_p).abs().max()) <= 2e-3
+    for bound in (apgd[6], None):
+        ops = apgd[:6] + [bound, apgd[7]]
+        lam4 = SV.apgd_solve_kernel(*ops, iterations=8)
+        lam4_p = SV.apgd_solve_kernel_plain(*ops, iterations=8)
+        assert float((lam4 - lam4_p).abs().max()) <= 2e-3
+    cold = SV.apgd_solve_kernel(*apgd[:7], None, iterations=8)
+    assert float((cold - SV.apgd_solve_kernel_plain(*apgd[:7], None, iterations=8)).abs().max()) <= 2e-3
+    assert float(lam_p.abs().max()) > 0.05
+    assert SV.fused_dense_solve.launches == n3 + 1 and SV.apgd_solve_kernel.launches == n4 + 3
+
+
+def test_dense_solver_wrappers_reject_bad_operands(dev):
+    """A CUDA tensor launches the kernel or raises: wrong dtype, layout or
+    device is an error, never a fall back to the plain version."""
+    from humanoid_gym_tpu_torch.physics import solve as SV
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model().to(dev)
+    fused, apgd = _dense_operands(model, 8, dev)
+    bad = list(fused)
+    bad[1] = fused[1].transpose(1, 2)  # J^T: not (N, nrow, nv)
+    with pytest.raises(ValueError):
+        SV.fused_dense_solve(*bad, iterations=8)
+    bad = list(apgd)
+    bad[1] = apgd[1].double()
+    with pytest.raises(ValueError):
+        SV.apgd_solve_kernel(*bad, iterations=8)
+    bad = list(apgd)
+    bad[5] = apgd[5].cpu()
+    with pytest.raises(ValueError):
+        SV.apgd_solve_kernel(*bad, iterations=8)
+
+
+@pytest.mark.parametrize("solver, counter", [("fused_pallas", "fused_dense_solve"),
+                                             ("apgd_pallas", "apgd_solve_kernel")])
+def test_env_step_substep_solvers_on_the_card(dev, solver, counter):
+    """An env step with a per-substep solver launches its kernel once per
+    substep (10 per step) and never the mega kernel."""
+    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
+    from humanoid_gym_tpu_torch.envs import make_env
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.physics import solve as SV
+
+    cfg = XBotLCfg()
+    cfg.sim.solver.solver_type = solver
+    env = make_env(cfg, num_envs=64, device=dev, seed=0)
+    state, obs, priv = env.reset_all()
+    n0, m0 = getattr(SV, counter).launches, MG.mega_kernel_launch.launches
+    for _ in range(2):
+        state, tr = env.step(state, torch.zeros((64, 12), device=dev))
+    assert getattr(SV, counter).launches == n0 + 20
+    assert MG.mega_kernel_launch.launches == m0
+    assert tr.obs.is_cuda and torch.isfinite(tr.obs).all() and torch.isfinite(tr.reward).all()

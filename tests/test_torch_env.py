@@ -10,8 +10,6 @@ iterations): the JAX env's `apgd` path factors in the external DOF order
 and the port's mega path in the kernel's [L, R, base] order, and the APGD
 step bound depends on that order (see test_torch_mega.py)."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,11 +19,10 @@ import torch
 from humanoid_gym_tpu.config.xbotl import XBotLCfg as JaxCfg
 from humanoid_gym_tpu.envs import make_env as jax_make_env
 from humanoid_gym_tpu.envs import rewards as JR
+from humanoid_gym_tpu_torch.algo.convert import env_state_from_jax
 from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg as TorchCfg
 from humanoid_gym_tpu_torch.envs import make_env as torch_make_env
 from humanoid_gym_tpu_torch.envs import rewards as TR
-from humanoid_gym_tpu_torch.envs.state import EnvState
-from humanoid_gym_tpu_torch.physics.step import PhysicsState
 
 # The tensors here are tiny: one intra-op thread per process keeps parallel
 # test workers from oversubscribing the cores (the default is one per core).
@@ -40,17 +37,6 @@ def _quiet(cfg, n, iters):
     cfg.domain_rand.action_noise = 0.0
     cfg.sim.solver.solver_iterations = iters
     return cfg
-
-
-def _to_torch_state(js) -> EnvState:
-    """A JAX EnvState (batched) as the port's EnvState, leaf for leaf."""
-    def t(x):
-        return torch.from_numpy(np.array(x))
-
-    phys = PhysicsState(**{f.name: t(getattr(js.phys, f.name))
-                           for f in dataclasses.fields(PhysicsState)})
-    kw = {f.name: t(getattr(js, f.name)) for f in dataclasses.fields(EnvState) if f.name != "phys"}
-    return EnvState(phys=phys, **kw)
 
 
 # ------------------------------------------------------------------ layouts
@@ -186,7 +172,7 @@ def test_env_step_matches_jax():
     tenv = torch_make_env(tcfg, device="cpu", seed=0)
     assert tenv.reward_names == jenv.reward_names
     js = jax.jit(jenv.init_state)(jax.random.split(jax.random.PRNGKey(3), n), jnp.arange(n))
-    ts = _to_torch_state(js)
+    ts = env_state_from_jax(js)
     jstep = jax.jit(jenv.step)
     rng = np.random.default_rng(4)
     for _ in range(2):
@@ -203,3 +189,46 @@ def test_env_step_matches_jax():
         np.testing.assert_allclose(ts.commands.numpy(), js.commands, atol=1e-5)
         np.testing.assert_allclose(ts.episode_sums.numpy(), js.episode_sums, atol=1e-4)
         np.testing.assert_array_equal(ts.episode_length.numpy(), js.episode_length)
+
+
+@pytest.mark.parametrize("solver", ["apgd", "fused_pallas"])
+def test_env_step_substep_solver_matches_jax(solver):
+    """Two batched env steps with a per-substep solver in the port and
+    `solver_type="apgd"` in the JAX package, at the configured 8 solver
+    iterations (the two share the external DOF order, so no run to
+    convergence is needed). The feet / knee kinematics come from `fk` /
+    `body_velocities` here, not from the mega kernel's rows. Tolerances:
+    qpos 2e-4, qvel 5e-3, obs / privileged obs 5e-3, reward and every
+    reward term 1e-4, exact done flags."""
+    n = 3
+    jcfg = _quiet(JaxCfg(), n, 8)
+    jcfg.sim.solver.solver_type = "apgd"
+    tcfg = _quiet(TorchCfg(), n, 8)
+    tcfg.sim.solver.solver_type = solver
+    jenv = jax_make_env(jcfg)
+    tenv = torch_make_env(tcfg, device="cpu", seed=0)
+    assert tenv.reward_names == jenv.reward_names
+    js = jax.jit(jenv.init_state)(jax.random.split(jax.random.PRNGKey(3), n), jnp.arange(n))
+    ts = env_state_from_jax(js)
+    jstep = jax.jit(jenv.step)
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        a = rng.uniform(-0.5, 0.5, (n, 12)).astype(np.float32)
+        js_prev, ts_prev = js, ts
+        js, jtr = jstep(js, jnp.asarray(a))
+        ts, ttr = tenv.step(ts, torch.from_numpy(a))
+        np.testing.assert_array_equal(ttr.done.numpy(), np.asarray(jtr.done))
+        assert not np.asarray(jtr.done).any()
+        np.testing.assert_allclose(ts.phys.qpos.numpy(), js.phys.qpos, atol=2e-4)
+        np.testing.assert_allclose(ts.phys.qvel.numpy(), js.phys.qvel, atol=5e-3)
+        np.testing.assert_allclose(ttr.obs.numpy(), jtr.obs, atol=5e-3)
+        np.testing.assert_allclose(ttr.privileged_obs.numpy(), jtr.privileged_obs, atol=5e-3)
+        np.testing.assert_allclose(ttr.reward.numpy(), jtr.reward, atol=1e-4)
+        # every reward term: the step's increment of the per-term sums
+        np.testing.assert_allclose(
+            (ts.episode_sums - ts_prev.episode_sums).numpy(),
+            np.asarray(js.episode_sums - js_prev.episode_sums), atol=1e-4)
+        np.testing.assert_allclose(ts.feet_air_time.numpy(), js.feet_air_time, atol=1e-6)
+        np.testing.assert_allclose(ts.last_feet_z.numpy(), js.last_feet_z, atol=2e-4)
+        np.testing.assert_array_equal(ts.episode_length.numpy(), js.episode_length)
+    assert float(ts.phys.fk_out.abs().max()) == 0.0

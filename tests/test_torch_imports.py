@@ -1,4 +1,4 @@
-"""The PyTorch port and chip_smoke.py import no JAX, no flax, no optax and
+"""The PyTorch port, scripts/train_torch.py and chip_smoke.py import no JAX, no flax, no optax and
 nothing of the JAX package. The scan reads each source's import statements
 with `ast` (a substring match would trip on humanoid_gym_tpu_torch)."""
 
@@ -13,7 +13,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "humanoid_gym_tpu")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "train_torch.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py")]
     return sorted(out)
@@ -35,6 +35,8 @@ def _imported_modules(path):
 def test_scan_covers_the_port():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     assert "chip_smoke.py" in names
+    assert "scripts/train_torch.py" in names
+    assert "humanoid_gym_tpu_torch/runner/on_policy_runner.py" in names
     assert "humanoid_gym_tpu_torch/physics/mega.py" in names
     assert len(names) > 15
 

@@ -2,15 +2,18 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # phases 1-4, then the two records; no contract line
 
 Phases (each prints one line of its numbers; any failure raises, so the
 script exits non-zero):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the CUDA kernels from humanoid_gym_tpu_torch/csrc;
-  3. the contact-solve kernel against its plain PyTorch version at 4096
-     envs, on operands built from real XBot-L states;
+  3. the contact-solve kernel against its plain PyTorch version at 4096, 37
+     and 1 envs, on operands built from real XBot-L states;
   4. the mega kernel (one policy step of physics) against its plain
-     version at 4096 envs, over 1 and 5 policy steps;
+     version at 4096 envs over 1 and 5 policy steps and at 37 and 1 envs
+     over one; one launch timed as it runs, with no APGD iterations and
+     with one substep, for the split loop / rest of a substep / fixed cost;
   5. the main path: XBot-L PPO training (4096 envs, T=60, solver mega)
      through `make_train_iter`, one warm-up iteration and 3 timed ones,
      with the kernels' launch counters zeroed just before the timed run;
@@ -22,7 +25,7 @@ script exits non-zero):
      convergence);
   8. the substep path through the entry points: `registry.make_env` ->
      `OnPolicyRunner.learn` at 4096 envs, T=60, with solver fused_pallas
-     (warm-up, 2 timed iterations, resume from its own checkpoint) and
+     (warm-up, 1 timed iteration, resume from its own checkpoint) and
      apgd_pallas (warm-up, 1 timed iteration), launch counters zeroed just
      before each timed run and read just after;
   9. one JSON line with a record per kernel, the card line, then the
@@ -138,6 +141,37 @@ def mega_ops(decimation: int, iterations: int) -> int:
     return decimation * sub + 12 * 110
 
 
+def solve_ops_executed(iterations: int) -> int:
+    """Float32 operations one warp executes in hgt_solve_env (csrc/solve.cuh),
+    every lane counted whether or not its result is used: 32 x the float
+    instructions of the loop nests (a multiply-add counts 2)."""
+    nv, pairs = 18, 117  # strictly-lower structurally non-zero entries
+    w = 0
+    w += nv * 4 + 2 * pairs                      # Cholesky: max, sqrt, 1/d, scale; updates
+    w += 3 * nv * 3                              # three substitutions: scale + multiply-add
+    w += 2 * nv * 2 + 4                          # u = J v_free for two columns, r
+    w += 2 * nv + 2 * 2 * pairs                  # B = L^-1 J^T for two columns
+    w += 2 * nv * 3 + 3                          # sign fold, diag(B^T B), regularizer
+    w += 8 * (nv * 3 + 20 + 1) + nv + 3          # Gram batches, row sums, step
+    proj = 20 + 1                                # a cone and a clamp per lane
+    w += 2 + proj                                # warm start
+    per_iter = nv * 3 + 20 + 2 * nv * 2 + 6 + 4 + proj + 4 + 5 + 12 + 4
+    w += iterations * per_iter
+    w += nv * 3 + 20 + nv * 3 + 3                # B lam, substitution, outputs
+    return 32 * w
+
+
+def mega_ops_executed(decimation: int, iterations: int) -> int:
+    """Float32 operations one warp executes in one launch of hgt_mega_kernel
+    (csrc/mega.cu), every lane counted: per substep PD (8), joint rotations
+    (4 rounds x 30), the 7 chain steps (6 + 30 each), the body stage (190),
+    screws (9), subtree sums (7), the mass matrix (5 rounds x 45), rhs (30),
+    two constraint columns (2 x 90), the solve, integration (60); plus the
+    final chain (4 x 30 + 7 x 20)."""
+    sub = (8 + 4 * 30 + 7 * 36 + 190 + 9 + 7 + 5 * 45 + 30 + 2 * 90 + 60)
+    return decimation * (32 * sub + solve_ops_executed(iterations)) + 32 * (4 * 30 + 7 * 20)
+
+
 PROJ_OPS = 16 * 20 + 12  # 16 cone projections + 12 clamps
 
 
@@ -227,6 +261,164 @@ def _solve_operands(model, st, targets, kp, kd, tlim, dt):
         st.contact_offset, st.contact_compliance, st.contact_lam,
     )
     return ops
+
+
+# tolerances of the JAX package's kernel-vs-XLA check
+# (tests/test_mega_kernel.py:70-76): qpos 5e-4, qvel 1e-2, tau 5e-2, contact
+# force 5 N (ff / dt); lam rows at the same force, 5 N * dt; fk14 positions
+# at the qpos tolerance, foot velocities at qvel's.
+def _mega_tols(sim_dt):
+    return {"qpos": 5e-4, "qvel": 1e-2, "lam": 5.0 * sim_dt, "tau": 5e-2,
+            "ff": 5.0 * sim_dt, "fk_pos": 5e-4, "fk_vel": 1e-2}
+
+
+def _setup(dev):
+    """The XBot-L model, gains and the mega step (kernel and plain) that
+    phases 3 and 4 share."""
+    import types
+
+    import torch
+
+    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
+    from humanoid_gym_tpu_torch.envs.env import _match_gains
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    c = types.SimpleNamespace(dev=dev)
+    c.cfg = XBotLCfg()
+    c.cfg.sim.solver.solver_type = "mega"
+    c.model = build_xbot_model().to(dev)
+    c.sim_dt, c.dec = c.cfg.sim.dt, c.cfg.control.decimation
+    c.iters = c.cfg.sim.solver.solver_iterations
+    c.kp = torch.as_tensor(_match_gains(c.model.dof_names, c.cfg.control.stiffness), device=dev)
+    c.kd = torch.as_tensor(_match_gains(c.model.dof_names, c.cfg.control.damping), device=dev)
+    c.tlim = c.model.dof_effort * c.cfg.safety.torque_limit
+    c.mega = MG.make_mega_step_batched(c.model, c.sim_dt, c.dec, c.kp, c.kd, c.tlim,
+                                       iterations=c.iters)
+
+    def plain(st, tgt):
+        return MG.mega_step_plain(
+            c.model, c.sim_dt, c.dec, c.kp, c.kd, c.tlim, c.iters, 1.0, st.qpos, st.qvel,
+            st.friction, st.base_mass_scale, st.contact_stiffness, st.contact_offset, st.kp_scale,
+            st.kd_scale, st.contact_compliance, st.contact_lam, tgt,
+        )
+
+    def kernel(st, tgt):
+        return c.mega(st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
+                      st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance,
+                      st.contact_lam, tgt)
+
+    def advance(st, out):
+        qpos, qvel, lam, tau, ff, fk14 = out
+        return st.replace(qpos=qpos, qvel=qvel, contact_lam=lam, torques=tau, fk_out=fk14)
+
+    c.plain, c.kernel, c.advance = plain, kernel, advance
+    return c
+
+
+def _phase3_solve(c, records):
+    """Phase 3: the solve kernel against its plain version at 4096, 37 and 1
+    envs. Returns the 4096-env state one policy step in, its targets and the
+    solve's operands there."""
+    import torch
+
+    from humanoid_gym_tpu_torch.physics import solve as SV
+
+    keep = None
+    for n in (N_ENVS, 37, 1):
+        st0, tgt0 = _states(c.model, n, seed=0, device=c.dev)
+        st1 = c.advance(st0, c.plain(st0, tgt0))  # a warm-start lam from one real step
+        ops_in = _solve_operands(c.model, st1, tgt0, c.kp, c.kd, c.tlim, c.sim_dt)
+        q_k, l_k = SV.fused_solve(*ops_in, iterations=c.iters)
+        q_p, l_p = SV.fused_solve_plain(*ops_in, iterations=c.iters)
+        torch.cuda.synchronize()
+        eq, el = _maxerr(q_k, q_p), _maxerr(l_k, l_p)
+        finite = bool(torch.isfinite(q_k).all() and torch.isfinite(l_k).all())
+        if n != N_ENVS:
+            _log(f"phase 3 solve: {n} env(s), {c.iters} iters | max|dqvel| {eq:.3e} (tol 5e-4) "
+                 f"max|dlam| {el:.3e} (tol 2e-3) | finite {finite}")
+        else:
+            keep = (st1, tgt0, ops_in)
+            ms_k = _time_ms(lambda: SV.fused_solve(*ops_in, iterations=c.iters), reps=20)
+            ms_0 = _time_ms(lambda: SV.fused_solve(*ops_in, iterations=0), reps=20)
+            ms_p = _time_ms(lambda: SV.fused_solve_plain(*ops_in, iterations=c.iters), reps=3)
+            nbytes = n * 4 * (sum(t[0].numel() for t in ops_in) + 18 + 60)
+            b_ms, b_by = _bound_ms(nbytes, n * solve_ops(c.iters))
+            _log(f"phase 3 solve: {n} envs, {c.iters} iters | max|dqvel| {eq:.3e} (tol 5e-4) "
+                 f"max|dlam| {el:.3e} (tol 2e-3) | finite {finite} | kernel {ms_k:.4f} ms "
+                 f"(with 0 iterations {ms_0:.4f} ms) plain {ms_p:.3f} ms bound {b_ms:.5f} ms "
+                 f"({b_by}; {solve_ops(c.iters)} operations per env, the warp executes "
+                 f"{solve_ops_executed(c.iters)} with every lane counted)")
+            records["solve"] = dict(max_abs_err=max(eq, el), ms=ms_k, plain_ms=ms_p,
+                                    bound_ms=b_ms, bound_by=b_by)
+        if not (eq <= 5e-4 and el <= 2e-3 and finite):
+            raise AssertionError(f"solve kernel disagrees with its plain version at {n} envs: "
+                                 f"{eq}, {el}")
+    return keep
+
+
+def _mega_errors(ok, op):
+    return {
+        "qpos": _maxerr(ok[0], op[0]), "qvel": _maxerr(ok[1], op[1]),
+        "lam": _maxerr(ok[2], op[2]), "tau": _maxerr(ok[3], op[3]),
+        "ff": _maxerr(ok[4], op[4]), "fk_pos": _maxerr(ok[5][:, :10], op[5][:, :10]),
+        "fk_vel": _maxerr(ok[5][:, 10:], op[5][:, 10:]),
+    }
+
+
+def _phase4_mega(c, records):
+    """Phase 4: the mega kernel against its plain version (4096 envs over 1
+    and 5 policy steps, 37 and 1 envs over one), its time, and the time of
+    one launch without APGD iterations and with a single substep."""
+    import torch
+
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    tols = _mega_tols(c.sim_dt)
+    worst = 0.0
+    st1 = None
+    for n, n_steps in ((N_ENVS, 1), (N_ENVS, 5), (37, 1), (1, 1)):
+        st0, tgt0 = _states(c.model, n, seed=0, device=c.dev)
+        sk, sp = st0, st0
+        for _ in range(n_steps):
+            ok = c.kernel(sk, tgt0)
+            op = c.plain(sp, tgt0)
+            sk, sp = c.advance(sk, ok), c.advance(sp, op)
+        torch.cuda.synchronize()
+        if (n, n_steps) == (N_ENVS, 1):
+            st1, tgt1 = sp, tgt0
+        errs = _mega_errors(ok, op)
+        finite = all(bool(torch.isfinite(t).all()) for t in ok)
+        _log(f"phase 4 mega: {n} env(s), {n_steps} step(s) | " + " ".join(
+            f"{k} {v:.3e}/{tols[k]:.0e}" for k, v in errs.items()) + f" | finite {finite}")
+        bad = {k: v for k, v in errs.items() if not v <= tols[k]}
+        if bad or not finite:
+            raise AssertionError(f"mega kernel disagrees with its plain version at {n} envs: {bad}")
+        worst = max(worst, max(errs.values()))
+    packed = MG.pack_inputs(st1.qpos, st1.qvel, st1.friction, st1.base_mass_scale,
+                            st1.contact_stiffness, st1.contact_offset, st1.kp_scale,
+                            st1.kd_scale, st1.contact_compliance, st1.contact_lam, tgt1)
+
+    def launch(decimation, iterations):
+        return MG.mega_kernel_launch(packed, c.mega.consts, c.sim_dt, decimation, iterations, 1.0)
+
+    ms_mk = _time_ms(lambda: launch(c.dec, c.iters), reps=20)
+    ms_i0 = _time_ms(lambda: launch(c.dec, 0), reps=20)
+    ms_d1 = _time_ms(lambda: launch(1, c.iters), reps=20)
+    ms_d0 = _time_ms(lambda: launch(0, c.iters), reps=20)
+    ms_mp = _time_ms(lambda: c.plain(st1, tgt1), reps=2)
+    b_ms, b_by = _bound_ms(N_ENVS * 4 * (MG.IN_ROWS + MG.OUT_ROWS),
+                           N_ENVS * mega_ops(c.dec, c.iters))
+    _log(f"phase 4 mega timing: {N_ENVS} envs, one launch {ms_mk:.3f} ms, plain {ms_mp:.2f} ms, "
+         f"bound {b_ms:.5f} ms ({b_by}; {mega_ops(c.dec, c.iters)} operations per env, the warp "
+         f"executes {mega_ops_executed(c.dec, c.iters)} with every lane counted)")
+    _log(f"phase 4 mega split: {c.dec} substeps x {c.iters} iterations {ms_mk:.3f} ms | "
+         f"{c.dec} substeps x 0 iterations {ms_i0:.3f} ms | 1 substep x {c.iters} iterations "
+         f"{ms_d1:.3f} ms | 0 substeps {ms_d0:.3f} ms => APGD loop "
+         f"{(ms_mk - ms_i0) / c.dec:.4f} ms per substep, rest of a substep "
+         f"{(ms_i0 - ms_d0) / c.dec:.4f} ms, fixed cost (load, final FK, store) {ms_d0:.4f} ms")
+    records["mega"] = dict(max_abs_err=worst, ms=ms_mk, plain_ms=ms_mp, bound_ms=b_ms,
+                           bound_by=b_by)
 
 
 def _kernel_class(name: str) -> str:
@@ -412,6 +604,41 @@ def _substep_path(solver, timed_iters, resume, card):
     return launches
 
 
+def _ptxas_summary(log: str) -> str:
+    """Per kernel: registers, stack frame and spills from `ptxas -v`."""
+    import re
+
+    out, name, frame = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = re.sub(r"^_Z\d+", "", m.group(1))
+            name = re.match(r"[a-z_]+", name).group(0) if re.match(r"[a-z_]+", name) else name
+        elif "stack frame" in ln:
+            frame = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{name}: {ln.split('ptxas info    :')[-1].strip()}; {frame}")
+    return " | ".join(out)
+
+
+def _phase12_card_and_build() -> str:
+    """Phases 1 and 2: the card line, then the kernels' build. Returns the
+    card line."""
+    import torch
+
+    from humanoid_gym_tpu_torch.physics import cuda_build
+    from humanoid_gym_tpu_torch.physics.kinematics import use_full_f32_matmul
+
+    use_full_f32_matmul()
+    card = _card_line()
+    _log(f"phase 1 card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    lib = cuda_build.kernel_library()
+    _log(f"phase 2 build: {lib.build_seconds:.1f} s -> "
+         f"{', '.join(os.path.relpath(p, HERE) for p in lib.paths.values())} | "
+         + _ptxas_summary(lib.log))
+    return card
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "humanoid_gym_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repo (humanoid_gym_tpu_torch/ not found)",
@@ -429,112 +656,25 @@ def main() -> int:
 
     from humanoid_gym_tpu_torch.algo.networks import ActorCritic
     from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
-    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg, XBotLCfgPPO
+    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
     from humanoid_gym_tpu_torch.envs import make_env
-    from humanoid_gym_tpu_torch.physics import cuda_build, mega as MG, solve as SV, step as ST
+    from humanoid_gym_tpu_torch.physics import mega as MG, solve as SV, step as ST
     from humanoid_gym_tpu_torch.physics.contact import delassus_operands
     from humanoid_gym_tpu_torch.physics.dynamics import solve_mtilde
-    from humanoid_gym_tpu_torch.physics.kinematics import use_full_f32_matmul
-    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
 
     dev = torch.device("cuda")
-    use_full_f32_matmul()
-    card = _card_line()
-    _log(f"phase 1 card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    card = _phase12_card_and_build()
 
-    # ---- phase 2: build ----
-    lib = cuda_build.kernel_library()
-    ptx = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln or "spill" in ln]
-    _log(f"phase 2 build: {lib.build_seconds:.1f} s -> "
-         f"{', '.join(os.path.relpath(p, HERE) for p in lib.paths.values())}"
-         + (" | " + " | ".join(ptx) if ptx else ""))
-
-    cfg = XBotLCfg()
-    cfg.sim.solver.solver_type = "mega"
-    model = build_xbot_model().to(dev)
-    sim_dt, dec = cfg.sim.dt, cfg.control.decimation
-    iters = cfg.sim.solver.solver_iterations
-    from humanoid_gym_tpu_torch.envs.env import _match_gains
-
-    kp = torch.as_tensor(_match_gains(model.dof_names, cfg.control.stiffness), device=dev)
-    kd = torch.as_tensor(_match_gains(model.dof_names, cfg.control.damping), device=dev)
-    tlim = model.dof_effort * cfg.safety.torque_limit
-    mega = MG.make_mega_step_batched(model, sim_dt, dec, kp, kd, tlim, iterations=iters)
-
-    def plain(st, tgt):
-        return MG.mega_step_plain(
-            model, sim_dt, dec, kp, kd, tlim, iters, 1.0, st.qpos, st.qvel, st.friction,
-            st.base_mass_scale, st.contact_stiffness, st.contact_offset, st.kp_scale,
-            st.kd_scale, st.contact_compliance, st.contact_lam, tgt,
-        )
-
-    def advance(st, out):
-        qpos, qvel, lam, tau, ff, fk14 = out
-        return st.replace(qpos=qpos, qvel=qvel, contact_lam=lam, torques=tau, fk_out=fk14)
-
+    c = _setup(dev)
+    cfg, model, kp, kd, tlim = c.cfg, c.model, c.kp, c.kd, c.tlim
+    sim_dt, iters = c.sim_dt, c.iters
     records = {}
-
-    # ---- phase 3: solve kernel vs plain ----
-    st0, tgt0 = _states(model, N_ENVS, seed=0, device=dev)
-    st1 = advance(st0, plain(st0, tgt0))  # a warm-start lam from one real step
-    ops_in = _solve_operands(model, st1, tgt0, kp, kd, tlim, sim_dt)
-    q_k, l_k = SV.fused_solve(*ops_in, iterations=iters)
-    q_p, l_p = SV.fused_solve_plain(*ops_in, iterations=iters)
-    torch.cuda.synchronize()
-    eq, el = _maxerr(q_k, q_p), _maxerr(l_k, l_p)
-    ms_k = _time_ms(lambda: SV.fused_solve(*ops_in, iterations=iters), reps=20)
-    ms_p = _time_ms(lambda: SV.fused_solve_plain(*ops_in, iterations=iters), reps=3)
-    nbytes = N_ENVS * 4 * (sum(t[0].numel() for t in ops_in) + 18 + 60)
-    b_ms, b_by = _bound_ms(nbytes, N_ENVS * solve_ops(iters))
-    _log(f"phase 3 solve: {N_ENVS} envs, {iters} iters | max|dqvel| {eq:.3e} (tol 5e-4) "
-         f"max|dlam| {el:.3e} (tol 2e-3) | kernel {ms_k:.4f} ms plain {ms_p:.3f} ms "
-         f"bound {b_ms:.5f} ms ({b_by})")
-    if not (eq <= 5e-4 and el <= 2e-3):
-        raise AssertionError(f"solve kernel disagrees with its plain version: {eq}, {el}")
-    records["solve"] = dict(max_abs_err=max(eq, el), ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                            bound_by=b_by)
-
-    # ---- phase 4: mega kernel vs plain over 1 and 5 policy steps ----
-    # tolerances of the JAX package's kernel-vs-XLA check
-    # (tests/test_mega_kernel.py:70-76): qpos 5e-4, qvel 1e-2, tau 5e-2,
-    # contact force 5 N (ff / dt); lam rows at the same force, 5 N * dt;
-    # fk14 positions at the qpos tolerance, foot velocities at qvel's.
-    tols = {"qpos": 5e-4, "qvel": 1e-2, "lam": 5.0 * sim_dt, "tau": 5e-2,
-            "ff": 5.0 * sim_dt, "fk_pos": 5e-4, "fk_vel": 1e-2}
-    worst = 0.0
-    for n_steps in (1, 5):
-        sk, sp = st0, st0
-        for _ in range(n_steps):
-            ok = mega(sk.qpos, sk.qvel, sk.friction, sk.base_mass_scale, sk.contact_stiffness,
-                      sk.contact_offset, sk.kp_scale, sk.kd_scale, sk.contact_compliance,
-                      sk.contact_lam, tgt0)
-            op = plain(sp, tgt0)
-            sk, sp = advance(sk, ok), advance(sp, op)
-        torch.cuda.synchronize()
-        errs = {
-            "qpos": _maxerr(ok[0], op[0]), "qvel": _maxerr(ok[1], op[1]),
-            "lam": _maxerr(ok[2], op[2]), "tau": _maxerr(ok[3], op[3]),
-            "ff": _maxerr(ok[4], op[4]), "fk_pos": _maxerr(ok[5][:, :10], op[5][:, :10]),
-            "fk_vel": _maxerr(ok[5][:, 10:], op[5][:, 10:]),
-        }
-        finite = all(bool(torch.isfinite(t).all()) for t in ok)
-        _log(f"phase 4 mega: {n_steps} step(s) | " + " ".join(
-            f"{k} {v:.3e}/{tols[k]:.0e}" for k, v in errs.items()) + f" | finite {finite}")
-        bad = {k: v for k, v in errs.items() if not v <= tols[k]}
-        if bad or not finite:
-            raise AssertionError(f"mega kernel disagrees with its plain version: {bad}")
-        worst = max(worst, max(errs.values()))
-    packed = MG.pack_inputs(st1.qpos, st1.qvel, st1.friction, st1.base_mass_scale,
-                            st1.contact_stiffness, st1.contact_offset, st1.kp_scale,
-                            st1.kd_scale, st1.contact_compliance, st1.contact_lam, tgt0)
-    ms_mk = _time_ms(lambda: MG.mega_kernel_launch(packed, mega.consts, sim_dt, dec, iters, 1.0),
-                     reps=20)
-    ms_mp = _time_ms(lambda: plain(st1, tgt0), reps=2)
-    b_ms, b_by = _bound_ms(N_ENVS * 4 * (MG.IN_ROWS + MG.OUT_ROWS), N_ENVS * mega_ops(dec, iters))
-    _log(f"phase 4 mega timing: {N_ENVS} envs, one launch {ms_mk:.3f} ms, plain {ms_mp:.2f} ms, "
-         f"bound {b_ms:.5f} ms ({b_by})")
-    records["mega"] = dict(max_abs_err=worst, ms=ms_mk, plain_ms=ms_mp, bound_ms=b_ms,
-                           bound_by=b_by)
+    st1, tgt0, ops_in = _phase3_solve(c, records)
+    _phase4_mega(c, records)
+    if "--kernels-only" in sys.argv[1:]:
+        print(json.dumps(records), flush=True)
+        print(f"card: {card}", flush=True)
+        return 0
 
     # ---- phase 5: the main path ----
     tcfg = XBotLCfgPPO()
@@ -660,7 +800,7 @@ def main() -> int:
 
     # ---- phase 8: the substep path through the entry points ----
     os.environ["HGT_WANDB"] = "0"
-    launches_fused = _substep_path("fused_pallas", timed_iters=2, resume=True, card=card)
+    launches_fused = _substep_path("fused_pallas", timed_iters=1, resume=True, card=card)
     launches_apgd = _substep_path("apgd_pallas", timed_iters=1, resume=False, card=card)
 
     kernels = [

@@ -1,201 +1,388 @@
-// Contact solve for one environment: Cholesky of Mtilde, free velocity,
-// B = L^-1 J^T, factor-form APGD over friction cones and joint-limit rows,
-// and the post-impulse velocity.
+// Contact solve for one environment by one warp: Cholesky of Mtilde, free
+// velocity, B = L^-1 J^T, factor-form APGD over friction cones and
+// joint-limit rows, and the post-impulse velocity.
 //
 // Replaces humanoid_gym_tpu/physics/pallas_solver.py:_fused_core_opt with
-// leg_blocks=True (the solve stage of the TPU mega kernel). Same math, same
-// operand order: DOFs in the solver-internal order [left leg 0:6, right
-// leg 6:12, base 12:18], so the factor has no cross-leg fill-in and every
-// structurally zero block is skipped; 60 constraint rows = 16 contact
-// points x (tx, ty, n) followed by 12 joint-limit rows; the APGD step bound
-// is ||B B^T||_inf plus the compliance (CFM) regularizer; projection onto
-// the cones in the kernel's form (nt with a 1e-24 floor); warm start from
-// lam0 in physical signs, sign-folded only inside the solve.
+// leg_blocks=True (the solve stage of the TPU mega kernel). Same math:
+// DOFs in the solver-internal order [left leg 0:6, right leg 6:12, base
+// 12:18], so the factor has no cross-leg fill-in and every structurally
+// zero block is skipped (hgt_lz, resolved at compile time); 60 constraint
+// rows = 16 contact points x (tx, ty, n) followed by 12 joint-limit rows;
+// each APGD iteration is t = B y then g = B^T t + reg y + r (never the
+// dense 60x60 Delassus); the step is 1 / max(||B B^T||_inf + reg, 1e-6)
+// with reg = comp * sum diag(B^T B) / 60; cones projected with nt floored at
+// 1e-24 under the root; warm start in physical signs, sign-folded then
+// projected; lam unfolded on the way out.
 //
-// What bounds it on the H100: one thread does one environment's scalar
-// work (an 18x18 factor, an 18x60 triangular solve, 8 APGD iterations of
-// two 18x60 matvecs), so the kernel is issue- and latency-bound, as the TPU
-// version was; it sits far below both the memory-bandwidth and the FLOP
-// roofline (a few KB of input per env). The design keeps every per-env
-// operand in thread-local arrays (local memory, which the L1/L2 caches
-// serve) and launches small blocks so that 4096 environments spread over
-// all 132 SMs. Making it faster (warp-cooperative factorization, operands
-// in shared memory) is later work.
+// What bounds it on the H100: about 85 k float32 operations per env on
+// 6.5 KB of operands, as a chain of small dependent steps. It is far below
+// both the bandwidth and the FLOP roofline; what limits it is instruction
+// throughput (the mega kernel loses 1-2% when its resident warps are halved,
+// see mega.cu), so the design spreads one env over the 32 lanes of a warp,
+// keeps every operand in registers or that warp's shared memory, and spends
+// as few shuffles and shared-memory reads as it can.
+//
+// Lane assignment (lane l of the env's warp):
+//   Cholesky        lane i < 18 holds row i of M in 18 registers; step k
+//                   takes the pivot and each L[j][k] from its owner by
+//                   shuffle (135 shuffles, 117 multiply-adds per lane);
+//                   1 / L[k][k] is computed once per k and reused by every
+//                   substitution (a multiply where the plain version divides).
+//   substitutions   lane i holds entry i; the pivot entry goes round by
+//                   shuffle; forward steps use the register row, backward
+//                   steps read column entries of L from shared memory.
+//   J^T and B       lane l owns constraint columns l and l + 32 (the second
+//                   exists for l < 28) in 2 x 18 registers, from the moment
+//                   the caller's functor builds them: r = s (J v_free) -
+//                   target, the triangular solve down each column and the
+//                   sign fold are lane-local; B never lies in shared memory.
+//   t = B y         each lane forms its 18 partial sums from its two
+//                   columns; hgt_warp_reduce18 sums 18 values over the warp
+//                   in 9+5+3+2+1 = 20 shuffles (each round a lane hands half
+//                   of its values to its partner) and leaves value v on one
+//                   lane, which writes t[v] to shared memory.
+//   g, y, lam       lane-local (t read back as 5 float4 broadcasts).
+//   projection      lanes 0..15 one cone each, lanes over the limit rows
+//                   (hgt_warp_project of apgd.cuh) on the shared vector x.
+//   restart test    shuffle sum.
+//   Gram bound      the 135 structurally non-zero pairs v <= w of B B^T in
+//                   8 batches of 18 through hgt_warp_reduce18; |G| is
+//                   scattered into an 18 x 19 shared matrix and lane v sums
+//                   row v in a fixed order.
+// The other assignment (lanes on DOF rows, t lane-local, g by reduction)
+// would need a row of 60 in registers or B in shared memory (18 x 61 floats
+// per env, which does not fit one wave, see mega.cu) and 60 reductions per
+// iteration instead of 18; it was not built.
+//
+// Shared memory of one warp's solve: HGT_SOLVE_FLOATS = 448 floats, 1,792 B
+// (M/L 18 x 19, 1/diag, t, x) plus a Gram scratch of HGT_GRAM_FLOATS = 344
+// floats, 1,376 B, that the mega kernel overlays on its dead kinematics
+// scratch. Residency of the stand-alone launch (mega.cu hgt_solve_kernel, 8
+// envs per block): 8 x 3,168 + 288 = 25,632 B per block and 64 registers per
+// thread, so four blocks (32 warps) are resident per SM and 4096 envs are one
+// wave; the mega kernel's reckoning is in mega.cu. Tried and dropped: a thread
+// per env with M, B and the APGD vectors in local memory (0.49 ms stand-alone
+// at 4096 envs against 0.04-0.06 ms now, NVIDIA H100 80GB HBM3, 700.00 W).
 
 #pragma once
+
+#include "apgd.cuh"
 
 #define HGT_NV 18     // generalized velocities
 #define HGT_NP 16     // contact points (8 sole points x 2 feet)
 #define HGT_NC 48     // contact rows
 #define HGT_NR 60     // constraint rows (contact + 12 joint limits)
 #define HGT_HALF 6    // joints per leg (and base DOF count)
+#define HGT_NPAIR 135 // structurally non-zero entries (i, a <= i) of M, L and B B^T
+
+// per-warp shared scratch of the solve (float offsets; T and X 16-byte aligned)
+#define HGT_LS 19            // row stride of M / L (odd: lane i on row i hits bank i * 19)
+#define HGT_SM_M 0           // 18 x 19, padded to 344
+#define HGT_SM_DINV 344      // 1 / L[k][k], 18 padded to 20
+#define HGT_SM_T 364         // v_free, then t = B y, then B lam; 18 padded to 20
+#define HGT_SM_X 384         // trial point, 64
+#define HGT_SOLVE_FLOATS 448
+#define HGT_GRAM_FLOATS 344  // |B B^T|, 18 x 19 padded
 
 // L[i][k] is structurally zero: a right-leg row under a left-leg column.
-__device__ __forceinline__ bool hgt_lz(int i, int k) {
+__host__ __device__ constexpr bool hgt_lz(int i, int k) {
     return k < HGT_HALF && i >= HGT_HALF && i < 2 * HGT_HALF;
 }
 
-// Friction-cone projection of the 16 (tx, ty, n) blocks and nonnegativity
-// of the 12 (sign-folded) limit rows, in place.
-__device__ __forceinline__ void hgt_project(float* x, float mu) {
-    for (int k = 0; k < HGT_NP; ++k) {
-        float tx = x[3 * k], ty = x[3 * k + 1], n = x[3 * k + 2];
-        float nt = sqrtf(tx * tx + ty * ty + 1e-24f);
-        bool inside = nt <= mu * n;
-        bool polar = mu * nt <= -n;
-        float n_p = fmaxf((mu * nt + n) / (1.0f + mu * mu), 0.0f);
-        float scale = mu * n_p / nt;
-        if (inside) {
-            // keep
-        } else if (polar) {
-            x[3 * k] = 0.0f; x[3 * k + 1] = 0.0f; x[3 * k + 2] = 0.0f;
-        } else {
-            x[3 * k] = tx * scale; x[3 * k + 1] = ty * scale; x[3 * k + 2] = n_p;
+// The idx-th structurally non-zero entry (row i, column a <= i) of the lower
+// triangle, rows in order: packed as i * 32 + a.
+__host__ __device__ constexpr int hgt_pair(int idx) {
+    int count = 0;
+    for (int i = 0; i < HGT_NV; ++i)
+        for (int a = 0; a <= i; ++a) {
+            if (hgt_lz(i, a)) continue;
+            if (count == idx) return i * 32 + a;
+            ++count;
         }
-    }
-    for (int r = HGT_NC; r < HGT_NR; ++r) x[r] = fmaxf(x[r], 0.0f);
+    return -1;
 }
 
-// One environment's solve.
-//   M      (18x18) Mtilde in solver order; overwritten by its Cholesky
-//          factor in the lower triangle.
-//   B      (18x60) J^T in solver order, NOT sign-folded; overwritten by
-//          the sign-folded B = L^-1 J^T.
-//   qvel, rhs (18): velocity and dt * (S tau + tau_fric - h), solver order.
-//   target, sign (60): desired constraint velocities (limit rows in their
-//          sign-local form) and +-1 per limit row (1 elsewhere).
-//   lam0 (60): warm start in physical signs.
-// Writes qvel_new (18, solver order) and lam (60, physical signs).
-__device__ void hgt_solve_env(float (*M)[HGT_NV], float (*B)[HGT_NR],
-                              const float* qvel, const float* rhs,
-                              const float* target, const float* sign,
-                              float mu, float comp, const float* lam0,
-                              int iterations, float* qvel_new, float* lam) {
-    // ---- in-place right-looking Cholesky (leg-block sparsity) ----
+// Block-wide: fill the (row, column) byte table of the non-zero pairs.
+// The caller synchronises the block afterwards.
+__device__ __forceinline__ void hgt_fill_pairs(unsigned char* pairs) {
+    for (int t = threadIdx.x; t < HGT_NPAIR; t += blockDim.x) {
+        int p = hgt_pair(t);
+        pairs[2 * t] = (unsigned char)(p >> 5);
+        pairs[2 * t + 1] = (unsigned char)(p & 31);
+    }
+}
+
+// Sum 18 per-lane values over the warp. Round by round (lane offsets 16, 8,
+// 4, 2, 1) a lane keeps one half of its values and hands the other half to
+// its partner, so 20 shuffles do the work of 18 x 5. The sum of value v ends
+// on the one lane with hgt_reduce18_slot(lane) == v; other lanes return 0.
+__device__ __forceinline__ float hgt_warp_reduce18(const float (&p)[HGT_NV], int lane) {
+    const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4, h1 = lane & 2, h0 = lane & 1;
+    float q[9], r[5], s[3], u[2];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        float lo = p[i], hi = p[9 + i];
+        q[i] = (h4 ? hi : lo) + __shfl_xor_sync(HGT_FULL_MASK, h4 ? lo : hi, 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+        float lo = q[i], hi = (i + 5 < 9) ? q[i + 5] : 0.0f;
+        r[i] = (h3 ? hi : lo) + __shfl_xor_sync(HGT_FULL_MASK, h3 ? lo : hi, 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        float lo = r[i], hi = (i + 3 < 5) ? r[i + 3] : 0.0f;
+        s[i] = (h2 ? hi : lo) + __shfl_xor_sync(HGT_FULL_MASK, h2 ? lo : hi, 4);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        float lo = s[i], hi = (i + 2 < 3) ? s[i + 2] : 0.0f;
+        u[i] = (h1 ? hi : lo) + __shfl_xor_sync(HGT_FULL_MASK, h1 ? lo : hi, 2);
+    }
+    return (h0 ? u[1] : u[0]) + __shfl_xor_sync(HGT_FULL_MASK, h0 ? u[0] : u[1], 1);
+}
+
+// Which of the 18 values this lane holds after hgt_warp_reduce18, or -1.
+__device__ __forceinline__ int hgt_reduce18_slot(int lane) {
+    int base = 0, cnt = HGT_NV;
+    const int halves[5] = {9, 5, 3, 2, 1};
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+        int h = halves[r];
+        if (lane & (16 >> r)) { base += h; cnt = max(cnt - h, 0); }
+        else cnt = min(cnt, h);
+    }
+    return cnt > 0 ? base : -1;
+}
+
+// One batch of 18 Gram entries: this lane's partial products of the pairs
+// B * 18 .. B * 18 + 17 (compile-time indices into the register columns).
+template <int B, int I>
+__device__ __forceinline__ void hgt_gram_partials(float (&p)[HGT_NV], const float (&b0)[HGT_NV],
+                                                  const float (&b1)[HGT_NV]) {
+    constexpr int idx = B * HGT_NV + I;
+    if constexpr (idx < HGT_NPAIR) {
+        constexpr int w = hgt_pair(idx) >> 5, v = hgt_pair(idx) & 31;
+        p[I] = b0[v] * b0[w] + b1[v] * b1[w];
+    } else {
+        p[I] = 0.0f;
+    }
+    if constexpr (I + 1 < HGT_NV) hgt_gram_partials<B, I + 1>(p, b0, b1);
+}
+
+template <int B>
+__device__ __forceinline__ void hgt_gram_batches(float* gs, const unsigned char* pairs,
+                                                 const float (&b0)[HGT_NV],
+                                                 const float (&b1)[HGT_NV], int lane, int slot) {
+    float p[HGT_NV];
+    hgt_gram_partials<B, 0>(p, b0, b1);
+    float g = fabsf(hgt_warp_reduce18(p, lane));
+    int idx = B * HGT_NV + slot;
+    if (slot >= 0 && idx < HGT_NPAIR) {
+        int w = pairs[2 * idx], v = pairs[2 * idx + 1];
+        gs[w * HGT_LS + v] = g;
+        gs[v * HGT_LS + w] = g;
+    }
+    if constexpr ((B + 1) * HGT_NV < HGT_NPAIR) hgt_gram_batches<B + 1>(gs, pairs, b0, b1, lane, slot);
+}
+
+// One environment's solve by one warp; every lane of the warp calls it.
+//   sm     HGT_SOLVE_FLOATS of this warp's shared memory. On entry the lower
+//          triangle of Mtilde (solver order, structurally zero cross-leg
+//          entries excepted) lies at sm[HGT_SM_M + i * HGT_LS + a] and the
+//          warp is synchronised.
+//   gs     HGT_GRAM_FLOATS of scratch, free once `cols` has run.
+//   pairs  the block's table from hgt_fill_pairs.
+//   rhs_i, qvel_i   entry `lane` (< 18) of dt * (S tau + tau_fric - h) and of
+//          the velocity, solver order.
+//   lamp0, lamp1    warm start of rows lane and lane + 32, physical signs.
+//   cols(b0, b1, tg0, tg1, s0, s1)   fills this lane's two columns of J^T
+//          (NOT sign-folded), their desired constraint velocities (limit
+//          rows in their sign-local form) and signs; a missing second column
+//          is zeros with target 0 and sign 1.
+// Returns entry `lane` of the new velocity (lanes < 18) and the impulses of
+// rows lane and lane + 32 in physical signs.
+template <class Cols>
+__device__ __forceinline__ void hgt_solve_env(float* sm, float* gs, const unsigned char* pairs,
+                                              int lane, float rhs_i, float qvel_i, float mu,
+                                              float comp, float lamp0, float lamp1,
+                                              int iterations, Cols& cols, float& qn_i,
+                                              float& lam_out0, float& lam_out1) {
+    float* Ms = sm + HGT_SM_M;
+    float* dinv = sm + HGT_SM_DINV;
+    float* tv = sm + HGT_SM_T;
+    float* x = sm + HGT_SM_X;
+    const bool dof = lane < HGT_NV;
+    const bool v1 = lane + 32 < HGT_NR;
+    const int slot = hgt_reduce18_slot(lane);
+
+    // ---- right-looking Cholesky, row `lane` in registers ----
+    float Lr[HGT_NV];
+#pragma unroll
+    for (int j = 0; j < HGT_NV; ++j) {
+        bool have = dof && j <= lane && !hgt_lz(lane, j);
+        Lr[j] = have ? Ms[(dof ? lane : 0) * HGT_LS + j] : 0.0f;
+    }
+#pragma unroll
     for (int k = 0; k < HGT_NV; ++k) {
-        float d = sqrtf(fmaxf(M[k][k], 1e-12f));
-        M[k][k] = d;
-        for (int i = k + 1; i < HGT_NV; ++i)
-            if (!hgt_lz(i, k)) M[i][k] = M[i][k] / d;
+        float d = sqrtf(fmaxf(__shfl_sync(HGT_FULL_MASK, Lr[k], k), 1e-12f));
+        float di = 1.0f / d;
+        float lik = (lane == k) ? d : Lr[k] * di;  // 0 above the diagonal and in the zero block
+        Lr[k] = lik;
+        if (lane == k) dinv[k] = di;
+#pragma unroll
         for (int j = k + 1; j < HGT_NV; ++j) {
             if (hgt_lz(j, k)) continue;
-            float cj = M[j][k];
-            for (int i = j; i < HGT_NV; ++i)
-                if (!hgt_lz(i, k)) M[i][j] = M[i][j] - M[i][k] * cj;
+            float ljk = __shfl_sync(HGT_FULL_MASK, lik, j);
+            if (j <= lane) Lr[j] = Lr[j] - lik * ljk;
         }
     }
-
-    // ---- v_free = qvel + L^-T L^-1 rhs ----
-    float vf[HGT_NV];
-    for (int k = 0; k < HGT_NV; ++k) vf[k] = rhs[k];
-    for (int k = 0; k < HGT_NV; ++k) {
-        float xk = vf[k] / M[k][k];
-        vf[k] = xk;
-        for (int i = k + 1; i < HGT_NV; ++i)
-            if (!hgt_lz(i, k)) vf[i] = vf[i] - M[i][k] * xk;
+    if (dof) {
+#pragma unroll
+        for (int j = 0; j < HGT_NV; ++j) Ms[lane * HGT_LS + j] = Lr[j];
     }
+    if (lane >= HGT_NV && lane < 20) tv[lane] = 0.0f;  // the float4 reads of t cover 20
+    __syncwarp();
+
+    // ---- v_free = qvel + L^-T L^-1 rhs, lane i holds entry i ----
+    float xi = dof ? rhs_i : 0.0f;
+#pragma unroll
+    for (int k = 0; k < HGT_NV; ++k) {
+        float xk = __shfl_sync(HGT_FULL_MASK, xi, k) * dinv[k];
+        if (lane == k) xi = xk;
+        else if (lane > k) xi = xi - Lr[k] * xk;
+    }
+#pragma unroll
     for (int k = HGT_NV - 1; k >= 0; --k) {
-        float xk = vf[k] / M[k][k];
-        vf[k] = xk;
-        for (int i = 0; i < k; ++i)
-            if (!hgt_lz(k, i)) vf[i] = vf[i] - M[k][i] * xk;
+        float xk = __shfl_sync(HGT_FULL_MASK, xi, k) * dinv[k];
+        if (lane == k) xi = xk;
+        else if (lane < k) xi = xi - Ms[k * HGT_LS + lane] * xk;
     }
-    for (int k = 0; k < HGT_NV; ++k) vf[k] = qvel[k] + vf[k];
+    const float vfi = dof ? qvel_i + xi : 0.0f;
+    if (dof) tv[lane] = vfi;
+    __syncwarp();
 
-    // ---- r = sign * (J v_free) - target (J^T still unfactored in B) ----
-    float rr[HGT_NR];
-    for (int r = 0; r < HGT_NR; ++r) {
-        float u = 0.0f;
-        for (int k = 0; k < HGT_NV; ++k) u = u + B[k][r] * vf[k];
-        rr[r] = u * sign[r] - target[r];
+    // ---- this lane's two columns of J^T; r = sign * (J v_free) - target ----
+    float b0[HGT_NV], b1[HGT_NV];
+    float tg0, tg1, s0, s1;
+    cols(b0, b1, tg0, tg1, s0, s1);
+    float tt[20];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+        float4 f = reinterpret_cast<const float4*>(tv)[q];
+        tt[4 * q] = f.x; tt[4 * q + 1] = f.y; tt[4 * q + 2] = f.z; tt[4 * q + 3] = f.w;
     }
+    float u0 = 0.0f, u1 = 0.0f;
+#pragma unroll
+    for (int v = 0; v < HGT_NV; ++v) {
+        u0 = u0 + b0[v] * tt[v];
+        u1 = u1 + b1[v] * tt[v];
+    }
+    const float rr0 = u0 * s0 - tg0;
+    const float rr1 = v1 ? u1 * s1 - tg1 : 0.0f;
 
-    // ---- B = L^-1 J^T, then sign-folded ----
+    // ---- B = L^-1 J^T down each column, then sign-folded ----
+#pragma unroll
     for (int k = 0; k < HGT_NV; ++k) {
-        float dk = M[k][k];
-        for (int r = 0; r < HGT_NR; ++r) B[k][r] = B[k][r] / dk;
+        float dk = dinv[k];
+        b0[k] = b0[k] * dk;
+        b1[k] = b1[k] * dk;
+#pragma unroll
         for (int i = k + 1; i < HGT_NV; ++i) {
             if (hgt_lz(i, k)) continue;
-            float lik = M[i][k];
-            for (int r = 0; r < HGT_NR; ++r) B[i][r] = B[i][r] - lik * B[k][r];
+            float lik = Ms[i * HGT_LS + k];
+            b0[i] = b0[i] - lik * b0[k];
+            b1[i] = b1[i] - lik * b1[k];
         }
     }
-    for (int k = 0; k < HGT_NV; ++k)
-        for (int r = 0; r < HGT_NR; ++r) B[k][r] = B[k][r] * sign[r];
-
-    // ---- step bound ||G||_inf (G = B B^T, cross-leg entries are exact
-    // zeros and skipped) + CFM regularizer ----
-    float rows[HGT_NV];
-    for (int v = 0; v < HGT_NV; ++v) rows[v] = 0.0f;
+    float d0 = 0.0f, d1 = 0.0f;
+#pragma unroll
     for (int v = 0; v < HGT_NV; ++v) {
-        for (int w = v; w < HGT_NV; ++w) {
-            if (hgt_lz(w, v)) continue;
-            float g = 0.0f;
-            for (int r = 0; r < HGT_NR; ++r) g = g + B[v][r] * B[w][r];
-            g = fabsf(g);
-            rows[v] += g;
-            if (w != v) rows[w] += g;
-        }
+        b0[v] = b0[v] * s0;
+        b1[v] = b1[v] * s1;
+        d0 = d0 + b0[v] * b0[v];
+        d1 = d1 + b1[v] * b1[v];
     }
-    float bound = rows[0];
-    for (int v = 1; v < HGT_NV; ++v) bound = fmaxf(bound, rows[v]);
-    float dsum = 0.0f;
-    for (int r = 0; r < HGT_NR; ++r) {
-        float dA = 0.0f;
-        for (int v = 0; v < HGT_NV; ++v) dA = dA + B[v][r] * B[v][r];
-        dsum = dsum + dA;
+    const float reg = comp * hgt_warp_sum(d0 + d1) / (float)HGT_NR;
+
+    // ---- step bound ||B B^T||_inf + reg (cross-leg entries are exact zeros) ----
+    // every lane is past its reads of the caller's scratch under gs: `cols`
+    // ran before the shuffles above
+    for (int idx = lane; idx < HGT_GRAM_FLOATS; idx += 32) gs[idx] = 0.0f;
+    __syncwarp();
+    hgt_gram_batches<0>(gs, pairs, b0, b1, lane, slot);
+    __syncwarp();
+    float rowsum = 0.0f;
+    if (dof) {
+#pragma unroll
+        for (int w = 0; w < HGT_NV; ++w) rowsum += gs[lane * HGT_LS + w];
     }
-    float reg = comp * dsum / (float)HGT_NR;
-    float step = 1.0f / fmaxf(bound + reg, 1e-6f);
+    const float step = 1.0f / fmaxf(hgt_warp_max(rowsum) + reg, 1e-6f);
+
+    // ---- warm start: fold, project ----
+    x[lane] = lamp0 * s0;
+    x[lane + 32] = v1 ? lamp1 * s1 : 0.0f;
+    __syncwarp();
+    hgt_warp_project(x, HGT_NP, HGT_NR, mu, lane);
+    float lam0 = x[lane], lam1 = v1 ? x[lane + 32] : 0.0f;
+    float y0 = lam0, y1 = lam1;
 
     // ---- APGD with Nesterov momentum and adaptive restart ----
-    float y[HGT_NR], g[HGT_NR], t[HGT_NV];
-    for (int r = 0; r < HGT_NR; ++r) lam[r] = lam0[r] * sign[r];
-    hgt_project(lam, mu);
-    for (int r = 0; r < HGT_NR; ++r) y[r] = lam[r];
     float theta = 1.0f;
+    float p[HGT_NV];
     for (int it = 0; it < iterations; ++it) {
+#pragma unroll
+        for (int v = 0; v < HGT_NV; ++v) p[v] = b0[v] * y0 + b1[v] * y1;
+        float tsum = hgt_warp_reduce18(p, lane);
+        if (slot >= 0) tv[slot] = tsum;
+        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < 5; ++q) {
+            float4 f = reinterpret_cast<const float4*>(tv)[q];
+            tt[4 * q] = f.x; tt[4 * q + 1] = f.y; tt[4 * q + 2] = f.z; tt[4 * q + 3] = f.w;
+        }
+        float g0 = 0.0f, g1 = 0.0f;
+#pragma unroll
         for (int v = 0; v < HGT_NV; ++v) {
-            float s = 0.0f;
-            for (int r = 0; r < HGT_NR; ++r) s = s + B[v][r] * y[r];
-            t[v] = s;
+            g0 = g0 + b0[v] * tt[v];
+            g1 = g1 + b1[v] * tt[v];
         }
-        for (int r = 0; r < HGT_NR; ++r) {
-            float s = 0.0f;
-            for (int v = 0; v < HGT_NV; ++v) s = s + B[v][r] * t[v];
-            g[r] = s + reg * y[r] + rr[r];
-        }
-        // g holds the gradient; y becomes the projected step
-        for (int r = 0; r < HGT_NR; ++r) y[r] = y[r] - step * g[r];
-        hgt_project(y, mu);
-        float gd = 0.0f;
-        for (int r = 0; r < HGT_NR; ++r) gd = gd + g[r] * (y[r] - lam[r]);
+        g0 = g0 + reg * y0 + rr0;
+        g1 = v1 ? g1 + reg * y1 + rr1 : 0.0f;
+        x[lane] = y0 - step * g0;
+        if (v1) x[lane + 32] = y1 - step * g1;
+        __syncwarp();
+        hgt_warp_project(x, HGT_NP, HGT_NR, mu, lane);
+        float ln0 = x[lane], ln1 = v1 ? x[lane + 32] : 0.0f;
+        float e0 = ln0 - lam0, e1 = ln1 - lam1;
+        float gd = hgt_warp_sum(g0 * e0 + g1 * e1);
         bool restart = gd > 0.0f;
         if (restart) theta = 1.0f;
         float theta_new = 0.5f * (theta * sqrtf(theta * theta + 4.0f) - theta * theta);
         float beta = restart ? 0.0f : theta * (1.0f - theta) / (theta * theta + theta_new);
-        for (int r = 0; r < HGT_NR; ++r) {
-            float ln = y[r];
-            float d = ln - lam[r];
-            lam[r] = ln;
-            y[r] = ln + beta * d;
-        }
+        y0 = ln0 + beta * e0;
+        y1 = ln1 + beta * e1;
+        lam0 = ln0;
+        lam1 = ln1;
         theta = theta_new;
+        // the next write of x follows the synchronisation after the next write of t
     }
 
     // ---- qvel_new = v_free + L^-T (B lam) ----
-    float dv[HGT_NV];
-    for (int v = 0; v < HGT_NV; ++v) {
-        float s = 0.0f;
-        for (int r = 0; r < HGT_NR; ++r) s = s + B[v][r] * lam[r];
-        dv[v] = s;
-    }
+#pragma unroll
+    for (int v = 0; v < HGT_NV; ++v) p[v] = b0[v] * lam0 + b1[v] * lam1;
+    float bl = hgt_warp_reduce18(p, lane);
+    if (slot >= 0) tv[slot] = bl;
+    __syncwarp();
+    float yi = dof ? tv[lane] : 0.0f;
+#pragma unroll
     for (int k = HGT_NV - 1; k >= 0; --k) {
-        float xk = dv[k] / M[k][k];
-        dv[k] = xk;
-        for (int i = 0; i < k; ++i)
-            if (!hgt_lz(k, i)) dv[i] = dv[i] - M[k][i] * xk;
+        float xk = __shfl_sync(HGT_FULL_MASK, yi, k) * dinv[k];
+        if (lane == k) yi = xk;
+        else if (lane < k) yi = yi - Ms[k * HGT_LS + lane] * xk;
     }
-    for (int v = 0; v < HGT_NV; ++v) qvel_new[v] = vf[v] + dv[v];
-    for (int r = 0; r < HGT_NR; ++r) lam[r] = lam[r] * sign[r];
+    qn_i = vfi + yi;
+    lam_out0 = lam0 * s0;
+    lam_out1 = lam1 * s1;
+    __syncwarp();  // the caller may overwrite sm
 }

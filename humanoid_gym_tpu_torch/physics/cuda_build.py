@@ -23,7 +23,7 @@ from .. import HGT_ROOT_DIR
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # library name -> (the .cu to compile, the headers it includes)
 SOURCES = {
-    "mega": ("mega.cu", "solve.cuh"),
+    "mega": ("mega.cu", "solve.cuh", "apgd.cuh"),
     "dense": ("dense_solve.cu", "apgd.cuh"),
 }
 BUILD_DIR = os.path.join(HGT_ROOT_DIR, "build", "kernels")
@@ -36,7 +36,7 @@ NVCC_FLAGS = [
 class KernelLibrary:
     """The loaded libraries (`lib`: mega.cu, `dense`: dense_solve.cu), their
     build record, and the model constants last uploaded to the mega
-    library's __constant__ memory."""
+    library's device memory."""
 
     def __init__(self, lib: ctypes.CDLL, dense: ctypes.CDLL, paths: dict, build_seconds: float,
                  log: str):

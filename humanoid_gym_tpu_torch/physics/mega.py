@@ -10,9 +10,10 @@ returns the six outputs of `make_mega_step_batched`:
   feet/knee kinematics: [fLx,fRx, fLy,fRy, fLz,fRz, kLx,kRx, kLy,kRy,
   vLx,vRx, vLy,vRy], positions base-relative, feet v_origin world-frame).
 
-A CUDA tensor goes to the kernel (csrc/mega.cu: one thread per env, all
-substeps in one launch, env-major (N, 120) in / (N, 136) out in the
-`IN_*` / `OUT_*` row layout of the TPU kernel). A CPU tensor goes to
+A CUDA tensor goes to the kernel (csrc/mega.cu: one warp per env with the
+env's state in that warp's shared memory, all substeps in one launch,
+env-major (N, 120) in / (N, 136) out in the `IN_*` / `OUT_*` row layout of
+the TPU kernel). A CPU tensor goes to
 `mega_step_plain`, a batched port of the TPU package's single-env
 fallback `step` (mega_kernel.py:1669-1774) with the kernel's own solve
 stage. Flat ground only.
@@ -46,7 +47,7 @@ OUT_ROWS = 136
 PERM = list(range(6, 18)) + list(range(6))
 INV_PERM = [PERM.index(i) for i in range(NV)]
 
-# __constant__ model layout: (name, length); offsets must match csrc/mega.cu
+# model-constant layout: (name, length); offsets must match csrc/mega.cu
 CONST_LAYOUT = (
     ("mass", 13), ("com", 39), ("inertia", 117), ("jpos", 36), ("jrot", 108),
     ("jaxis", 36), ("coff", 48), ("kp", 12), ("kd", 12), ("tlim", 12),
@@ -55,7 +56,6 @@ CONST_LAYOUT = (
     ("knee", 2),
 )
 CONST_COUNT = sum(n for _, n in CONST_LAYOUT)  # 541
-
 
 def flat_height_fn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Plane terrain (mesh_type='plane', the XBot-L default)."""
@@ -79,7 +79,7 @@ def check_mega_topology(model: RobotModel) -> None:
 
 
 def pack_model_constants(model: RobotModel, kp, kd, torque_limit) -> np.ndarray:
-    """The kernel's __constant__ block (CONST_LAYOUT order), float32."""
+    """The kernel's model-constant block (CONST_LAYOUT order), float32."""
     def a(x):
         return np.asarray(torch.as_tensor(x).detach().cpu(), np.float64).ravel()
 

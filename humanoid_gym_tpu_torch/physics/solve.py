@@ -27,7 +27,8 @@ DOF order
   Mt (N,18,18), Jt (N,18,60) (J^T, not sign-folded), qvel/rhs (N,18),
   target/sign/lam0 (N,60), mu/comp (N,)  ->  qvel_new (N,18), lam (N,60)
 with lam0 and lam in physical signs. The CUDA version is the device
-function `hgt_solve_env` in csrc/solve.cuh, which the mega kernel calls;
+function `hgt_solve_env` in csrc/solve.cuh (one warp per env: the factor in
+shared memory, the columns of B in registers), which the mega kernel calls;
 `fused_solve` launches it alone so it can be held against
 `fused_solve_plain` on the card.
 """
@@ -42,7 +43,6 @@ from .linalg import chol_unrolled, solve_lower_unrolled, solve_upper_unrolled
 NV = 18
 N_POINTS = 16
 ROWS = 60
-
 
 def project_cone_folded(x: torch.Tensor, mu: torch.Tensor, n_points: int = N_POINTS) -> torch.Tensor:
     """The kernels' projection: friction cones on the (tx, ty, n) blocks

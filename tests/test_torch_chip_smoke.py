@@ -1,0 +1,71 @@
+"""chip_smoke.py's parts that need no card: its refusal to run without one,
+the operation counts behind the kernels' bounds, and the keys of the
+per-kernel records."""
+
+import ast
+import importlib.util
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT = os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("args", [(), ("--kernels-only",)], ids=["all-phases", "kernels-only"])
+def test_without_a_card_exits_nonzero_and_prints_no_result(args):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    run = subprocess.run([sys.executable, SCRIPT, *args], capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode not in (0, None)
+    assert run.stdout.strip() == ""
+    assert "CUDA card" in run.stderr
+
+
+def test_operation_counts_behind_the_bounds(smoke):
+    """The bounds count the function's work, not the kernels' loop nests:
+    linear in substeps and iterations, the executed counts never below
+    them, and the figures the kernel table quotes for 10 substeps of 8
+    iterations."""
+    per_iter = smoke.solve_ops(9) - smoke.solve_ops(8)
+    assert per_iter > 0 and smoke.solve_ops(8) - smoke.solve_ops(0) == 8 * per_iter
+    per_sub = smoke.mega_ops(2, 8) - smoke.mega_ops(1, 8)
+    assert smoke.mega_ops(10, 8) == smoke.mega_ops(0, 8) + 10 * per_sub
+    assert per_sub > smoke.solve_ops(8)
+    assert 9.0e5 < smoke.mega_ops(10, 8) < 1.0e6
+    assert smoke.solve_ops_executed(8) >= smoke.solve_ops(8)
+    assert smoke.mega_ops_executed(10, 8) >= smoke.mega_ops(10, 8)
+    assert smoke.fused_dense_ops(8) == 181554
+    assert smoke.fused_dense_ops(8, executed=True) == 263787
+    t, by = smoke._bound_ms(4096 * 4 * 256, 4096 * smoke.mega_ops(10, 8))
+    assert by == "operations" and abs(t - 0.05906) < 1e-4
+
+
+def test_kernel_records_hold_only_measured_keys_and_the_bound():
+    """Every `records[...] = dict(...)` of the script carries the contract's
+    keys and no other: what the run measured, plus `bound_ms` / `bound_by`."""
+    allowed = {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"}
+    tree = ast.parse(open(SCRIPT).read(), filename=SCRIPT)
+    found = 0
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Subscript)
+                and getattr(node.targets[0].value, "id", None) == "records"):
+            continue
+        call = node.value
+        assert isinstance(call, ast.Call) and getattr(call.func, "id", None) == "dict"
+        assert {k.arg for k in call.keywords} == allowed, ast.unparse(node.targets[0])
+        found += 1
+    assert found == 4

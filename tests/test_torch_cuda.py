@@ -34,19 +34,23 @@ def _states(model, n, dev):
     return st, f(rng.uniform(-0.2, 0.2, (n, 12)))
 
 
-def test_mega_and_solve_kernels_match_plain(dev):
-    """256 envs, one policy step: the kernel within the chip_smoke
-    tolerances of the plain version (qpos 5e-4, qvel 1e-2, tau 5e-2), and
-    the stand-alone solve within qvel 5e-4, lam 2e-3; counters count."""
-    from humanoid_gym_tpu_torch.physics import mega as MG
-    from humanoid_gym_tpu_torch.physics import solve as SV
-    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
-
-    model = build_xbot_model().to(dev)
+def _gains(model, dev):
     kp = torch.tensor([200, 200, 350, 350, 15, 15] * 2, dtype=torch.float32, device=dev)
     kd = torch.full((12,), 10.0, device=dev)
-    tl = model.dof_effort * 0.85
-    st, tgt = _states(model, 256, dev)
+    return kp, kd, model.dof_effort * 0.85
+
+
+def _mega_and_solve_match_plain(model, st, tgt, dev):
+    """One policy step of the mega kernel within the chip_smoke tolerances of
+    the plain version (qpos 5e-4, qvel 1e-2, lam and ff 5 N x dt, tau 5e-2,
+    fk14 5e-4), the stand-alone solve within qvel 5e-4, lam 2e-3, all finite;
+    each wrapper counts one launch. Returns the plain outputs and the
+    solve's operands."""
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.physics import solve as SV
+
+    n = st.qpos.shape[0]
+    kp, kd, tl = _gains(model, dev)
     args = (st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
             st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance, st.contact_lam, tgt)
     step = MG.make_mega_step_batched(model, 0.001, 10, kp, kd, tl, iterations=8)
@@ -55,15 +59,65 @@ def test_mega_and_solve_kernels_match_plain(dev):
     assert MG.mega_kernel_launch.launches == n0 + 1
     want = MG.mega_step_plain(model, 0.001, 10, kp, kd, tl, 8, 1.0, *args)
     for g, w, tol in zip(got, want, (5e-4, 1e-2, 5e-3, 5e-2, 5e-3, 5e-4)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
         assert float((g - w).abs().max()) <= tol
-    ms = torch.ones((256, 13), device=dev)
+    ms = torch.ones((n, 13), device=dev)
     _, ops = MG.solve_operands(model, 0.001, st.qpos, st.qvel, tgt, kp, kd, tl, ms, st.friction,
                                st.contact_stiffness, st.contact_offset, st.contact_compliance,
                                st.contact_lam)
+    s0 = SV.fused_solve.launches
     q, lam = SV.fused_solve(*ops, iterations=8)
+    assert SV.fused_solve.launches == s0 + 1
     q_p, lam_p = SV.fused_solve_plain(*ops, iterations=8)
+    assert q.shape == (n, 18) and lam.shape == (n, 60)
+    assert bool(torch.isfinite(q).all() and torch.isfinite(lam).all())
     assert float((q - q_p).abs().max()) <= 5e-4
     assert float((lam - lam_p).abs().max()) <= 2e-3
+    return want, ops
+
+
+@pytest.mark.parametrize("n", [300, 37, 1])
+def test_mega_and_solve_kernels_match_plain(dev, n):
+    """300 envs, 37 (a ragged last block: the kernels give each env a warp
+    and a block several envs) and 1, one policy step: the kernel within the
+    chip_smoke tolerances of the plain version (qpos 5e-4, qvel 1e-2, tau
+    5e-2), and the stand-alone solve within qvel 5e-4, lam 2e-3; counters
+    count."""
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model().to(dev)
+    st, tgt = _states(model, n, dev)
+    _mega_and_solve_match_plain(model, st, tgt, dev)
+
+
+def test_mega_and_solve_kernels_with_no_active_contact_row(dev):
+    """Robots lifted a metre above the ground: every contact row carries the
+    inactive sentinel -1e9, the impulses stay zero, and the kernels stay
+    finite and inside the same tolerances."""
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model().to(dev)
+    st, tgt = _states(model, 64, dev)
+    qpos = st.qpos.clone()
+    qpos[:, 2] += 1.0
+    want, ops = _mega_and_solve_match_plain(model, st.replace(qpos=qpos), tgt, dev)
+    assert bool((ops[4][:, 2:48:3] == -1e9).all())
+    assert float(want[2][:, :48].abs().max()) == 0.0
+
+
+def test_mega_and_solve_kernels_with_all_limit_rows_inactive(dev):
+    """Every joint at the middle of its range: all twelve limit rows carry
+    -1e9 and their impulses are zero; finite, same tolerances."""
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model().to(dev)
+    st, tgt = _states(model, 64, dev)
+    qpos = st.qpos.clone()
+    qpos[:, 7:] = 0.5 * (model.dof_lower + model.dof_upper)
+    want, ops = _mega_and_solve_match_plain(model, st.replace(qpos=qpos), tgt * 0.0 + qpos[:, 7:],
+                                            dev)
+    assert bool((ops[4][:, 48:] == -1e9).all())
+    assert float(want[2][:, 48:].abs().max()) == 0.0
 
 
 def test_env_step_runs_on_the_card(dev):

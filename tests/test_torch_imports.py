@@ -1,5 +1,5 @@
-"""The PyTorch port, scripts/train_torch.py and chip_smoke.py import no JAX, no flax, no optax and
-nothing of the JAX package. The scan reads each source's import statements
+"""The PyTorch port, its scripts (scripts/*_torch.py) and chip_smoke.py import no JAX, no flax,
+no optax and nothing of the JAX package. The scan reads each source's import statements
 with `ast` (a substring match would trip on humanoid_gym_tpu_torch)."""
 
 import ast
@@ -13,7 +13,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "humanoid_gym_tpu")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "train_torch.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(ROOT, "scripts", f) for f in sorted(os.listdir(os.path.join(ROOT, "scripts")))
+            if f.endswith("_torch.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py")]
     return sorted(out)

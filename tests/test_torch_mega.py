@@ -8,8 +8,8 @@
   fallback `step`, per env, and against the Pallas kernel in interpret
   mode under vmap (slow).
 - The Python side of the CUDA kernel that the CPU can check: the
-  __constant__ layout against csrc/mega.cu, and the row layouts against
-  mega_kernel.py.
+  model-constant layout and the shared-memory map against csrc/mega.cu and
+  csrc/solve.cuh, and the row layouts against mega_kernel.py.
 """
 
 import os
@@ -220,7 +220,7 @@ def test_pack_and_unpack_roundtrip(models):
 
 
 def test_const_layout_matches_cuda_source(models):
-    """The __constant__ block's offsets in csrc/mega.cu are the running sums
+    """The constant block's offsets in csrc/mega.cu are the running sums
     of CONST_LAYOUT, and the packed block carries the model's values."""
     _, tm = models
     src = open(os.path.join(os.path.dirname(MG.__file__), "..", "csrc", "mega.cu")).read()
@@ -235,6 +235,59 @@ def test_const_layout_matches_cuda_source(models):
     np.testing.assert_array_equal(consts[:13], tm.body_mass.numpy())
     parent = consts[int(defs["C_PARENT"]):int(defs["C_PARENT"]) + 13]
     assert tuple(int(p) for p in parent) == tm.body_parent
+
+
+def _defines(*names):
+    """Integer #defines of the named csrc files."""
+    csrc = os.path.join(os.path.dirname(MG.__file__), "..", "csrc")
+    out = {}
+    for name in names:
+        src = open(os.path.join(csrc, name)).read()
+        out.update({k: int(v) for k, v in re.findall(r"#define (\w+) +(\d+)\b", src)})
+    return out
+
+
+def test_shared_memory_map_matches_cuda_source():
+    """The row widths and problem sizes the wrappers pass are the #defines
+    of the sources (the launch shape and the shared-memory map live only
+    there); the per-warp regions of that map do not overlap, stay 16-byte
+    aligned, and the blocks fit the card's 227 KB at the residency the
+    source note reckons with (32 warps per SM)."""
+    d = _defines("mega.cu", "solve.cuh")
+    assert (d["HGT_NV"], d["HGT_NP"], d["HGT_NR"]) == (SV.NV, SV.N_POINTS, SV.ROWS)
+    assert (d["IN_ROWS"], d["OUT_ROWS"]) == (MG.IN_ROWS, MG.OUT_ROWS)
+    # the solve's scratch: M/L, 1/diag, t, x in order, t and x on 16-byte bounds
+    assert d["HGT_LS"] % 2 == 1
+    assert d["HGT_SM_M"] + SV.NV * d["HGT_LS"] <= d["HGT_SM_DINV"]
+    assert d["HGT_SM_DINV"] + SV.NV <= d["HGT_SM_T"] and d["HGT_SM_T"] + 20 <= d["HGT_SM_X"]
+    assert d["HGT_SM_X"] + 64 == d["HGT_SOLVE_FLOATS"]
+    assert d["HGT_SM_T"] % 4 == 0 and d["HGT_SM_X"] % 4 == 0
+    assert SV.NV * d["HGT_LS"] <= d["HGT_GRAM_FLOATS"]
+    assert d["SV_WARP_FLOATS"] == d["HGT_SOLVE_FLOATS"] + d["HGT_GRAM_FLOATS"]
+    # the mega kernel's regions, in the order of the map, none overlapping
+    sizes = [("MG_S", MG.IN_ROWS), ("MG_SOLVE", d["HGT_SOLVE_FLOATS"]), ("MG_TAU", 12),
+             ("MG_QN", 18), ("MG_SC", 24), ("MG_ALOC", 36), ("MG_RLOC", 108), ("MG_R", 117),
+             ("MG_P", 39), ("MG_AXW", 36), ("MG_OM", 39), ("MG_VO", 39), ("MG_AL", 39),
+             ("MG_AO", 39), ("MG_CSS", 13 * d["CS"]), ("MG_SW", 54), ("MG_SVL", 54)]
+    end = 0
+    for name, size in sizes:
+        assert d[name] >= end, name
+        end = d[name] + size
+    assert end <= d["MG_WARP_FLOATS"] and d["MG_WARP_FLOATS"] % 4 == 0
+    assert d["MG_SOLVE"] % 4 == 0 and d["MG_HEAD_FLOATS"] % 4 == 0
+    assert d["MG_R"] + d["HGT_GRAM_FLOATS"] <= d["MG_AO"] + 39  # Gram scratch over dead kinematics
+    assert MG.OUT_ROWS <= 13 * d["CS"]  # the output row is staged over the composites
+    assert 4 * d["MG_HEAD_FLOATS"] >= 4 * 544 + 2 * d["HGT_NPAIR"] and MG.CONST_COUNT <= 544
+    assert 4 * d["SV_HEAD_FLOATS"] >= 2 * d["HGT_NPAIR"]
+    # the pair table: lower-triangle entries outside the cross-leg block
+    pairs = [(i, a) for i in range(SV.NV) for a in range(i + 1) if not (a < 6 <= i < 12)]
+    assert len(pairs) == d["HGT_NPAIR"]
+    # residency: 32 warps per SM within 227 KB (1 KB reserved per block)
+    mega_bytes = 4 * (d["MG_HEAD_FLOATS"] + d["MG_WARPS"] * d["MG_WARP_FLOATS"])
+    solve_bytes = 4 * (d["SV_HEAD_FLOATS"] + d["SV_WARPS"] * d["SV_WARP_FLOATS"])
+    assert d["MG_MIN_BLOCKS"] * d["MG_WARPS"] == 32
+    assert d["MG_MIN_BLOCKS"] * (mega_bytes + 1024) <= 232448
+    assert (32 // d["SV_WARPS"]) * (solve_bytes + 1024) <= 232448
 
 
 def test_cpu_tensors_take_the_plain_path(models):

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1-4, then the two records; no contract line
+    python3 chip_smoke.py --kernels-only   # phases 1-4, 6 and 7, then the records; no contract line
 
 Phases (each prints one line of its numbers; any failure raises, so the
 script exits non-zero):
@@ -17,12 +17,16 @@ script exits non-zero):
   5. the main path: XBot-L PPO training (4096 envs, T=60, solver mega)
      through `make_train_iter`, one warm-up iteration and 3 timed ones,
      with the kernels' launch counters zeroed just before the timed run;
-  6. the APGD kernel (solver apgd_pallas) against its plain version at 4096
-     envs, 8 and 50 iterations, on the operands `resolve_contacts` builds;
+  6. the APGD kernel (solver apgd_pallas) against its plain version on the
+     operands `resolve_contacts` builds: 4096 envs at 8 and 50 iterations;
+     37 envs, 1 env and 4096 + 37 (more than one round of the kernel's
+     persistent warps, not a multiple of its block) at 8; a launch with 0
+     iterations timed beside the 8-iteration one (load and set-up / loop);
   7. the fused dense kernel (solver fused_pallas) against its plain version
-     on the operands `make_substep` builds, and against the mega kernel's
-     factor-form solve at 1000 iterations (dense and factor form agree at
-     convergence);
+     on the operands `make_substep` builds, at the same four sizes and with
+     the same 0-iteration split, and against the mega kernel's factor-form
+     solve at 200 (reported) and 1000 iterations (dense and factor form
+     agree at convergence);
   8. the substep path through the entry points: `registry.make_env` ->
      `OnPolicyRunner.learn` at 4096 envs, T=60, with solver fused_pallas
      (warm-up, 1 timed iteration, resume from its own checkpoint) and
@@ -71,7 +75,11 @@ def _card_line() -> str:
 
 
 def _time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over reps calls, on CUDA events."""
+    """Mean device time of fn() over reps calls, on CUDA events. A spin
+    kernel of ~10 ms holds the card while the host enqueues the calls, so
+    that the events bracket kernels running back to back and not the host's
+    launch rate (a wrapper's checks cost the host more than a 0.04 ms kernel
+    costs the card)."""
     import torch
 
     for _ in range(warmup):
@@ -79,6 +87,7 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -193,9 +202,10 @@ def fused_dense_ops(iterations: int, nv: int = 18, nrow: int = 60, executed: boo
     """Operations the function of hgt_fused_dense_kernel needs for one env.
     The Delassus matrix A = B^T B and the Gram matrix B B^T are symmetric,
     so the function needs one triangle of each (diagonal included); the
-    kernel computes both in full, and `executed=True` counts that."""
+    kernel builds A in full (each lane its two whole rows) and the Gram
+    matrix by its 171 pairs, and `executed=True` counts that."""
     delassus_entries = nrow * nrow if executed else nrow * (nrow + 1) // 2
-    gram_entries = nv * nv if executed else nv * (nv + 1) // 2
+    gram_entries = nv * (nv + 1) // 2
     ops = 0
     for k in range(nv):  # Cholesky: root, column scale, trailing update
         ops += 2 + (nv - 1 - k) + 2 * sum(i - k for i in range(k + 1, nv))
@@ -316,6 +326,41 @@ def _setup(dev):
     return c
 
 
+def _one_step_in(c, n):
+    """n perturbed states advanced one policy step by the plain mega step
+    (so they carry a warm-start lam), and their targets."""
+    st0, tgt0 = _states(c.model, n, seed=0, device=c.dev)
+    return c.advance(st0, c.plain(st0, tgt0)), tgt0
+
+
+def _apgd_operands(c, st, tgt):
+    """The APGD kernel's operands at state `st`, as `resolve_contacts` builds them."""
+    from humanoid_gym_tpu_torch.physics import mega as MG, step as ST
+    from humanoid_gym_tpu_torch.physics.contact import delassus_operands
+    from humanoid_gym_tpu_torch.physics.dynamics import solve_mtilde
+
+    _, dyn, _, rhs = ST.substep_dynamics(c.model, c.sim_dt, st, tgt, c.kp, c.kd, c.tlim)
+    v_free = st.qvel + solve_mtilde(dyn.Mtilde_chol, rhs)
+    setup, sign, lb, _, A, u0, bound = delassus_operands(
+        c.model, dyn, st.qpos, v_free, MG.flat_height_fn, c.sim_dt,
+        contact_offset=st.contact_offset, baumgarte=0.2 * st.contact_stiffness,
+        compliance=st.contact_compliance)
+    return [t.contiguous() for t in (A, u0, setup.lo_bound, sign, lb, st.friction, bound,
+                                     st.contact_lam)]
+
+
+def _fused_operands(c, st, tgt):
+    """The fused dense kernel's operands at state `st`, as `make_substep` builds them."""
+    from humanoid_gym_tpu_torch.physics import step as ST
+
+    return ST.fused_operands(c.model, c.sim_dt, st, tgt, c.kp, c.kd, c.tlim)[2]
+
+
+# one round of the APGD kernel's persistent warps is (SM count) x 3 blocks x 4
+# warps = 1584 envs on an H100; 4096 + 37 is several rounds with a ragged end
+DENSE_SIZES = (N_ENVS, 37, 1, N_ENVS + 37)
+
+
 def _phase3_solve(c, records):
     """Phase 3: the solve kernel against its plain version at 4096, 37 and 1
     envs. Returns the 4096-env state one policy step in, its targets and the
@@ -326,8 +371,7 @@ def _phase3_solve(c, records):
 
     keep = None
     for n in (N_ENVS, 37, 1):
-        st0, tgt0 = _states(c.model, n, seed=0, device=c.dev)
-        st1 = c.advance(st0, c.plain(st0, tgt0))  # a warm-start lam from one real step
+        st1, tgt0 = _one_step_in(c, n)  # a warm-start lam from one real step
         ops_in = _solve_operands(c.model, st1, tgt0, c.kp, c.kd, c.tlim, c.sim_dt)
         q_k, l_k = SV.fused_solve(*ops_in, iterations=c.iters)
         q_p, l_p = SV.fused_solve_plain(*ops_in, iterations=c.iters)
@@ -419,6 +463,101 @@ def _phase4_mega(c, records):
          f"{(ms_i0 - ms_d0) / c.dec:.4f} ms, fixed cost (load, final FK, store) {ms_d0:.4f} ms")
     records["mega"] = dict(max_abs_err=worst, ms=ms_mk, plain_ms=ms_mp, bound_ms=b_ms,
                            bound_by=b_by)
+
+
+def _phase6_apgd(c, st1, tgt1, records):
+    """Phase 6: the APGD kernel against its plain version, operands as
+    `resolve_contacts` builds them; st1 / tgt1 are the 4096-env state."""
+    import torch
+
+    from humanoid_gym_tpu_torch.physics import solve as SV
+
+    iters = c.iters
+    worst = 0.0
+    for n in DENSE_SIZES:
+        apgd_in = _apgd_operands(c, *((st1, tgt1) if n == N_ENVS else _one_step_in(c, n)))
+        for n_it in ((iters, 50) if n == N_ENVS else (iters,)):
+            l_k = SV.apgd_solve_kernel(*apgd_in, iterations=n_it)
+            l_p = SV.apgd_solve_kernel_plain(*apgd_in, iterations=n_it)
+            torch.cuda.synchronize()
+            el = _maxerr(l_k, l_p)
+            finite = bool(torch.isfinite(l_k).all())
+            _log(f"phase 6 apgd: {n} env(s), {n_it} iters | max|dlam| {el:.3e} (tol 2e-3) | "
+                 f"max|lam| {float(l_p.abs().max()):.3f} | finite {finite}")
+            if not (el <= 2e-3 and finite):
+                raise AssertionError(f"APGD kernel disagrees with its plain version at {n} envs, "
+                                     f"{n_it} iterations: {el}")
+            worst = max(worst, el)
+        if n == N_ENVS:
+            ms_k = _time_ms(lambda: SV.apgd_solve_kernel(*apgd_in, iterations=iters), reps=20)
+            ms_0 = _time_ms(lambda: SV.apgd_solve_kernel(*apgd_in, iterations=0), reps=20)
+            ms_p = _time_ms(lambda: SV.apgd_solve_kernel_plain(*apgd_in, iterations=iters),
+                            reps=3)
+            nbytes = 4 * (sum(t.numel() for t in apgd_in) + N_ENVS * 60)
+            b_ms, b_by = _bound_ms(nbytes, N_ENVS * apgd_ops(iters))
+            _log(f"phase 6 apgd timing: kernel {ms_k:.4f} ms (with 0 iterations {ms_0:.4f} ms: "
+                 f"load and set-up; the loop {ms_k - ms_0:.4f} ms) plain {ms_p:.3f} ms bound "
+                 f"{b_ms:.5f} ms ({b_by}; {nbytes / N_ENVS:.0f} bytes and {apgd_ops(iters)} "
+                 f"operations per env)")
+    records["apgd"] = dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+
+
+def _phase7_fused_dense(c, st1, tgt1, ops_in, records):
+    """Phase 7: the fused dense kernel against its plain version, operands
+    as `make_substep` builds them, and against the factor-form solve on
+    `ops_in` (the same 4096-env state in the solver-internal order)."""
+    import torch
+
+    from humanoid_gym_tpu_torch.physics import mega as MG, solve as SV
+
+    iters = c.iters
+    worst = 0.0
+    for n in DENSE_SIZES:
+        fused_in = _fused_operands(c, *((st1, tgt1) if n == N_ENVS else _one_step_in(c, n)))
+        q_k, l_k = SV.fused_dense_solve(*fused_in, iterations=iters)
+        q_p, l_p = SV.fused_dense_solve_plain(*fused_in, iterations=iters)
+        torch.cuda.synchronize()
+        eq, el = _maxerr(q_k, q_p), _maxerr(l_k, l_p)
+        finite = bool(torch.isfinite(q_k).all() and torch.isfinite(l_k).all())
+        line = (f"phase 7 fused dense: {n} env(s), {iters} iters | max|dqvel| {eq:.3e} (tol 5e-4) "
+                f"max|dlam| {el:.3e} (tol 2e-3) | finite {finite}")
+        if n == N_ENVS:
+            ms_k = _time_ms(lambda: SV.fused_dense_solve(*fused_in, iterations=iters), reps=20)
+            ms_0 = _time_ms(lambda: SV.fused_dense_solve(*fused_in, iterations=0), reps=20)
+            ms_p = _time_ms(lambda: SV.fused_dense_solve_plain(*fused_in, iterations=iters),
+                            reps=3)
+            nbytes = 4 * (sum(t.numel() for t in fused_in) + N_ENVS * (18 + 60))
+            b_ms, b_by = _bound_ms(nbytes, N_ENVS * fused_dense_ops(iters))
+            line += (f" | kernel {ms_k:.4f} ms (with 0 iterations {ms_0:.4f} ms: load, "
+                     f"factorisation, Gram bound and A; the loop {ms_k - ms_0:.4f} ms) plain "
+                     f"{ms_p:.3f} ms bound {b_ms:.5f} ms ({b_by}; {nbytes / N_ENVS:.0f} bytes and "
+                     f"{fused_dense_ops(iters)} operations per env with the symmetric halves of "
+                     f"A and of the Gram matrix counted once; the kernel executes "
+                     f"{fused_dense_ops(iters, executed=True)})")
+            dense_in = fused_in
+        _log(line)
+        if not (eq <= 5e-4 and el <= 2e-3 and finite):
+            raise AssertionError(f"fused dense kernel disagrees with its plain version at {n} "
+                                 f"envs: {eq}, {el}")
+        worst = max(worst, eq, el)
+    records["fused_dense"] = dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                                  bound_by=b_by)
+    # dense form (external DOF order) vs factor form (solver-internal order):
+    # the step bound differs with the DOF order, so the two follow different
+    # iterates and meet at convergence. 200 iterations are reported (the
+    # worst of 4096 envs is not converged there); 1000 are held to 1e-3.
+    for n_it, tol in ((200, None), (1000, 1e-3)):
+        q_dense, _ = SV.fused_dense_solve(*dense_in, iterations=n_it)
+        q_fact, _ = SV.fused_solve(*ops_in, iterations=n_it)
+        torch.cuda.synchronize()
+        per_env = (q_dense - q_fact[:, MG.INV_PERM]).abs().amax(dim=1)
+        e23 = float(per_env.max())
+        p999 = float(per_env.sort().values[int(N_ENVS * 0.999)])
+        _log(f"phase 7 dense vs factor form at {n_it} iters: max|dqvel| {e23:.3e} "
+             f"(99.9th percentile of envs {p999:.3e})"
+             + (f" (tol {tol:.0e})" if tol else " (reported, not held)"))
+        if tol is not None and not e23 <= tol:
+            raise AssertionError(f"dense and factor-form solves disagree at convergence: {e23}")
 
 
 def _kernel_class(name: str) -> str:
@@ -658,20 +797,19 @@ def main() -> int:
     from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
     from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
     from humanoid_gym_tpu_torch.envs import make_env
-    from humanoid_gym_tpu_torch.physics import mega as MG, solve as SV, step as ST
-    from humanoid_gym_tpu_torch.physics.contact import delassus_operands
-    from humanoid_gym_tpu_torch.physics.dynamics import solve_mtilde
+    from humanoid_gym_tpu_torch.physics import mega as MG, solve as SV
 
     dev = torch.device("cuda")
     card = _phase12_card_and_build()
 
     c = _setup(dev)
-    cfg, model, kp, kd, tlim = c.cfg, c.model, c.kp, c.kd, c.tlim
-    sim_dt, iters = c.sim_dt, c.iters
+    cfg = c.cfg
     records = {}
     st1, tgt0, ops_in = _phase3_solve(c, records)
     _phase4_mega(c, records)
     if "--kernels-only" in sys.argv[1:]:
+        _phase6_apgd(c, st1, tgt0, records)
+        _phase7_fused_dense(c, st1, tgt0, ops_in, records)
         print(json.dumps(records), flush=True)
         print(f"card: {card}", flush=True)
         return 0
@@ -730,73 +868,8 @@ def main() -> int:
 
     _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_ms)
 
-    # ---- phase 6: APGD kernel vs plain, operands as resolve_contacts builds them ----
-    _, dyn1, _, rhs1 = ST.substep_dynamics(model, sim_dt, st1, tgt0, kp, kd, tlim)
-    v_free1 = st1.qvel + solve_mtilde(dyn1.Mtilde_chol, rhs1)
-    setup1, sign1, lb1, _, A1, u01, bound1 = delassus_operands(
-        model, dyn1, st1.qpos, v_free1, MG.flat_height_fn, sim_dt,
-        contact_offset=st1.contact_offset, baumgarte=0.2 * st1.contact_stiffness,
-        compliance=st1.contact_compliance)
-    apgd_in = [t.contiguous() for t in (A1, u01, setup1.lo_bound, sign1, lb1, st1.friction,
-                                        bound1, st1.contact_lam)]
-    worst4 = 0.0
-    for n_it in (iters, 50):
-        l_k = SV.apgd_solve_kernel(*apgd_in, iterations=n_it)
-        l_p = SV.apgd_solve_kernel_plain(*apgd_in, iterations=n_it)
-        torch.cuda.synchronize()
-        el = _maxerr(l_k, l_p)
-        finite = bool(torch.isfinite(l_k).all())
-        _log(f"phase 6 apgd: {N_ENVS} envs, {n_it} iters | max|dlam| {el:.3e} (tol 2e-3) | "
-             f"max|lam| {float(l_p.abs().max()):.3f} | finite {finite}")
-        if not (el <= 2e-3 and finite):
-            raise AssertionError(f"APGD kernel disagrees with its plain version at {n_it} "
-                                 f"iterations: {el}")
-        worst4 = max(worst4, el)
-    ms_k = _time_ms(lambda: SV.apgd_solve_kernel(*apgd_in, iterations=iters), reps=20)
-    ms_p = _time_ms(lambda: SV.apgd_solve_kernel_plain(*apgd_in, iterations=iters), reps=3)
-    nbytes = 4 * (sum(t.numel() for t in apgd_in) + N_ENVS * 60)
-    b_ms, b_by = _bound_ms(nbytes, N_ENVS * apgd_ops(iters))
-    _log(f"phase 6 apgd timing: kernel {ms_k:.4f} ms plain {ms_p:.3f} ms bound {b_ms:.5f} ms "
-         f"({b_by}; {nbytes / N_ENVS:.0f} bytes and {apgd_ops(iters)} operations per env)")
-    records["apgd"] = dict(max_abs_err=worst4, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
-
-    # ---- phase 7: fused dense kernel vs plain, operands as make_substep builds them ----
-    _, _, fused_in = ST.fused_operands(model, sim_dt, st1, tgt0, kp, kd, tlim)
-    q_k, l_k = SV.fused_dense_solve(*fused_in, iterations=iters)
-    q_p, l_p = SV.fused_dense_solve_plain(*fused_in, iterations=iters)
-    torch.cuda.synchronize()
-    eq, el = _maxerr(q_k, q_p), _maxerr(l_k, l_p)
-    finite = bool(torch.isfinite(q_k).all() and torch.isfinite(l_k).all())
-    ms_k = _time_ms(lambda: SV.fused_dense_solve(*fused_in, iterations=iters), reps=20)
-    ms_p = _time_ms(lambda: SV.fused_dense_solve_plain(*fused_in, iterations=iters), reps=3)
-    nbytes = 4 * (sum(t.numel() for t in fused_in) + N_ENVS * (18 + 60))
-    b_ms, b_by = _bound_ms(nbytes, N_ENVS * fused_dense_ops(iters))
-    _log(f"phase 7 fused dense: {N_ENVS} envs, {iters} iters | max|dqvel| {eq:.3e} (tol 5e-4) "
-         f"max|dlam| {el:.3e} (tol 2e-3) | finite {finite} | kernel {ms_k:.4f} ms plain "
-         f"{ms_p:.3f} ms bound {b_ms:.5f} ms ({b_by}; {nbytes / N_ENVS:.0f} bytes and "
-         f"{fused_dense_ops(iters)} operations per env with the symmetric halves of A and of "
-         f"the Gram matrix counted once; the kernel executes "
-         f"{fused_dense_ops(iters, executed=True)})")
-    if not (eq <= 5e-4 and el <= 2e-3 and finite):
-        raise AssertionError(f"fused dense kernel disagrees with its plain version: {eq}, {el}")
-    records["fused_dense"] = dict(max_abs_err=max(eq, el), ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                                  bound_by=b_by)
-    # dense form (external DOF order) vs factor form (solver-internal order):
-    # the step bound differs with the DOF order, so the two follow different
-    # iterates and meet at convergence. 200 iterations are reported (the
-    # worst of 4096 envs is not converged there); 1000 are held to 1e-3.
-    for n_it, tol in ((200, None), (1000, 1e-3)):
-        q_dense, _ = SV.fused_dense_solve(*fused_in, iterations=n_it)
-        q_fact, _ = SV.fused_solve(*ops_in, iterations=n_it)
-        torch.cuda.synchronize()
-        per_env = (q_dense - q_fact[:, MG.INV_PERM]).abs().amax(dim=1)
-        e23 = float(per_env.max())
-        p999 = float(per_env.sort().values[int(N_ENVS * 0.999)])
-        _log(f"phase 7 dense vs factor form at {n_it} iters: max|dqvel| {e23:.3e} "
-             f"(99.9th percentile of envs {p999:.3e})"
-             + (f" (tol {tol:.0e})" if tol else " (reported, not held)"))
-        if tol is not None and not e23 <= tol:
-            raise AssertionError(f"dense and factor-form solves disagree at convergence: {e23}")
+    _phase6_apgd(c, st1, tgt0, records)
+    _phase7_fused_dense(c, st1, tgt0, ops_in, records)
 
     # ---- phase 8: the substep path through the entry points ----
     os.environ["HGT_WANDB"] = "0"

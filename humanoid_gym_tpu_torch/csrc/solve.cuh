@@ -6,7 +6,7 @@
 // leg_blocks=True (the solve stage of the TPU mega kernel). Same math:
 // DOFs in the solver-internal order [left leg 0:6, right leg 6:12, base
 // 12:18], so the factor has no cross-leg fill-in and every structurally
-// zero block is skipped (hgt_lz, resolved at compile time); 60 constraint
+// zero block is skipped (HgtLegZeros, resolved at compile time); 60 constraint
 // rows = 16 contact points x (tx, ty, n) followed by 12 joint-limit rows;
 // each APGD iteration is t = B y then g = B^T t + reg y + r (never the
 // dense 60x60 Delassus); the step is 1 / max(||B B^T||_inf + reg, 1e-6)
@@ -63,127 +63,33 @@
 // wave; the mega kernel's reckoning is in mega.cu. Tried and dropped: a thread
 // per env with M, B and the APGD vectors in local memory (0.49 ms stand-alone
 // at 4096 envs against 0.04-0.06 ms now, NVIDIA H100 80GB HBM3, 700.00 W).
+// The Cholesky, the substitutions, the column solve, hgt_warp_reduce18 and the
+// Gram batches are the templates of apgd.cuh, instantiated here with the
+// leg-block zero pattern; dense_solve.cu instantiates them without zeros.
 
 #pragma once
 
 #include "apgd.cuh"
 
-#define HGT_NV 18     // generalized velocities
-#define HGT_NP 16     // contact points (8 sole points x 2 feet)
-#define HGT_NC 48     // contact rows
-#define HGT_NR 60     // constraint rows (contact + 12 joint limits)
-#define HGT_HALF 6    // joints per leg (and base DOF count)
 #define HGT_NPAIR 135 // structurally non-zero entries (i, a <= i) of M, L and B B^T
+static_assert(hgt_npair<HgtLegZeros>() == HGT_NPAIR, "pair count of the leg-block pattern");
 
 // per-warp shared scratch of the solve (float offsets; T and X 16-byte aligned)
-#define HGT_LS 19            // row stride of M / L (odd: lane i on row i hits bank i * 19)
-#define HGT_SM_M 0           // 18 x 19, padded to 344
+#define HGT_SM_M 0           // 18 x 19 (HGT_LS), padded to 344
 #define HGT_SM_DINV 344      // 1 / L[k][k], 18 padded to 20
 #define HGT_SM_T 364         // v_free, then t = B y, then B lam; 18 padded to 20
 #define HGT_SM_X 384         // trial point, 64
 #define HGT_SOLVE_FLOATS 448
 #define HGT_GRAM_FLOATS 344  // |B B^T|, 18 x 19 padded
 
-// L[i][k] is structurally zero: a right-leg row under a left-leg column.
-__host__ __device__ constexpr bool hgt_lz(int i, int k) {
-    return k < HGT_HALF && i >= HGT_HALF && i < 2 * HGT_HALF;
-}
-
-// The idx-th structurally non-zero entry (row i, column a <= i) of the lower
-// triangle, rows in order: packed as i * 32 + a.
-__host__ __device__ constexpr int hgt_pair(int idx) {
-    int count = 0;
-    for (int i = 0; i < HGT_NV; ++i)
-        for (int a = 0; a <= i; ++a) {
-            if (hgt_lz(i, a)) continue;
-            if (count == idx) return i * 32 + a;
-            ++count;
-        }
-    return -1;
-}
-
-// Block-wide: fill the (row, column) byte table of the non-zero pairs.
-// The caller synchronises the block afterwards.
+// Block-wide: fill the (row, column) byte table of the non-zero pairs in
+// shared memory. The caller synchronises the block afterwards.
 __device__ __forceinline__ void hgt_fill_pairs(unsigned char* pairs) {
     for (int t = threadIdx.x; t < HGT_NPAIR; t += blockDim.x) {
-        int p = hgt_pair(t);
+        int p = hgt_pair<HgtLegZeros>(t);
         pairs[2 * t] = (unsigned char)(p >> 5);
         pairs[2 * t + 1] = (unsigned char)(p & 31);
     }
-}
-
-// Sum 18 per-lane values over the warp. Round by round (lane offsets 16, 8,
-// 4, 2, 1) a lane keeps one half of its values and hands the other half to
-// its partner, so 20 shuffles do the work of 18 x 5. The sum of value v ends
-// on the one lane with hgt_reduce18_slot(lane) == v; other lanes return 0.
-__device__ __forceinline__ float hgt_warp_reduce18(const float (&p)[HGT_NV], int lane) {
-    const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4, h1 = lane & 2, h0 = lane & 1;
-    float q[9], r[5], s[3], u[2];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-        float lo = p[i], hi = p[9 + i];
-        q[i] = (h4 ? hi : lo) + __shfl_xor_sync(HGT_FULL_MASK, h4 ? lo : hi, 16);
-    }
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-        float lo = q[i], hi = (i + 5 < 9) ? q[i + 5] : 0.0f;
-        r[i] = (h3 ? hi : lo) + __shfl_xor_sync(HGT_FULL_MASK, h3 ? lo : hi, 8);
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-        float lo = r[i], hi = (i + 3 < 5) ? r[i + 3] : 0.0f;
-        s[i] = (h2 ? hi : lo) + __shfl_xor_sync(HGT_FULL_MASK, h2 ? lo : hi, 4);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        float lo = s[i], hi = (i + 2 < 3) ? s[i + 2] : 0.0f;
-        u[i] = (h1 ? hi : lo) + __shfl_xor_sync(HGT_FULL_MASK, h1 ? lo : hi, 2);
-    }
-    return (h0 ? u[1] : u[0]) + __shfl_xor_sync(HGT_FULL_MASK, h0 ? u[0] : u[1], 1);
-}
-
-// Which of the 18 values this lane holds after hgt_warp_reduce18, or -1.
-__device__ __forceinline__ int hgt_reduce18_slot(int lane) {
-    int base = 0, cnt = HGT_NV;
-    const int halves[5] = {9, 5, 3, 2, 1};
-#pragma unroll
-    for (int r = 0; r < 5; ++r) {
-        int h = halves[r];
-        if (lane & (16 >> r)) { base += h; cnt = max(cnt - h, 0); }
-        else cnt = min(cnt, h);
-    }
-    return cnt > 0 ? base : -1;
-}
-
-// One batch of 18 Gram entries: this lane's partial products of the pairs
-// B * 18 .. B * 18 + 17 (compile-time indices into the register columns).
-template <int B, int I>
-__device__ __forceinline__ void hgt_gram_partials(float (&p)[HGT_NV], const float (&b0)[HGT_NV],
-                                                  const float (&b1)[HGT_NV]) {
-    constexpr int idx = B * HGT_NV + I;
-    if constexpr (idx < HGT_NPAIR) {
-        constexpr int w = hgt_pair(idx) >> 5, v = hgt_pair(idx) & 31;
-        p[I] = b0[v] * b0[w] + b1[v] * b1[w];
-    } else {
-        p[I] = 0.0f;
-    }
-    if constexpr (I + 1 < HGT_NV) hgt_gram_partials<B, I + 1>(p, b0, b1);
-}
-
-template <int B>
-__device__ __forceinline__ void hgt_gram_batches(float* gs, const unsigned char* pairs,
-                                                 const float (&b0)[HGT_NV],
-                                                 const float (&b1)[HGT_NV], int lane, int slot) {
-    float p[HGT_NV];
-    hgt_gram_partials<B, 0>(p, b0, b1);
-    float g = fabsf(hgt_warp_reduce18(p, lane));
-    int idx = B * HGT_NV + slot;
-    if (slot >= 0 && idx < HGT_NPAIR) {
-        int w = pairs[2 * idx], v = pairs[2 * idx + 1];
-        gs[w * HGT_LS + v] = g;
-        gs[v * HGT_LS + w] = g;
-    }
-    if constexpr ((B + 1) * HGT_NV < HGT_NPAIR) hgt_gram_batches<B + 1>(gs, pairs, b0, b1, lane, slot);
 }
 
 // One environment's solve by one warp; every lane of the warp calls it.
@@ -220,23 +126,10 @@ __device__ __forceinline__ void hgt_solve_env(float* sm, float* gs, const unsign
     float Lr[HGT_NV];
 #pragma unroll
     for (int j = 0; j < HGT_NV; ++j) {
-        bool have = dof && j <= lane && !hgt_lz(lane, j);
+        bool have = dof && j <= lane && !HgtLegZeros::at(lane, j);
         Lr[j] = have ? Ms[(dof ? lane : 0) * HGT_LS + j] : 0.0f;
     }
-#pragma unroll
-    for (int k = 0; k < HGT_NV; ++k) {
-        float d = sqrtf(fmaxf(__shfl_sync(HGT_FULL_MASK, Lr[k], k), 1e-12f));
-        float di = 1.0f / d;
-        float lik = (lane == k) ? d : Lr[k] * di;  // 0 above the diagonal and in the zero block
-        Lr[k] = lik;
-        if (lane == k) dinv[k] = di;
-#pragma unroll
-        for (int j = k + 1; j < HGT_NV; ++j) {
-            if (hgt_lz(j, k)) continue;
-            float ljk = __shfl_sync(HGT_FULL_MASK, lik, j);
-            if (j <= lane) Lr[j] = Lr[j] - lik * ljk;
-        }
-    }
+    hgt_warp_cholesky<HgtLegZeros>(Lr, dinv, lane);
     if (dof) {
 #pragma unroll
         for (int j = 0; j < HGT_NV; ++j) Ms[lane * HGT_LS + j] = Lr[j];
@@ -245,19 +138,8 @@ __device__ __forceinline__ void hgt_solve_env(float* sm, float* gs, const unsign
     __syncwarp();
 
     // ---- v_free = qvel + L^-T L^-1 rhs, lane i holds entry i ----
-    float xi = dof ? rhs_i : 0.0f;
-#pragma unroll
-    for (int k = 0; k < HGT_NV; ++k) {
-        float xk = __shfl_sync(HGT_FULL_MASK, xi, k) * dinv[k];
-        if (lane == k) xi = xk;
-        else if (lane > k) xi = xi - Lr[k] * xk;
-    }
-#pragma unroll
-    for (int k = HGT_NV - 1; k >= 0; --k) {
-        float xk = __shfl_sync(HGT_FULL_MASK, xi, k) * dinv[k];
-        if (lane == k) xi = xk;
-        else if (lane < k) xi = xi - Ms[k * HGT_LS + lane] * xk;
-    }
+    float xi = hgt_warp_forward_sub(dof ? rhs_i : 0.0f, Lr, dinv, lane);
+    xi = hgt_warp_backward_sub(xi, Ms, dinv, lane);
     const float vfi = dof ? qvel_i + xi : 0.0f;
     if (dof) tv[lane] = vfi;
     __syncwarp();
@@ -282,35 +164,15 @@ __device__ __forceinline__ void hgt_solve_env(float* sm, float* gs, const unsign
     const float rr1 = v1 ? u1 * s1 - tg1 : 0.0f;
 
     // ---- B = L^-1 J^T down each column, then sign-folded ----
-#pragma unroll
-    for (int k = 0; k < HGT_NV; ++k) {
-        float dk = dinv[k];
-        b0[k] = b0[k] * dk;
-        b1[k] = b1[k] * dk;
-#pragma unroll
-        for (int i = k + 1; i < HGT_NV; ++i) {
-            if (hgt_lz(i, k)) continue;
-            float lik = Ms[i * HGT_LS + k];
-            b0[i] = b0[i] - lik * b0[k];
-            b1[i] = b1[i] - lik * b1[k];
-        }
-    }
-    float d0 = 0.0f, d1 = 0.0f;
-#pragma unroll
-    for (int v = 0; v < HGT_NV; ++v) {
-        b0[v] = b0[v] * s0;
-        b1[v] = b1[v] * s1;
-        d0 = d0 + b0[v] * b0[v];
-        d1 = d1 + b1[v] * b1[v];
-    }
-    const float reg = comp * hgt_warp_sum(d0 + d1) / (float)HGT_NR;
+    const float diag = hgt_solve_columns<HgtLegZeros>(b0, b1, Ms, dinv, s0, s1);
+    const float reg = comp * hgt_warp_sum(diag) / (float)HGT_NR;
 
     // ---- step bound ||B B^T||_inf + reg (cross-leg entries are exact zeros) ----
     // every lane is past its reads of the caller's scratch under gs: `cols`
     // ran before the shuffles above
     for (int idx = lane; idx < HGT_GRAM_FLOATS; idx += 32) gs[idx] = 0.0f;
     __syncwarp();
-    hgt_gram_batches<0>(gs, pairs, b0, b1, lane, slot);
+    hgt_gram_batches<HgtLegZeros, 0>(gs, pairs, b0, b1, lane, slot);
     __syncwarp();
     float rowsum = 0.0f;
     if (dof) {
@@ -374,13 +236,7 @@ __device__ __forceinline__ void hgt_solve_env(float* sm, float* gs, const unsign
     float bl = hgt_warp_reduce18(p, lane);
     if (slot >= 0) tv[slot] = bl;
     __syncwarp();
-    float yi = dof ? tv[lane] : 0.0f;
-#pragma unroll
-    for (int k = HGT_NV - 1; k >= 0; --k) {
-        float xk = __shfl_sync(HGT_FULL_MASK, yi, k) * dinv[k];
-        if (lane == k) yi = xk;
-        else if (lane < k) yi = yi - Ms[k * HGT_LS + lane] * xk;
-    }
+    const float yi = hgt_warp_backward_sub(dof ? tv[lane] : 0.0f, Ms, dinv, lane);
     qn_i = vfi + yi;
     lam_out0 = lam0 * s0;
     lam_out1 = lam1 * s1;

@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 # library name -> (the .cu to compile, the headers it includes)
 SOURCES = {
     "mega": ("mega.cu", "solve.cuh", "apgd.cuh"),
-    "dense": ("dense_solve.cu", "apgd.cuh"),
+    "dense": ("dense_solve.cu", "apgd.cuh", "bulk_copy.cuh"),
 }
 BUILD_DIR = os.path.join(HGT_ROOT_DIR, "build", "kernels")
 NVCC_FLAGS = [
@@ -55,11 +55,9 @@ class KernelLibrary:
         lib.hgt_mega_step.restype = ci
         lib.hgt_solve.argtypes = [vp] * 11 + [ci, ci, vp]
         lib.hgt_solve.restype = ci
-        dense.hgt_dense_nv.argtypes = []
-        dense.hgt_dense_nv.restype = ci
-        dense.hgt_apgd.argtypes = [vp] * 9 + [ci, ci, ci, ci, vp]
+        dense.hgt_apgd.argtypes = [vp] * 9 + [ci, ci, vp]
         dense.hgt_apgd.restype = ci
-        dense.hgt_fused_dense.argtypes = [vp] * 12 + [ci, ci, ci, ci, vp]
+        dense.hgt_fused_dense.argtypes = [vp] * 12 + [ci, ci, vp]
         dense.hgt_fused_dense.restype = ci
 
 

@@ -14,9 +14,11 @@ Port of humanoid_gym_tpu/physics/pallas_solver.py, three solves:
 
 The last two take the env-major operands `resolve_contacts` and
 `make_substep` build ((N,60,60), (N,60,18), (N,18,18), bounds per contact
-point and per limit row) and run csrc/dense_solve.cu, one warp per env.
+point and per limit row) and run csrc/dense_solve.cu, one warp per env with
+the Delassus rows in registers; the kernels are compiled for the one shape
+the package builds (18 velocities, 60 rows, 16 contact points).
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version. Each wrapper counts its launches in `.launches`.
+version (at any shape). Each wrapper counts its launches in `.launches`.
 
 The mega kernel's solve stage: Cholesky of Mtilde, v_free, B = L^-1 J^T,
 factor-form APGD (matvec B^T (B y), step bound ||B B^T||_inf + CFM
@@ -136,14 +138,24 @@ fused_solve.launches = 0
 
 # ---- the dense solves of the per-substep path (csrc/dense_solve.cu) ----
 
-MAX_ROWS = 64  # the kernels give each lane two constraint rows
+MAX_ROWS = 64  # the kernels give each lane two constraint rows: padded length of their vectors
 
 
-def _require(t: torch.Tensor, shape, name: str, device) -> None:
+def _require(t: torch.Tensor, shape, name: str, device, align: int = 4) -> None:
     if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
             or t.device != device:
         raise ValueError(f"{name} must be contiguous float32 {tuple(shape)} on {device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary")
+
+
+def _require_kernel_shape(what: str, nv: int, nrow: int, n_points: int) -> None:
+    """The dense kernels hold rows and columns in register arrays, so they
+    are compiled for one problem shape."""
+    if (nv, nrow, n_points) != (NV, ROWS, N_POINTS):
+        raise ValueError(f"the {what} kernel takes nv {NV}, {ROWS} rows and {N_POINTS} contact "
+                         f"points, got nv {nv}, nrow {nrow}, n_points {n_points}")
 
 
 def _fold_signs(limit_sign: torch.Tensor, nc3: int) -> torch.Tensor:
@@ -201,14 +213,12 @@ def apgd_solve_kernel(A, u0, lo_bound, limit_sign, limit_bound, mu, step_bound=N
     n, nrow = u0.shape
     n_points = lo_bound.shape[1]
     nlim = nrow - 3 * n_points
-    if nrow > MAX_ROWS or nlim < 0:
-        raise ValueError(f"the APGD kernel takes at most {MAX_ROWS} rows, got nrow {nrow}, "
-                         f"n_points {n_points}")
+    _require_kernel_shape("APGD", NV, nrow, n_points)
     if lam0 is None:
         lam0 = torch.zeros_like(u0)
     dev = A.device
-    for t, shp, name in ((A, (n, nrow, nrow), "A"), (u0, (n, nrow), "u0"),
-                         (lo_bound, (n, n_points), "lo_bound"),
+    _require(A, (n, nrow, nrow), "A", dev, align=16)  # the bulk copy's rule
+    for t, shp, name in ((u0, (n, nrow), "u0"), (lo_bound, (n, n_points), "lo_bound"),
                          (limit_sign, (n, nlim), "limit_sign"),
                          (limit_bound, (n, nlim), "limit_bound"), (mu, (n,), "mu"),
                          (lam0, (n, nrow), "lam0")):
@@ -221,7 +231,7 @@ def apgd_solve_kernel(A, u0, lo_bound, limit_sign, limit_bound, mu, step_bound=N
         A.data_ptr(), u0.data_ptr(), lo_bound.data_ptr(), limit_sign.data_ptr(),
         limit_bound.data_ptr(), mu.data_ptr(),
         None if step_bound is None else step_bound.data_ptr(), lam0.data_ptr(),
-        lam.data_ptr(), n, nrow, n_points, int(iterations), stream,
+        lam.data_ptr(), n, int(iterations), stream,
     )
     check(err, "hgt_apgd launch")
     apgd_solve_kernel.launches += 1
@@ -267,15 +277,14 @@ def fused_dense_solve(Mt, J, qvel, rhs, lo_bound, limit_sign, limit_bound, mu, c
     n, nrow, nv = J.shape
     n_points = lo_bound.shape[1]
     nlim = nrow - 3 * n_points
-    lib = kernel_library().dense
-    if nrow > MAX_ROWS or nlim < 0 or nv != lib.hgt_dense_nv():
-        raise ValueError(f"the fused dense kernel takes nv {lib.hgt_dense_nv()} and at most "
-                         f"{MAX_ROWS} rows, got nv {nv}, nrow {nrow}, n_points {n_points}")
+    _require_kernel_shape("fused dense", nv, nrow, n_points)
     dev = Mt.device
     if lam0 is None:
         lam0 = torch.zeros((n, nrow), device=dev, dtype=torch.float32)
-    for t, shp, name in ((Mt, (n, nv, nv), "Mt"), (J, (n, nrow, nv), "J"), (qvel, (n, nv), "qvel"),
-                         (rhs, (n, nv), "rhs"), (lo_bound, (n, n_points), "lo_bound"),
+    _require(Mt, (n, nv, nv), "Mt", dev, align=8)  # rows are read 8 bytes at a time
+    _require(J, (n, nrow, nv), "J", dev, align=8)
+    for t, shp, name in ((qvel, (n, nv), "qvel"), (rhs, (n, nv), "rhs"),
+                         (lo_bound, (n, n_points), "lo_bound"),
                          (limit_sign, (n, nlim), "limit_sign"),
                          (limit_bound, (n, nlim), "limit_bound"), (mu, (n,), "mu"),
                          (compliance, (n,), "compliance"), (lam0, (n, nrow), "lam0")):
@@ -283,11 +292,10 @@ def fused_dense_solve(Mt, J, qvel, rhs, lo_bound, limit_sign, limit_bound, mu, c
     qvel_new = torch.empty((n, nv), device=dev, dtype=torch.float32)
     lam = torch.empty((n, nrow), device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.hgt_fused_dense(
+    err = kernel_library().dense.hgt_fused_dense(
         Mt.data_ptr(), J.data_ptr(), qvel.data_ptr(), rhs.data_ptr(), lo_bound.data_ptr(),
         limit_sign.data_ptr(), limit_bound.data_ptr(), mu.data_ptr(), compliance.data_ptr(),
-        lam0.data_ptr(), qvel_new.data_ptr(), lam.data_ptr(), n, nrow, n_points,
-        int(iterations), stream,
+        lam0.data_ptr(), qvel_new.data_ptr(), lam.data_ptr(), n, int(iterations), stream,
     )
     check(err, "hgt_fused_dense launch")
     fused_dense_solve.launches += 1

@@ -49,7 +49,8 @@ def test_operation_counts_behind_the_bounds(smoke):
     assert smoke.solve_ops_executed(8) >= smoke.solve_ops(8)
     assert smoke.mega_ops_executed(10, 8) >= smoke.mega_ops(10, 8)
     assert smoke.fused_dense_ops(8) == 181554
-    assert smoke.fused_dense_ops(8, executed=True) == 263787
+    # executed: A in full (each lane two whole rows), the Gram matrix by its 171 pairs
+    assert smoke.fused_dense_ops(8, executed=True) == 263787 - (18 * 18 - 171) * (2 * 60 + 1)
     t, by = smoke._bound_ms(4096 * 4 * 256, 4096 * smoke.mega_ops(10, 8))
     assert by == "operations" and abs(t - 0.05906) < 1e-4
 
@@ -69,3 +70,21 @@ def test_kernel_records_hold_only_measured_keys_and_the_bound():
         assert {k.arg for k in call.keywords} == allowed, ast.unparse(node.targets[0])
         found += 1
     assert found == 4
+
+
+def test_dense_variant_patches_apply_to_the_shipped_source():
+    """scripts/time_dense_variants_torch.py rebuilds the designs that were
+    tried and dropped by replacing lines of csrc/dense_solve.cu: every
+    replacement still applies, and each variant differs from the shipped
+    source."""
+    path = os.path.join(ROOT, "scripts", "time_dense_variants_torch.py")
+    spec = importlib.util.spec_from_file_location("dense_variants_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    sources = mod.patched_sources()
+    shipped = open(os.path.join(mod.CSRC, "dense_solve.cu")).read()
+    assert sources["shipped"] == shipped and len(sources) >= 8
+    others = [src for name, src in sources.items() if name != "shipped"]
+    assert all(src != shipped for src in others) and len(set(others)) == len(others)
+    for header in mod.HEADERS:
+        assert os.path.exists(os.path.join(mod.CSRC, header))

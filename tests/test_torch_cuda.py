@@ -133,19 +133,24 @@ def test_env_step_runs_on_the_card(dev):
     assert tr.obs.is_cuda and torch.isfinite(tr.obs).all() and torch.isfinite(tr.reward).all()
 
 
-def _dense_operands(model, n, dev):
+def _dense_operands(model, n, dev, lift=0.0, mid_range=False):
     """Operands of the two dense solver kernels at n states one policy step
-    into contact: (fused operands, apgd operands)."""
+    into contact: (fused operands, apgd operands). `lift` raises the robots
+    (no contact row stays active), `mid_range` puts every joint at the middle
+    of its range (no limit row stays active)."""
     from humanoid_gym_tpu_torch.physics import step as ST
     from humanoid_gym_tpu_torch.physics.contact import delassus_operands
     from humanoid_gym_tpu_torch.physics.dynamics import solve_mtilde
     from humanoid_gym_tpu_torch.physics.mega import flat_height_fn
 
-    kp = torch.tensor([200, 200, 350, 350, 15, 15] * 2, dtype=torch.float32, device=dev)
-    kd = torch.full((12,), 10.0, device=dev)
-    tl = model.dof_effort * 0.85
+    kp, kd, tl = _gains(model, dev)
     st, tgt = _states(model, n, dev)
     st = ST.make_physics_step(model, 0.001, 10, kp, kd, tl, 8, solver="apgd")(st, tgt)
+    qpos = st.qpos.clone()
+    qpos[:, 2] += lift
+    if mid_range:
+        qpos[:, 7:] = 0.5 * (model.dof_lower + model.dof_upper)
+    st = st.replace(qpos=qpos)
     _, _, fused = ST.fused_operands(model, 0.001, st, tgt, kp, kd, tl)
     _, dyn, _, rhs = ST.substep_dynamics(model, 0.001, st, tgt, kp, kd, tl)
     v_free = st.qvel + solve_mtilde(dyn.Mtilde_chol, rhs)
@@ -157,32 +162,71 @@ def _dense_operands(model, n, dev):
     return fused, apgd
 
 
-@pytest.mark.parametrize("n", [300, 37])
-def test_dense_solver_kernels_match_plain(dev, n):
-    """The APGD kernel and the fused dense kernel within the chip_smoke
-    tolerances of their plain versions (lam 2e-3, qvel 5e-4) at 8
-    iterations; 37 envs is not a multiple of the block's 4 envs, so the
-    last block runs with one warp; the counters count."""
+def _dense_kernels_match_plain(fused, apgd):
+    """Both dense kernels within the chip_smoke tolerances of their plain
+    versions (lam 2e-3, qvel 5e-4) at 8 iterations, finite; the APGD kernel
+    with the caller's step bound, with `step_bound=None` (-> ||A'||_inf) and
+    with no warm start; the counters count. Returns the plain fused outputs."""
     from humanoid_gym_tpu_torch.physics import solve as SV
-    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
 
-    model = build_xbot_model().to(dev)
-    fused, apgd = _dense_operands(model, n, dev)
+    n = fused[0].shape[0]
     n3, n4 = SV.fused_dense_solve.launches, SV.apgd_solve_kernel.launches
     q, lam = SV.fused_dense_solve(*fused, iterations=8)
     q_p, lam_p = SV.fused_dense_solve_plain(*fused, iterations=8)
     assert q.shape == (n, 18) and lam.shape == (n, 60)
+    assert bool(torch.isfinite(q).all() and torch.isfinite(lam).all())
     assert float((q - q_p).abs().max()) <= 5e-4
     assert float((lam - lam_p).abs().max()) <= 2e-3
     for bound in (apgd[6], None):
         ops = apgd[:6] + [bound, apgd[7]]
         lam4 = SV.apgd_solve_kernel(*ops, iterations=8)
         lam4_p = SV.apgd_solve_kernel_plain(*ops, iterations=8)
+        assert lam4.shape == (n, 60) and bool(torch.isfinite(lam4).all())
         assert float((lam4 - lam4_p).abs().max()) <= 2e-3
     cold = SV.apgd_solve_kernel(*apgd[:7], None, iterations=8)
     assert float((cold - SV.apgd_solve_kernel_plain(*apgd[:7], None, iterations=8)).abs().max()) <= 2e-3
-    assert float(lam_p.abs().max()) > 0.05
     assert SV.fused_dense_solve.launches == n3 + 1 and SV.apgd_solve_kernel.launches == n4 + 3
+    return q_p, lam_p
+
+
+@pytest.mark.parametrize("n", [300, 37, 1, 1621])
+def test_dense_solver_kernels_match_plain(dev, n):
+    """300 envs; 37 (not a multiple of the block's 4 envs, and fewer envs
+    than the APGD kernel has persistent warps); 1; and 1621 = 1584 + 37, more
+    than one round of the APGD kernel's persistent warps on an H100 (132 SMs x
+    3 blocks x 4 warps) with a ragged end."""
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model().to(dev)
+    fused, apgd = _dense_operands(model, n, dev)
+    _, lam_p = _dense_kernels_match_plain(fused, apgd)
+    if n >= 37:
+        assert float(lam_p.abs().max()) > 0.05
+
+
+def test_dense_solver_kernels_with_no_active_contact_row(dev):
+    """Robots lifted a metre above the ground: every contact row carries the
+    inactive sentinel -1e9, the impulses stay zero, and the dense kernels
+    stay finite and inside the same tolerances."""
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model().to(dev)
+    fused, apgd = _dense_operands(model, 64, dev, lift=1.0)
+    assert bool((fused[4] == -1e9).all() and (apgd[2] == -1e9).all())
+    _, lam_p = _dense_kernels_match_plain(fused, apgd)
+    assert float(lam_p[:, :48].abs().max()) == 0.0
+
+
+def test_dense_solver_kernels_with_all_limit_rows_inactive(dev):
+    """Every joint at the middle of its range: all twelve limit rows carry
+    -1e9 and their impulses are zero; finite, same tolerances."""
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model().to(dev)
+    fused, apgd = _dense_operands(model, 64, dev, mid_range=True)
+    assert bool((fused[6] == -1e9).all() and (apgd[4] == -1e9).all())
+    _, lam_p = _dense_kernels_match_plain(fused, apgd)
+    assert float(lam_p[:, 48:].abs().max()) == 0.0
 
 
 def test_dense_solver_wrappers_reject_bad_operands(dev):
@@ -205,6 +249,23 @@ def test_dense_solver_wrappers_reject_bad_operands(dev):
     bad[5] = apgd[5].cpu()
     with pytest.raises(ValueError):
         SV.apgd_solve_kernel(*bad, iterations=8)
+    # the kernels are compiled for 60 rows (16 contact points + 12 limit rows):
+    # 59 rows (one limit row fewer) is a shape they no longer take
+    A, u0, lo, sign, lb, mu, bound, lam = apgd
+    with pytest.raises(ValueError, match="60 rows"):
+        SV.apgd_solve_kernel(A[:, :59, :59].contiguous(), u0[:, :59].contiguous(), lo,
+                             sign[:, :11].contiguous(), lb[:, :11].contiguous(), mu, bound,
+                             lam[:, :59].contiguous(), iterations=8)
+    bad = list(fused)
+    bad[1] = fused[1][:, :59].contiguous()
+    bad[5], bad[6] = fused[5][:, :11].contiguous(), fused[6][:, :11].contiguous()
+    bad[9] = fused[9][:, :59].contiguous()
+    with pytest.raises(ValueError, match="60 rows"):
+        SV.fused_dense_solve(*bad, iterations=8)
+    # a matrix that does not start on a 16-byte boundary (the bulk copy's rule)
+    shifted = torch.empty(A.numel() + 1, device=A.device)[1:].view_as(A).copy_(A)
+    with pytest.raises(ValueError, match="16-byte"):
+        SV.apgd_solve_kernel(shifted, *apgd[1:], iterations=8)
 
 
 @pytest.mark.parametrize("solver, counter", [("fused_pallas", "fused_dense_solve"),

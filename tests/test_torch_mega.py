@@ -8,8 +8,9 @@
   fallback `step`, per env, and against the Pallas kernel in interpret
   mode under vmap (slow).
 - The Python side of the CUDA kernel that the CPU can check: the
-  model-constant layout and the shared-memory map against csrc/mega.cu and
-  csrc/solve.cuh, and the row layouts against mega_kernel.py.
+  model-constant layout and the shared-memory maps against csrc/mega.cu,
+  csrc/solve.cuh, csrc/dense_solve.cu and csrc/apgd.cuh, and the row layouts
+  against mega_kernel.py.
 """
 
 import os
@@ -253,7 +254,7 @@ def test_shared_memory_map_matches_cuda_source():
     there); the per-warp regions of that map do not overlap, stay 16-byte
     aligned, and the blocks fit the card's 227 KB at the residency the
     source note reckons with (32 warps per SM)."""
-    d = _defines("mega.cu", "solve.cuh")
+    d = _defines("mega.cu", "solve.cuh", "apgd.cuh")
     assert (d["HGT_NV"], d["HGT_NP"], d["HGT_NR"]) == (SV.NV, SV.N_POINTS, SV.ROWS)
     assert (d["IN_ROWS"], d["OUT_ROWS"]) == (MG.IN_ROWS, MG.OUT_ROWS)
     # the solve's scratch: M/L, 1/diag, t, x in order, t and x on 16-byte bounds
@@ -288,6 +289,56 @@ def test_shared_memory_map_matches_cuda_source():
     assert d["MG_MIN_BLOCKS"] * d["MG_WARPS"] == 32
     assert d["MG_MIN_BLOCKS"] * (mega_bytes + 1024) <= 232448
     assert (32 // d["SV_WARPS"]) * (solve_bytes + 1024) <= 232448
+
+
+def _check_regions(d, regions, total):
+    """Regions (name, floats) in map order: none overlaps the one before,
+    each starts on a 16-byte boundary, all end inside `total`."""
+    end = 0
+    for name, size in regions:
+        assert d[name] >= end and d[name] % 4 == 0, name
+        end = d[name] + size
+    assert end <= d[total] and d[total] % 4 == 0
+
+
+def test_dense_shared_memory_map_matches_cuda_source():
+    """csrc/dense_solve.cu and csrc/apgd.cuh: the compile-time problem shape
+    is the one the wrappers insist on; the per-warp regions of both kernels
+    do not overlap; every stage and every vector read 16 bytes at a time
+    starts on a 16-byte boundary; an env's matrix is a whole number of
+    16-byte units (the bulk copy's rule); the blocks fit the card's 227 KB at
+    the residency the source note states (12 warps per SM, 168 registers)."""
+    d = _defines("dense_solve.cu", "apgd.cuh")
+    nv, rows, pts = SV.NV, SV.ROWS, SV.N_POINTS
+    assert (d["HGT_NV"], d["HGT_NR"], d["HGT_NP"], d["HGT_MAX_ROWS"]) == (nv, rows, pts, SV.MAX_ROWS)
+    assert d["HGT_NC"] == 3 * pts and d["HGT_NC"] >= 32  # rows 0..31 are contact rows: sign 1
+    assert rows <= SV.MAX_ROWS == 64  # two rows per lane
+    # the bulk copy: one env's matrix, 16-byte units, every env on a 16-byte boundary
+    assert d["DS_A_FLOATS"] == rows * rows and (4 * rows * rows) % 16 == 0
+    # hgt_apgd_kernel
+    _check_regions(d, [("AP_SM_STAGE", rows * rows), ("AP_SM_Y", SV.MAX_ROWS),
+                       ("AP_SM_X", SV.MAX_ROWS), ("AP_SM_S", SV.MAX_ROWS)], "AP_WARP_FLOATS")
+    assert d["AP_HEAD_FLOATS"] % 4 == 0 and 4 * d["AP_HEAD_FLOATS"] >= 8 * d["DS_WARPS"]
+    assert (4 * rows) % 16 == 0  # every row of the raw stage starts on a 16-byte boundary
+    for first in range(0, rows - 7):  # a quarter-warp on 8 successive rows covers all 32 banks
+        banks = {(r * rows + k) % 32 for r in range(first, first + 8) for k in range(4)}
+        assert len(banks) == 32
+    # hgt_fused_dense_kernel
+    _check_regions(d, [("FD_SM_B", rows * d["FD_BS"]), ("FD_SM_L", nv * d["HGT_LS"]),
+                       ("FD_SM_DINV", nv), ("FD_SM_T", 20), ("FD_SM_Y", SV.MAX_ROWS),
+                       ("FD_SM_X", SV.MAX_ROWS)], "FD_WARP_FLOATS")
+    assert d["FD_BS"] >= nv and d["FD_BS"] % 4 == 0 and d["HGT_LS"] % 2 == 1
+    assert nv * d["HGT_LS"] <= d["FD_SM_L"] - d["FD_SM_B"]  # Gram scratch inside the B region
+    for first in range(0, rows - 7):  # 8 successive columns of B, 16 bytes each: all 32 banks
+        banks = {(r * d["FD_BS"] + k) % 32 for r in range(first, first + 8) for k in range(4)}
+        assert len(banks) == 32
+    assert (4 * nv) % 8 == 0  # rows of Mtilde and of J are read 8 bytes at a time
+    # residency
+    warps = d["DS_MIN_BLOCKS"] * d["DS_WARPS"]
+    assert warps == 12 and 65536 // (warps * 32) >= 168
+    for head, per_warp in ((d["AP_HEAD_FLOATS"], "AP_WARP_FLOATS"), (0, "FD_WARP_FLOATS")):
+        block = 4 * (head + d["DS_WARPS"] * d[per_warp])
+        assert d["DS_MIN_BLOCKS"] * (block + 1024) <= 232448
 
 
 def test_cpu_tensors_take_the_plain_path(models):

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1-4, 6 and 7, then the records; no contract line
+    python3 chip_smoke.py --kernels-only   # phases 1-4, 4t, 6 and 7, then the records; no contract line
 
 Phases (each prints one line of its numbers; any failure raises, so the
 script exits non-zero):
@@ -14,6 +14,13 @@ script exits non-zero):
      version at 4096 envs over 1 and 5 policy steps and at 37 and 1 envs
      over one; one launch timed as it runs, with no APGD iterations and
      with one substep, for the split loop / rest of a substep / fixed cost;
+  4t. the terrain variant of the mega kernel against its plain version on
+     the full-size map of `humanoid_ppo_terrain_robust` (2100 x 2100 nodes),
+     envs placed by the port's `init_state`, standing on it after LAND_STEPS
+     policy steps at the default pose: 4096 envs over
+     1 and 5 policy steps, 37 and 1 envs over one, both fed from one
+     `terrain_patches` call; the count of active contacts on sloped cells;
+     its launch timed beside the flat launch on the same states;
   5. the main path: XBot-L PPO training (4096 envs, T=60, solver mega)
      through `make_train_iter`, one warm-up iteration and 3 timed ones,
      with the kernels' launch counters zeroed just before the timed run;
@@ -32,7 +39,12 @@ script exits non-zero):
      (warm-up, 1 timed iteration, resume from its own checkpoint) and
      apgd_pallas (warm-up, 1 timed iteration), launch counters zeroed just
      before each timed run and read just after;
-  9. one JSON line with a record per kernel, the card line, then the
+  9. the terrain path through the entry points: `registry.make_env(
+     "humanoid_ppo_terrain_robust")` -> `OnPolicyRunner.learn` at 4096 envs,
+     T=60, solver mega (warm-up, 2 timed iterations): 60 terrain-kernel
+     launches per iteration and no flat one, the terrain levels, and the
+     launches per iteration under the profiler;
+ 10. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
@@ -58,6 +70,18 @@ PEAK_F32_FLOPS = 67e12
 N_ENVS = 4096
 T_STEPS = 60
 TIMED_ITERS = 3
+TERRAIN_TASK = "humanoid_ppo_terrain_robust"
+# policy steps at the default pose before phase 4t compares: long enough
+# that the robots stand on the terrain rather than land on it (the impacts
+# of the landing make the 8-iteration solve's iterates most sensitive to
+# rounding)
+LAND_STEPS = 50
+
+
+def _solver_mega(cfg):
+    """cfg_overrides of the terrain task: solver mega, as scripts/train.py
+    and scripts/train_torch.py run it on the card."""
+    cfg.sim.solver.solver_type = "mega"
 
 
 def _log(msg: str) -> None:
@@ -181,6 +205,17 @@ def mega_ops_executed(decimation: int, iterations: int) -> int:
     return decimation * (32 * sub + solve_ops_executed(iterations)) + 32 * (4 * 30 + 7 * 20)
 
 
+def mega_terrain_ops(decimation: int, iterations: int) -> int:
+    """Operations of one launch of the terrain variant for one env
+    (csrc/mega.cu hgt_mega_kernel<true>): the flat launch's, plus per
+    substep and contact point the patch lookup (~30), t2 (4) and phi (3),
+    and per row the base-rotation entries (X x d, 9) and the six joint
+    entries projected on d (5 each); per launch the 16 frames (12 each) and
+    the rotated impulse sums (6 x 8 x 5)."""
+    per_point = 30 + 4 + 3 + 3 * (9 + 6 * 5)
+    return mega_ops(decimation, iterations) + decimation * 16 * per_point + 16 * 12 + 6 * 8 * 5
+
+
 PROJ_OPS = 16 * 20 + 12  # 16 cone projections + 12 clamps
 
 
@@ -265,7 +300,7 @@ def _solve_operands(model, st, targets, kp, kd, tlim, dt):
 
     ms = torch.ones((st.qpos.shape[0], model.nbody), device=st.qpos.device)
     ms[:, 0] = st.base_mass_scale
-    _, ops = solve_operands(
+    _, ops, _ = solve_operands(
         model, dt, st.qpos, st.qvel, targets, kp * st.kp_scale[:, None],
         kd * st.kd_scale[:, None], tlim, ms, st.friction, st.contact_stiffness,
         st.contact_offset, st.contact_compliance, st.contact_lam,
@@ -316,7 +351,7 @@ def _setup(dev):
     def kernel(st, tgt):
         return c.mega(st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
                       st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance,
-                      st.contact_lam, tgt)
+                      st.contact_lam, st.slope_bias, tgt)
 
     def advance(st, out):
         qpos, qvel, lam, tau, ff, fk14 = out
@@ -465,6 +500,130 @@ def _phase4_mega(c, records):
                            bound_by=b_by)
 
 
+def _landed_terrain_states(dev):
+    """Phase 4t's inputs: the port's env for the terrain task at 4096 envs
+    (placed by `init_state` over the levels of the full-size map),
+    LAND_STEPS policy steps at the default pose so that the robots stand on
+    the terrain, and the default pose as the targets."""
+    import torch
+
+    from humanoid_gym_tpu_torch import registry
+
+    env, cfg = registry.make_env(TERRAIN_TASK, num_envs=N_ENVS, cfg_overrides=_solver_mega,
+                                 device=dev, seed=0)
+    state = env.init_state()
+    zero = torch.zeros((N_ENVS, cfg.env.num_actions), device=dev)
+    for _ in range(LAND_STEPS):
+        state, _ = env.step(state, zero)
+    return env, cfg, state, env.default_dof_pos.expand(N_ENVS, -1).contiguous()
+
+
+def _phase4t_mega_terrain(c, records):
+    """Phase 4t: the terrain variant against its plain version on the full
+    map. Each step's IN2 rows come from one `terrain_patches` call on the
+    state it starts from; where kernel and plain start from one state (the
+    first step) they read the same call's rows."""
+    import numpy as np
+    import torch
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.terrain.terrain import TerrainMap
+
+    t0 = time.perf_counter()
+    tmap = TerrainMap.build(registry.get_task(TERRAIN_TASK).make_env_cfg().terrain,
+                            np.random.default_rng(0))
+    build_s = time.perf_counter() - t0
+    env, cfg, state, tgt_all = _landed_terrain_states(c.dev)
+    if not np.array_equal(env.terrain_map.height_field, tmap.height_field):
+        raise AssertionError("the env's terrain map is not the task's map from default_rng(0)")
+    step = MG.make_mega_step_batched(env.model, cfg.sim.dt, cfg.control.decimation, env.p_gains,
+                                     env.d_gains, env.torque_limits, iterations=c.iters,
+                                     terrain_map=env.terrain_map)
+    terr, consts = step.terrain, step.consts
+
+    def args_of(st, tgt):
+        return (st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
+                st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance,
+                st.contact_lam, tgt)
+
+    def kernel(st, tgt, in2):
+        packed = MG.pack_inputs(*args_of(st, tgt))
+        return MG.unpack_outputs(MG.mega_kernel_launch(packed, consts, c.sim_dt, c.dec, c.iters,
+                                                       1.0, packed2=in2, terrain=terr))
+
+    def plain(st, tgt, in2):
+        return MG.mega_step_plain(env.model, c.sim_dt, c.dec, env.p_gains, env.d_gains,
+                                  env.torque_limits, c.iters, 1.0, *args_of(st, tgt), in2=in2,
+                                  terrain=terr)
+
+    tols = _mega_tols(c.sim_dt)
+    worst = 0.0
+    st_all = state.phys
+    lv = state.terrain_level
+    _log(f"phase 4t terrain: {TERRAIN_TASK} map {tmap.height_field.shape[0]} x "
+         f"{tmap.height_field.shape[1]} nodes ({tmap.height_field.nbytes / 1e6:.1f} MB int16) built "
+         f"in {build_s:.2f} s | {N_ENVS} envs on levels {int(lv.min())}-{int(lv.max())} (mean "
+         f"{float(lv.float().mean()):.2f}) after {LAND_STEPS} steps at the default pose")
+    for n, n_steps in ((N_ENVS, 1), (N_ENVS, 5), (37, 1), (1, 1)):
+        idx = torch.linspace(0, N_ENVS - 1, n, device=c.dev).round().long()
+        st0 = st_all.replace(**{f: getattr(st_all, f)[idx] for f in (
+            "qpos", "qvel", "friction", "base_mass_scale", "contact_stiffness", "contact_offset",
+            "kp_scale", "kd_scale", "contact_compliance", "contact_lam", "slope_bias", "torques",
+            "fk_out", "contact_forces")})
+        tgt = tgt_all[idx]
+        in2 = step.terrain_patches(st0.qpos, st0.slope_bias)
+        ok, op = kernel(st0, tgt, in2), plain(st0, tgt, in2)
+        sk, sp = c.advance(st0, ok), c.advance(st0, op)
+        for _ in range(n_steps - 1):
+            ok = kernel(sk, tgt, step.terrain_patches(sk.qpos, sk.slope_bias))
+            op = plain(sp, tgt, step.terrain_patches(sp.qpos, sp.slope_bias))
+            sk, sp = c.advance(sk, ok), c.advance(sp, op)
+        torch.cuda.synchronize()
+        errs = _mega_errors(ok, op)
+        finite = all(bool(torch.isfinite(t).all()) for t in ok)
+        line = (f"phase 4t mega terrain: {n} env(s), {n_steps} step(s) | " + " ".join(
+            f"{k} {v:.3e}/{tols[k]:.0e}" for k, v in errs.items()) + f" | finite {finite}")
+        if (n, n_steps) == (N_ENVS, 1):
+            keep = (MG.pack_inputs(*args_of(st0, tgt)), in2, st0, tgt)
+            level_in2 = step.terrain_patches(st0.qpos, torch.zeros_like(st0.slope_bias))
+            slope = torch.hypot(level_in2[:, MG.IN2_GX:MG.IN2_GY], level_in2[:, MG.IN2_GY:])
+            lam_n = ok[2][:, 2:3 * MG.N_POINTS:3]
+            on_slope = int(((lam_n > 0) & (slope > 1e-6)).sum())
+            line += (f" | active contact points {int((lam_n > 0).sum())}, on sloped cells "
+                     f"{on_slope} (steepest cell under a point: slope {float(slope.max()):.3f})")
+        _log(line)
+        bad = {k: v for k, v in errs.items() if not v <= tols[k]}
+        if bad or not finite:
+            raise AssertionError(f"terrain mega kernel disagrees with its plain version at {n} "
+                                 f"envs: {bad}")
+        if (n, n_steps) == (N_ENVS, 1) and on_slope == 0:
+            raise AssertionError("no active contact on a sloped cell: the terrain check is vacuous")
+        worst = max(worst, max(errs.values()))
+    packed, in2, st0, tgt = keep
+
+    def launch(terrain):
+        if terrain:
+            return MG.mega_kernel_launch(packed, consts, c.sim_dt, c.dec, c.iters, 1.0,
+                                         packed2=in2, terrain=terr)
+        return MG.mega_kernel_launch(packed, consts, c.sim_dt, c.dec, c.iters, 1.0)
+
+    turns = [_time_ms(lambda: launch(t), reps=20) for t in (False, True, True, False)]
+    ms_k = 0.5 * (turns[1] + turns[2])
+    ms_p = _time_ms(lambda: plain(st0, tgt, in2), reps=2)
+    ms_patches = _time_ms(lambda: step.terrain_patches(st0.qpos, st0.slope_bias), reps=20)
+    n_patches = _kernel_launches(lambda: step.terrain_patches(st0.qpos, st0.slope_bias))
+    ops = mega_terrain_ops(c.dec, c.iters)
+    b_ms, b_by = _bound_ms(N_ENVS * 4 * (MG.IN_ROWS + MG.IN2_ROWS + MG.OUT_ROWS), N_ENVS * ops)
+    _log(f"phase 4t mega terrain timing: {N_ENVS} envs, same states, in turns flat {turns[0]:.3f} "
+         f"| terrain {turns[1]:.3f} | terrain {turns[2]:.3f} | flat {turns[3]:.3f} ms per launch; "
+         f"terrain_patches {ms_patches:.3f} ms, {n_patches} kernel launches a call; plain "
+         f"{ms_p:.2f} ms; bound {b_ms:.5f} ms ({b_by}; "
+         f"{ops} operations per env)")
+    records["mega_terrain"] = dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                                   bound_by=b_by)
+
+
 def _phase6_apgd(c, st1, tgt1, records):
     """Phase 6: the APGD kernel against its plain version, operands as
     `resolve_contacts` builds them; st1 / tgt1 are the 4096-env state."""
@@ -599,6 +758,18 @@ def _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_iter_ms
     _profile_line("phase 5b profile", prof, mean_iter_ms, "iteration")
 
 
+def _kernel_launches(fn) -> int:
+    """Device kernels one call of fn() launches, counted by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def _profile_line(tag, prof, window_ms, what):
     """Device time by kernel class, launch count and idle share of a
     profiled window that took window_ms."""
@@ -685,11 +856,13 @@ def _substep_path(solver, timed_iters, resume, card):
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
+        MG.mega_kernel_launch.terrain_launches = 0
         t0 = time.perf_counter()
         timed.learn(timed_iters)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = {k: c.launches for k, c in counters.items()}
+        launches["mega_terrain"] = MG.mega_kernel_launch.terrain_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         lines = records(os.path.join(root, "timed"), 1, timed_iters)
         want = T_STEPS * dec * timed_iters
@@ -743,6 +916,92 @@ def _substep_path(solver, timed_iters, resume, card):
     return launches
 
 
+def _phase9_terrain_path(card):
+    """Phase 9: XBot-L terrain PPO at 4096 envs, T=60, solver mega, through
+    registry.make_env -> OnPolicyRunner.learn. A first runner warms up with
+    one iteration and leaves its final checkpoint; a second loads it and
+    runs 2 timed iterations with the launch counters zeroed just before and
+    read just after; then one more iteration from its state under the
+    profiler. Returns the timed run's terrain-kernel launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.physics import mega as MG, solve as SV
+    from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+
+    timed_iters = 2
+    t0 = time.perf_counter()
+    env, cfg = registry.make_env(TERRAIN_TASK, num_envs=N_ENVS, cfg_overrides=_solver_mega,
+                                 device="cuda", seed=0)
+    make_s = time.perf_counter() - t0
+    tcfg = registry.get_task(TERRAIN_TASK).make_train_cfg()
+    if (cfg.sim.solver.solver_type, tcfg.runner.num_steps_per_env, cfg.env.num_observations,
+            cfg.env.num_privileged_obs, cfg.terrain.mesh_type, env.terrain_map.height_field.shape) \
+            != ("mega", T_STEPS, 705, 219, "trimesh", (2100, 2100)):
+        raise AssertionError("the terrain task is not the full-width XBot-L recipe on the full map")
+    with tempfile.TemporaryDirectory(prefix="hgt_smoke_") as root:
+        t0 = time.perf_counter()
+        warm = OnPolicyRunner(env, tcfg, log_dir=os.path.join(root, "warm"), seed=1)
+        warm.learn(1)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        timed = OnPolicyRunner(env, tcfg, log_dir=os.path.join(root, "timed"), seed=2)
+        timed.load(os.path.join(root, "warm", "model_1.ckpt"))
+        levels0 = timed.env_state.terrain_level.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+        SV.fused_solve.launches = SV.fused_dense_solve.launches = SV.apgd_solve_kernel.launches = 0
+        t0 = time.perf_counter()
+        timed.learn(timed_iters)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"mega_terrain": MG.mega_kernel_launch.terrain_launches,
+                    "mega": MG.mega_kernel_launch.launches, "solve_standalone": SV.fused_solve.launches,
+                    "fused_dense": SV.fused_dense_solve.launches,
+                    "apgd": SV.apgd_solve_kernel.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        lines = [json.loads(ln) for ln in open(os.path.join(root, "timed", "metrics.jsonl"))]
+    if [ln["iter"] for ln in lines] != [1, 2]:
+        raise AssertionError(f"terrain path: metrics.jsonl iterations {[ln['iter'] for ln in lines]}")
+    for ln in lines:
+        for k in ("Loss/value_function", "Loss/surrogate", "Loss/entropy", "Loss/kl",
+                  "Train/mean_step_reward", "Episode/terrain_level"):
+            if not np.isfinite(ln[k]):
+                raise AssertionError(f"terrain path: non-finite {k} = {ln[k]}")
+    if launches["mega_terrain"] != T_STEPS * timed_iters or any(
+            v for k, v in launches.items() if k != "mega_terrain"):
+        raise AssertionError(f"terrain path: launches {launches}, expected mega_terrain = "
+                             f"{T_STEPS * timed_iters} only")
+    levels = timed.env_state.terrain_level
+    if int(levels.min()) < 0 or int(levels.max()) >= cfg.terrain.num_rows:
+        raise AssertionError(f"terrain levels out of range: {int(levels.min())}-{int(levels.max())}")
+    changed = int((levels != levels0).sum())
+    mean_ms = wall_ms / timed_iters
+    iter_ms = [ln["Perf/iter_time"] * 1e3 for ln in lines]
+    _log(f"phase 9 terrain path: XBot-L {N_ENVS} envs T={T_STEPS} {TERRAIN_TASK} solver mega "
+         f"through registry.make_env -> OnPolicyRunner.learn | env built in {make_s:.1f} s, warm-up "
+         f"{warm_s:.1f} s | {timed_iters} iterations in {wall_ms:.1f} ms (dispatch to dispatch: "
+         f"{', '.join(f'{x:.1f}' for x in iter_ms)} ms) | {T_STEPS * N_ENVS / (mean_ms / 1e3):.1f} "
+         f"env steps/s | terrain-kernel launches {launches['mega_terrain']} (= {T_STEPS} x "
+         f"{timed_iters}), flat {launches['mega']} | terrain level mean {float(levels.float().mean()):.3f} "
+         f"(range {int(levels.min())}-{int(levels.max())}), {changed} envs changed level | "
+         f"value_loss {lines[-1]['Loss/value_function']:.4g} mean_step_reward "
+         f"{lines[-1]['Train/mean_step_reward']:.4g} | peak mem {peak_gib:.2f} GiB | {card}")
+    t0 = time.perf_counter()
+    timed._train_iter(timed.train_state, timed.env_state, timed.obs, timed.priv_obs, timed.gen)
+    torch.cuda.synchronize()
+    plain_iter_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        timed._train_iter(timed.train_state, timed.env_state, timed.obs, timed.priv_obs, timed.gen)
+        torch.cuda.synchronize()
+    _profile_line(f"phase 9 profile (one terrain iteration; unprofiled {plain_iter_ms:.1f} ms)",
+                  prof, plain_iter_ms, "iteration")
+    return launches
+
+
 def _ptxas_summary(log: str) -> str:
     """Per kernel: registers, stack frame and spills from `ptxas -v`."""
     import re
@@ -751,8 +1010,11 @@ def _ptxas_summary(log: str) -> str:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = re.sub(r"^_Z\d+", "", m.group(1))
+            raw = m.group(1)
+            name = re.sub(r"^_Z\d+", "", raw)
             name = re.match(r"[a-z_]+", name).group(0) if re.match(r"[a-z_]+", name) else name
+            # template instantiations: hgt_mega_kernel<false> / <true>
+            name += "<true>" if "ILb1E" in raw else ("<false>" if "ILb0E" in raw else "")
         elif "stack frame" in ln:
             frame = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -807,6 +1069,7 @@ def main() -> int:
     records = {}
     st1, tgt0, ops_in = _phase3_solve(c, records)
     _phase4_mega(c, records)
+    _phase4t_mega_terrain(c, records)
     if "--kernels-only" in sys.argv[1:]:
         _phase6_apgd(c, st1, tgt0, records)
         _phase7_fused_dense(c, st1, tgt0, ops_in, records)
@@ -837,7 +1100,7 @@ def main() -> int:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    MG.mega_kernel_launch.launches = 0
+    MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
     SV.fused_solve.launches = 0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_ITERS + 1)]
     all_metrics = []
@@ -847,15 +1110,17 @@ def main() -> int:
         ev[i + 1].record()
         all_metrics.append(metrics)
     torch.cuda.synchronize()
-    launches = {"mega": MG.mega_kernel_launch.launches, "solve_standalone": SV.fused_solve.launches}
+    launches = {"mega": MG.mega_kernel_launch.launches, "solve_standalone": SV.fused_solve.launches,
+                "mega_terrain": MG.mega_kernel_launch.terrain_launches}
     iter_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TIMED_ITERS)]
     for m in all_metrics:
         for k in ("value_loss", "surrogate_loss", "entropy", "mean_step_reward", "kl", "grad_norm"):
             v = float(m[k])
             if not np.isfinite(v):
                 raise AssertionError(f"non-finite {k} = {v}")
-    if launches["mega"] != T_STEPS * TIMED_ITERS:
-        raise AssertionError(f"mega launches {launches['mega']} != {T_STEPS * TIMED_ITERS}")
+    if launches["mega"] != T_STEPS * TIMED_ITERS or launches["mega_terrain"]:
+        raise AssertionError(f"mega launches {launches}, expected mega = {T_STEPS * TIMED_ITERS} "
+                             f"and no terrain launch")
     mean_ms = sum(iter_ms) / len(iter_ms)
     last = all_metrics[-1]
     _log(f"phase 5 main path: XBot-L {N_ENVS} envs T={T_STEPS} solver mega | warm-up {warm_s:.1f} s | "
@@ -876,6 +1141,9 @@ def main() -> int:
     launches_fused = _substep_path("fused_pallas", timed_iters=1, resume=True, card=card)
     launches_apgd = _substep_path("apgd_pallas", timed_iters=1, resume=False, card=card)
 
+    # ---- phase 9: the terrain path through the entry points ----
+    launches_terrain = _phase9_terrain_path(card)
+
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",
              source="humanoid_gym_tpu_torch/csrc/mega.cu",
@@ -895,6 +1163,11 @@ def main() -> int:
              route="cuda", source="humanoid_gym_tpu_torch/csrc/dense_solve.cu",
              replaces="humanoid_gym_tpu/physics/pallas_solver.py:60",
              launches=launches_apgd["apgd"], library_ms=None, **records["apgd"]),
+        dict(name="hgt_mega_kernel<true> (terrain variant: whole policy step on a heightfield, "
+                  "the TPU kernel's IN2 rows)", route="cuda",
+             source="humanoid_gym_tpu_torch/csrc/mega.cu",
+             replaces="humanoid_gym_tpu/physics/mega_kernel.py:560",
+             launches=launches_terrain["mega_terrain"], library_ms=None, **records["mega_terrain"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

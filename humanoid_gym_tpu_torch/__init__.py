@@ -1,7 +1,8 @@
 """humanoid_gym_tpu_torch: the PyTorch/CUDA port of humanoid_gym_tpu.
 
 A second package beside the JAX one, which stays as the reference. The port
-runs flat-ground XBot-L PPO training on an NVIDIA H100 with any of the JAX
+runs XBot-L PPO training on flat ground and on heightfield terrain (the
+terrain tasks and their curriculum) on an NVIDIA H100 with any of the JAX
 package's solvers: `solver_type="mega"` (one kernel launch per policy step,
 the default on the card) or the per-substep path (`apgd`, `pgs`,
 `apgd_pallas`, `fused_pallas`).
@@ -13,6 +14,8 @@ the default on the card) or the per-substep path (`apgd`, `pgs`,
   kernel has a plain PyTorch version beside it, which a CPU tensor takes;
   a CUDA tensor takes the kernel.
 - ``envs/``    : the XBot-L environment as batched tensor code.
+- ``terrain/`` : the terrain map (NumPy, once at init) and its height
+  lookups as torch functions.
 - ``algo/``    : the actor-critic nets and the PPO train iteration.
 - ``runner/``  : the training loop with logging and checkpoints.
 - ``registry`` and ``utils/``: the task registry and the command line of

@@ -6,7 +6,10 @@
 - `physics_state_from_jax` / `env_state_from_jax`: a batched JAX
   `PhysicsState` / `EnvState` (any object whose attributes convert with
   `numpy.array`) as the port's dataclasses, leaf for leaf. The JAX
-  EnvState's per-env PRNG key has no counterpart and is dropped.
+  EnvState's per-env PRNG key has no counterpart and is dropped; the
+  terrain fields (level, type, origin) come across with the rest.
+- `terrain_map_from_jax`: the JAX package's `TerrainMap` (NumPy arrays and
+  floats) as the port's, so both packages can run on one grid.
 
 Nothing here imports JAX: the callers hand over the objects.
 """
@@ -20,6 +23,7 @@ import torch
 
 from ..envs.state import EnvState
 from ..physics.step import PhysicsState
+from ..terrain.terrain import TerrainMap
 
 
 def _layers(tree: dict):
@@ -55,3 +59,11 @@ def env_state_from_jax(js, device="cpu") -> EnvState:
     kw = {f.name: _leaf(getattr(js, f.name), device)
           for f in dataclasses.fields(EnvState) if f.name != "phys"}
     return EnvState(phys=physics_state_from_jax(js.phys, device), **kw)
+
+
+def terrain_map_from_jax(tmap) -> TerrainMap:
+    """The reference TerrainMap's arrays and scalars, copied."""
+    return TerrainMap(**{
+        f.name: (np.array(getattr(tmap, f.name)) if isinstance(getattr(tmap, f.name), np.ndarray)
+                 else getattr(tmap, f.name))
+        for f in dataclasses.fields(TerrainMap)})

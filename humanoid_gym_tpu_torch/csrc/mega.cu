@@ -73,6 +73,31 @@
 // local memory (255 registers, 7-10 KB of stack per thread, one warp per SM;
 // 4.0 ms per launch).
 //
+// Terrain variant (template <bool TERRAIN>, launched by
+// hgt_mega_step_terrain; replaces the TPU kernel built with `terrain=`,
+// mega_kernel.py:560, 585-595, 731-751, 1096-1198, 1306-1311). A second
+// input of IN2_ROWS = 208 floats per env, built once per policy step from
+// the step-start state (physics/mega.py make_terrain_patches): per contact
+// point the 3 x 3 node patch of the grid in meters, tap-major, its origin
+// (ox, oy) in grid units, and the step-start slope (gx, gy) with the slope
+// DR bias. At load the warp copies the taps and the origins to MG_T and turns
+// the slope into the point's frame, n = normalize(-gx, -gy, 1) and t1 =
+// normalize(n_z, 0, -n_x) (t2 = n x t1 is formed where it is used, t1_y =
+// 0), once per launch. In each column of a contact row: the ground
+// bilinearly from the point's patch, (u, v) relative to the patch origin
+// clipped to [0, 1.999] (a point that moved more than a cell since the step
+// start clamps to the patch edge); phi = (z - ground) n_z; the row's
+// direction d (t1, t2 or n) gives the base-translation entries d_c, the
+// base-rotation entries (X x d)_c and the ancestor-joint entries
+// (a_j x (X - p_j)) . d. The zero pattern of J (a foot's rows touch its own
+// leg and the base) is that of flat ground, so the leg-block Cholesky and
+// the pair table of the solve hold as they are. After the loop the per-foot
+// impulse sums are sum_k (lam_t1 t1 + lam_t2 t2 + lam_n n). The flat
+// instantiation compiles the code of the flat kernel unchanged (every
+// terrain statement is under `if constexpr`). Shared memory: 256 floats more
+// per env (MG_T, 1,024 B): 16 x 6,816 + 2,464 = 111,520 B a block, two
+// blocks still fit an SM, so 4096 envs remain one wave.
+//
 // Host side: the model constants go up with a synchronous copy and the
 // launches go to the stream the caller names, so hgt_set_model must not
 // run while another stream's launch is in flight; g_model lives on the
@@ -113,6 +138,13 @@
 #define OUT_TAU 97
 #define OUT_FF 109
 #define OUT_FK 115
+// terrain second input (physics/mega.py IN2_*): 9 x 16 taps, ox, oy, gx, gy
+#define IN2_PMIN 0
+#define IN2_OX 144
+#define IN2_OY 160
+#define IN2_GX 176
+#define IN2_GY 192
+#define IN2_ROWS 208
 
 // model-constant layout (must match physics/mega.py CONST_LAYOUT)
 #define C_MASS 0
@@ -162,6 +194,10 @@
 #define MG_SW 1337          // 54: angular parts of the 18 motion screws
 #define MG_SVL 1391         // 54: linear parts
 #define MG_WARP_FLOATS 1448 // padded to a multiple of 4
+#define MG_T 1448           // terrain variant only: taps and patch origin in the IN2 layout (176),
+#define MG_T_FR 176         //   then per point n_x, n_y, n_z, t1_x, t1_z (5 x 16) at MG_T + MG_T_FR
+#define MG_T_FLOATS 256
+#define MG_WARP_FLOATS_T 1704  // MG_T + MG_T_FLOATS
 #define SV_WARP_FLOATS 792  // HGT_SOLVE_FLOATS + HGT_GRAM_FLOATS
 #define SV_HEAD_FLOATS 72   // per block of the stand-alone solve: 270 pair bytes padded to 288
 
@@ -173,6 +209,15 @@ static_assert(SV_WARP_FLOATS == HGT_SOLVE_FLOATS + HGT_GRAM_FLOATS, "solve regio
 static_assert(MG_HEAD_FLOATS * 4 >= 544 * 4 + 2 * HGT_NPAIR && SV_HEAD_FLOATS * 4 >= 2 * HGT_NPAIR
               && SV_HEAD_FLOATS % 4 == 0, "block headers");
 static_assert(OUT_ROWS <= 13 * CS, "output staging");
+static_assert(MG_T >= MG_WARP_FLOATS && MG_T % 4 == 0 && MG_T_FR == IN2_GX
+              && MG_T_FR + 5 * HGT_NP <= MG_T_FLOATS && IN2_ROWS <= MG_T_FLOATS
+              && MG_WARP_FLOATS_T == MG_T + MG_T_FLOATS, "terrain region");
+
+// launch constants of the terrain variant: the world-to-grid map and the
+// clip of the grid coordinate (nrow - 1.001, ncol - 1.001)
+struct MgTerrain {
+    float border, inv_h, gx_max, gy_max;
+};
 
 __device__ float g_model[C_TOTAL];
 
@@ -387,13 +432,68 @@ __device__ __forceinline__ void body_stage(float* sm, const float* cm, int b, fl
 }
 
 // Builds, inside the solve, the two constraint columns of a lane from the
-// kinematics scratch: contact rows (flat ground, identity frames) and
-// joint-limit rows, with their targets and signs.
+// kinematics scratch: contact rows (flat ground and identity frames, or the
+// heightfield patch and sloped frames of MG_T) and joint-limit rows, with
+// their targets and signs.
+template <bool TERRAIN>
 struct MegaCols {
     const float* sm;
     const float* cm;
     int lane;
     float inv_dt, bmg, coffset, max_depen_vel;
+    MgTerrain terr;
+
+    // Contact row (point k, direction i) on the heightfield: the ground
+    // bilinearly inside the point's 3x3 patch (clamped to it), the gap along
+    // the normal, and the row projected on its direction d (t1, t2 = n x t1
+    // or n) of the point's frame.
+    __device__ __forceinline__ void terrain_row(const float (&X)[3], int k, int i, bool left,
+                                                float (&b)[HGT_NV], float& tg) const {
+        const float* qpos = sm + MG_S + IN_QPOS;
+        const float* tr = sm + MG_T;
+        float fx = fminf(fmaxf((X[0] + qpos[0] + terr.border) * terr.inv_h, 0.0f), terr.gx_max);
+        float fy = fminf(fmaxf((X[1] + qpos[1] + terr.border) * terr.inv_h, 0.0f), terr.gy_max);
+        float u = fminf(fmaxf(fx - tr[IN2_OX + k], 0.0f), 1.999f);
+        float v = fminf(fmaxf(fy - tr[IN2_OY + k], 0.0f), 1.999f);
+        float iu = floorf(u), iv = floorf(v);
+        float fu = u - iu, fv = v - iv;
+        const float* p = tr + IN2_PMIN + ((int)iu * 3 + (int)iv) * HGT_NP + k;  // tap (iu, iv)
+        float lo0 = (1.0f - fv) * p[0] + fv * p[HGT_NP];                   // (iu, iv), (iu, iv + 1)
+        float lo1 = (1.0f - fv) * p[3 * HGT_NP] + fv * p[4 * HGT_NP];      // (iu + 1, .)
+        float ground = (1.0f - fu) * lo0 + fu * lo1;
+        const float* fr = tr + MG_T_FR + k;
+        float nx = fr[0], ny = fr[HGT_NP], nz = fr[2 * HGT_NP];
+        float t1x = fr[3 * HGT_NP], t1z = fr[4 * HGT_NP];
+        float d[3] = {i == 0 ? t1x : (i == 1 ? ny * t1z : nx),
+                      i == 0 ? 0.0f : (i == 1 ? nz * t1x - nx * t1z : ny),
+                      i == 0 ? t1z : (i == 1 ? -ny * t1x : nz)};
+        float phi = (X[2] + qpos[2] - ground) * nz;
+        float b_pen = fminf(bmg * (-phi) * inv_dt, max_depen_vel);
+        float b_gap = -phi * inv_dt;
+        float lo = phi <= 0.0f ? b_pen : b_gap;
+        if (phi > coffset) lo = -1e9f;
+        if (i == 2) tg = lo;
+        // base translation d_c and rotation (X x d)_c
+        float xd[3];
+        cross3(X, d, xd);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            b[NJ + c] = d[c];
+            b[NJ + 3 + c] = xd[c];
+        }
+        // the foot's six ancestor joints: (a_j x (X - pivot_j)) . d
+        int j0 = left ? 0 : NJ / 2;
+#pragma unroll
+        for (int jj = 0; jj < NJ / 2; ++jj) {
+            const float* pj = sm + MG_P + 3 * (j0 + jj + 1);
+            float rx[3] = {X[0] - pj[0], X[1] - pj[1], X[2] - pj[2]};
+            float col[3];
+            cross3(sm + MG_AXW + 3 * (j0 + jj), rx, col);
+            float val = col[0] * d[0] + col[1] * d[1] + col[2] * d[2];
+            b[jj] = left ? val : 0.0f;
+            b[NJ / 2 + jj] = left ? 0.0f : val;
+        }
+    }
 
     __device__ __forceinline__ void column(int r, float (&b)[HGT_NV], float& tg, float& sg) const {
         const float* qpos = sm + MG_S + IN_QPOS;
@@ -412,6 +512,10 @@ struct MegaCols {
 #pragma unroll
             for (int q = 0; q < 3; ++q)
                 X[q] = Rf[3 * q] * o[0] + Rf[3 * q + 1] * o[1] + Rf[3 * q + 2] * o[2] + pf[q];
+            if constexpr (TERRAIN) {
+                terrain_row(X, k, i, left, b, tg);
+                return;
+            }
             float phi = X[2] + qpos[2];
             float b_pen = fminf(bmg * (-phi) * inv_dt, max_depen_vel);
             float b_gap = -phi * inv_dt;
@@ -458,9 +562,10 @@ struct MegaCols {
     }
 };
 
+template <bool TERRAIN>
 __device__ __forceinline__ void substep(float* sm, const float* cm, const unsigned char* pairs,
                                         int lane, float& lam0, float& lam1, float dt,
-                                        int iterations, float max_depen_vel) {
+                                        int iterations, float max_depen_vel, const MgTerrain& terr) {
     float* S = sm + MG_S;
     float* qpos = S + IN_QPOS;
     float* qvel = S + IN_QVEL;
@@ -550,7 +655,7 @@ __device__ __forceinline__ void substep(float* sm, const float* cm, const unsign
     }
     __syncwarp();
 
-    MegaCols cols{sm, cm, lane, 1.0f / dt, 0.2f * cstiff, coffset, max_depen_vel};
+    MegaCols<TERRAIN> cols{sm, cm, lane, 1.0f / dt, 0.2f * cstiff, coffset, max_depen_vel, terr};
     float qn_i, l0, l1;
     hgt_solve_env(sm + MG_SOLVE, sm + MG_R, pairs, lane, rhs_i, qv_i, mu, comp, lam0, lam1,
                   iterations, cols, qn_i, l0, l1);
@@ -592,9 +697,11 @@ __device__ __forceinline__ void substep(float* sm, const float* cm, const unsign
     __syncwarp();
 }
 
+template <bool TERRAIN>
 __global__ void __launch_bounds__(MG_WARPS * 32, MG_MIN_BLOCKS)
 hgt_mega_kernel(const float* __restrict__ in, float* __restrict__ out, int n, float dt,
-                int decimation, int iterations, float max_depen_vel) {
+                int decimation, int iterations, float max_depen_vel,
+                const float* __restrict__ in2, MgTerrain terr) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     load_header(smem);
@@ -603,10 +710,34 @@ hgt_mega_kernel(const float* __restrict__ in, float* __restrict__ out, int n, fl
     if (e >= n) return;  // whole warps leave; no block-wide barrier follows
     const float* cm = smem;
     const unsigned char* pairs = reinterpret_cast<const unsigned char*>(smem + 544);
-    float* sm = smem + MG_HEAD_FLOATS + warp * MG_WARP_FLOATS;
+    float* sm = smem + MG_HEAD_FLOATS + warp * (TERRAIN ? MG_WARP_FLOATS_T : MG_WARP_FLOATS);
 
     const float* ip = in + (size_t)e * IN_ROWS;
     for (int i = lane; i < IN_ROWS; i += 32) sm[MG_S + i] = ip[i];
+    if constexpr (TERRAIN) {
+        // the IN2 row as it is, then the slope of point `lane` as its frame
+        float* tr = sm + MG_T;
+        const float* ip2 = in2 + (size_t)e * IN2_ROWS;
+        for (int i = lane; i < IN2_ROWS; i += 32) tr[i] = ip2[i];
+        __syncwarp();
+        float gx = 0.0f, gy = 0.0f;
+        if (lane < HGT_NP) {
+            gx = tr[IN2_GX + lane];
+            gy = tr[IN2_GY + lane];
+        }
+        __syncwarp();  // every slope is read before the frames overwrite it
+        if (lane < HGT_NP) {
+            float n_inv = rsqrtf(gx * gx + gy * gy + 1.0f);
+            float nx = -gx * n_inv, ny = -gy * n_inv, nz = n_inv;
+            float t1_inv = rsqrtf(nz * nz + nx * nx);
+            float* fr = tr + MG_T_FR + lane;
+            fr[0] = nx;
+            fr[HGT_NP] = ny;
+            fr[2 * HGT_NP] = nz;
+            fr[3 * HGT_NP] = nz * t1_inv;
+            fr[4 * HGT_NP] = -nx * t1_inv;
+        }
+    }
     if (lane < NJ) sm[MG_TAU + lane] = 0.0f;
     for (int t = lane; t < NJ * 3; t += 32) {  // jrot_j * axis_j
         int j = t / 3, r = t - 3 * j;
@@ -620,7 +751,7 @@ hgt_mega_kernel(const float* __restrict__ in, float* __restrict__ out, int n, fl
     float lam1 = lane + 32 < HGT_NR ? sm[MG_S + IN_LAM + lane + 32] : 0.0f;
 
     for (int s = 0; s < decimation; ++s)
-        substep(sm, cm, pairs, lane, lam0, lam1, dt, iterations, max_depen_vel);
+        substep<TERRAIN>(sm, cm, pairs, lane, lam0, lam1, dt, iterations, max_depen_vel, terr);
 
     // ---- end-of-step feet/knee kinematics: feet p and knee xy
     // base-relative, feet v_origin world-frame ----
@@ -646,8 +777,21 @@ hgt_mega_kernel(const float* __restrict__ in, float* __restrict__ out, int n, fl
     if (lane < 6) {
         int foot = lane / 3, c = lane - 3 * foot;
         float acc = 0.0f;
-        for (int k = foot * (HGT_NP / 2); k < (foot + 1) * (HGT_NP / 2); ++k)
-            acc += o[OUT_LAM + 3 * k + c];
+        if constexpr (TERRAIN) {  // lam_t1 t1 + lam_t2 t2 + lam_n n, component c
+            for (int k = foot * (HGT_NP / 2); k < (foot + 1) * (HGT_NP / 2); ++k) {
+                const float* fr = sm + MG_T + MG_T_FR + k;
+                float nx = fr[0], ny = fr[HGT_NP], nz = fr[2 * HGT_NP];
+                float t1x = fr[3 * HGT_NP], t1z = fr[4 * HGT_NP];
+                float t1c = c == 0 ? t1x : (c == 1 ? 0.0f : t1z);
+                float t2c = c == 0 ? ny * t1z : (c == 1 ? nz * t1x - nx * t1z : -ny * t1x);
+                float nc = c == 0 ? nx : (c == 1 ? ny : nz);
+                const float* l = o + OUT_LAM + 3 * k;
+                acc += l[0] * t1c + l[1] * t2c + l[2] * nc;
+            }
+        } else {
+            for (int k = foot * (HGT_NP / 2); k < (foot + 1) * (HGT_NP / 2); ++k)
+                acc += o[OUT_LAM + 3 * k + c];
+        }
         o[OUT_FF + lane] = decimation > 0 ? acc : 0.0f;
     }
     __syncwarp();
@@ -750,11 +894,27 @@ int hgt_mega_step(const float* in, float* out, int n, float dt, int decimation,
     if (n <= 0) return 0;
     size_t bytes = sizeof(float) * (MG_HEAD_FLOATS + MG_WARPS * MG_WARP_FLOATS);
     static bool allowed[MAX_DEVICES] = {};
-    cudaError_t err = allow_smem(hgt_mega_kernel, bytes, allowed);
+    cudaError_t err = allow_smem(hgt_mega_kernel<false>, bytes, allowed);
     if (err != cudaSuccess) return (int)err;
     int grid = (n + MG_WARPS - 1) / MG_WARPS;
-    hgt_mega_kernel<<<grid, MG_WARPS * 32, bytes, (cudaStream_t)stream>>>(
-        in, out, n, dt, decimation, iterations, max_depen_vel);
+    hgt_mega_kernel<false><<<grid, MG_WARPS * 32, bytes, (cudaStream_t)stream>>>(
+        in, out, n, dt, decimation, iterations, max_depen_vel, nullptr, MgTerrain{});
+    return (int)cudaGetLastError();
+}
+
+// The terrain variant: in2 (n, IN2_ROWS) env-major beside in (n, IN_ROWS).
+int hgt_mega_step_terrain(const float* in, const float* in2, float* out, int n, float dt,
+                          int decimation, int iterations, float max_depen_vel, float border,
+                          float inv_h, float gx_max, float gy_max, void* stream) {
+    if (n <= 0) return 0;
+    size_t bytes = sizeof(float) * (MG_HEAD_FLOATS + MG_WARPS * MG_WARP_FLOATS_T);
+    static bool allowed[MAX_DEVICES] = {};
+    cudaError_t err = allow_smem(hgt_mega_kernel<true>, bytes, allowed);
+    if (err != cudaSuccess) return (int)err;
+    int grid = (n + MG_WARPS - 1) / MG_WARPS;
+    hgt_mega_kernel<true><<<grid, MG_WARPS * 32, bytes, (cudaStream_t)stream>>>(
+        in, out, n, dt, decimation, iterations, max_depen_vel, in2,
+        MgTerrain{border, inv_h, gx_max, gy_max});
     return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-"""Batched legged-robot environments for the PyTorch port (flat ground)."""
+"""Batched legged-robot environments for the PyTorch port (flat ground and
+heightfield terrain)."""
 
 from .env import HumanoidEnv, Transition, make_env
 from .state import EnvState

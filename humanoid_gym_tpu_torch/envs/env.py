@@ -1,6 +1,6 @@
-"""HumanoidEnv: the flat-ground XBot-L locomotion environment, batched.
+"""HumanoidEnv: the XBot-L locomotion environment, batched.
 
-Port of humanoid_gym_tpu/envs/env.py for flat ground. One call of `step(state, actions)` keeps the reference's per-step order:
+Port of humanoid_gym_tpu/envs/env.py. One call of `step(state, actions)` keeps the reference's per-step order:
 
   action pipeline (ref-action add, clip, delay mix, multiplicative noise)
   -> decimation x 1 kHz PD physics (solver "mega": one kernel launch on
@@ -9,6 +9,7 @@ Port of humanoid_gym_tpu/envs/env.py for flat ground. One call of `step(state, a
   -> command resample / heading / push
   -> termination probes
   -> reward terms + episode sums + only-positive clip
+  -> terrain curriculum (levels move on reset)
   -> masked auto-reset
   -> observations with frame stacking + noise
   -> last_* buffer rotation
@@ -19,8 +20,17 @@ are made for every env each step, so the step never waits on the host;
 the action delay and noise draws are skipped when their scale is zero.
 Feet and knee kinematics come from the mega kernel's end-of-step `fk_out`
 rows, or from `fk` / `body_velocities` with any other solver (static
-dispatch, by solver type). Not ported here: terrain (heightfield/trimesh
-ground, terrain curriculum, measured heights) and the command curriculum.
+dispatch, by solver type).
+
+On terrain (`mesh_type` "heightfield" or "trimesh", built by `make_env`
+from `cfg.terrain`): envs start at their subterrain's origin (level drawn in
+[0, max_init_terrain_level], every row without the curriculum; type spread
+over the env index) with +-1 m of xy jitter; the termination probes and
+the measured heights read the 3-tap-min observation height function; the
+physics resolves contacts on the bilinear surface with sloped frames; the
+terrain curriculum moves a resetting env's level by distance walked or by
+survival (`curriculum_mode`), with a random re-entry above the top level.
+Not ported: the command curriculum.
 """
 
 from __future__ import annotations
@@ -35,9 +45,9 @@ import torch
 from ..config.base import LeggedRobotCfg
 from ..physics import spatial as S
 from ..physics.kinematics import body_velocities, fk, use_full_f32_matmul
-from ..physics.mega import flat_height_fn
 from ..physics.model import RobotModel, build_model_from_urdf
 from ..physics.step import PhysicsState, make_physics_step
+from ..terrain.terrain import TerrainMap, flat_height_fn, make_height_fn
 from . import rewards as R
 from .state import EnvState
 
@@ -79,9 +89,10 @@ class HumanoidEnv:
         device="cuda",
         generator: Optional[torch.Generator] = None,
         seed: int = 0,
+        terrain_height_fn=None,
+        terrain_origins: Optional[np.ndarray] = None,
+        terrain_map: Optional[TerrainMap] = None,
     ):
-        if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
-            raise ValueError("the PyTorch port runs flat ground only (mesh_type 'plane')")
         if cfg.commands.curriculum:
             raise ValueError("the PyTorch port has no command curriculum yet")
         use_full_f32_matmul()
@@ -118,12 +129,21 @@ class HumanoidEnv:
         self.resampling_interval = int(cfg.commands.resampling_time / self.dt)
         self.push_interval = int(math.ceil(cfg.domain_rand.push_interval_s / self.dt))
 
+        # terrain: the observation height function (3-tap min on a
+        # heightfield), the subterrain origins and the map the physics reads
+        self.custom_origins = cfg.terrain.mesh_type in ("heightfield", "trimesh")
+        self.terrain_height_fn = terrain_height_fn or flat_height_fn
+        self.terrain_map = terrain_map
+        self.terrain_origins = None if terrain_origins is None else t(terrain_origins)
+        self.max_terrain_level = cfg.terrain.num_rows
+
         self._kernel_fk = cfg.sim.solver.solver_type == "mega"
         self._phys_step = make_physics_step(
             m, cfg.sim.dt, cfg.control.decimation, self.p_gains, self.d_gains,
             self.torque_limits, solver_iterations=cfg.sim.solver.solver_iterations,
             solver=cfg.sim.solver.solver_type,
             max_depen_vel=cfg.sim.solver.max_depenetration_velocity,
+            terrain_height_fn=self.terrain_height_fn, terrain_map=terrain_map,
         )
         if not all(int(b) == 0 for b in m.probe_point_body):
             raise ValueError("termination probes must all sit on the base")
@@ -148,6 +168,13 @@ class HumanoidEnv:
         self._term_masks = [t(self._probe_body == b) > 0 for b in m.termination_body_idx]
         self._pen_masks = [t(self._probe_body == b) > 0 for b in m.penalized_body_idx]
         self._gravity_dir = t([0.0, 0.0, -1.0])
+        # height sample grid around the base (legged_robot.py:743-757), read
+        # under the base yaw when terrain.measure_heights is on; appended to
+        # the privileged frame as clip(root_z - 0.5 - h) * scale
+        gx, gy = np.meshgrid(np.asarray(cfg.terrain.measured_points_x),
+                             np.asarray(cfg.terrain.measured_points_y), indexing="ij")
+        self.height_points = t(np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], axis=-1))
+        self.measure_heights = cfg.terrain.measure_heights and self.custom_origins
 
     # ------------------------------------------------------------------ #
 
@@ -191,28 +218,32 @@ class HumanoidEnv:
 
     def _probe_flags(self, qpos: torch.Tensor):
         """Base-box corner penetration flags per termination / penalized
-        body (probes all sit on the base, ground height 0)."""
+        body (probes all sit on the base; the ground by the observation
+        height function)."""
         n = qpos.shape[0]
         if len(self._probe_body) == 0:
             z = torch.zeros((n, max(len(self._term_masks), 1)), dtype=torch.bool, device=self.device)
             return z, z
         offs = self.model.probe_point_offset  # (P,3)
         pos = qpos[:, None, :3] + S.quat_rotate(qpos[:, None, 3:7], offs[None])
-        h = flat_height_fn(pos[..., 0], pos[..., 1])
+        h = self.terrain_height_fn(pos[..., 0], pos[..., 1])
         pen = (pos[..., 2] - h) < 0.0
         term = torch.stack([torch.any(pen & mk, dim=1) for mk in self._term_masks], dim=1)
         pflags = torch.stack([torch.any(pen & mk, dim=1) for mk in self._pen_masks], dim=1)
         return term, pflags
 
-    def _reset_phys(self, n: int):
-        """Fresh (qpos, qvel): default dofs + U(-0.1, 0.1) jitter at the
-        init root pose (flat ground: every env origin is 0)."""
+    def _reset_phys(self, n: int, env_origin: torch.Tensor):
+        """Fresh (qpos, qvel): default dofs + U(-0.1, 0.1) jitter, the init
+        root pose at the env origin, +-1 m xy jitter on terrain origins
+        (reference legged_robot.py:359-397)."""
         cfg = self.cfg
         qj = self.default_dof_pos + self._uniform((n, self.model.nj), -0.1, 0.1)
-        pos = torch.as_tensor(cfg.init_state.pos, dtype=torch.float32, device=self.device)
+        pos = torch.as_tensor(cfg.init_state.pos, dtype=torch.float32, device=self.device) + env_origin
+        if self.custom_origins:
+            pos = torch.cat([pos[:, :2] + self._uniform((n, 2), -1.0, 1.0), pos[:, 2:]], dim=1)
         rot = cfg.init_state.rot  # x, y, z, w
         quat = torch.as_tensor([rot[3], rot[0], rot[1], rot[2]], dtype=torch.float32, device=self.device)
-        qpos = torch.cat([pos.expand(n, 3), quat.expand(n, 4), qj], dim=1)
+        qpos = torch.cat([pos, quat.expand(n, 4), qj], dim=1)
         qvel = torch.cat(
             [
                 torch.as_tensor(cfg.init_state.lin_vel + cfg.init_state.ang_vel,
@@ -260,7 +291,22 @@ class HumanoidEnv:
         slope_bias = self._uniform((n, 2), *dr.contact_slope_range) \
             if dr.randomize_contact_slope else torch.zeros((n, 2), device=dev)
 
-        qpos, qvel = self._reset_phys(n)
+        # terrain placement: a level below max_init (any row without the
+        # curriculum), types spread evenly over the env index
+        # (legged_robot.py:694)
+        if self.custom_origins and self.terrain_origins is not None:
+            tc = cfg.terrain
+            max_init = tc.max_init_terrain_level if tc.curriculum else tc.num_rows - 1
+            level = torch.randint(0, max_init + 1, (n,), generator=self.gen, device=dev,
+                                  dtype=torch.int32)
+            ttype = (torch.arange(n, device=dev) * tc.num_cols // max(self.num_envs, 1)).to(torch.int32)
+            origin = self.terrain_origins[level.long(), ttype.long()]
+        else:
+            level = torch.zeros((n,), dtype=torch.int32, device=dev)
+            ttype = torch.zeros((n,), dtype=torch.int32, device=dev)
+            origin = torch.zeros((n, 3), device=dev)
+
+        qpos, qvel = self._reset_phys(n, origin)
         phys = PhysicsState(
             qpos=qpos, qvel=qvel, friction=friction, base_mass_scale=mass_scale,
             contact_stiffness=cstiff, contact_offset=coff, contact_compliance=ccomp,
@@ -297,10 +343,36 @@ class HumanoidEnv:
             episode_sums=z(self.n_reward_terms),
             episode_reward=z(),
             cmd_vx_range=vx_range,
-            terrain_level=torch.zeros((n,), dtype=torch.int32, device=dev),
-            terrain_type=torch.zeros((n,), dtype=torch.int32, device=dev),
-            env_origin=z(3),
+            terrain_level=level,
+            terrain_type=ttype,
+            env_origin=origin,
         )
+
+    def _terrain_curriculum(self, state: EnvState, qpos, commands, done, time_out, rand_level):
+        """(level, env_origin) after the terrain curriculum
+        (legged_robot.py:400-420; reference env.py:686-716): a resetting env
+        moves up a level when it walked more than half a subterrain, down
+        when it walked less than half its commanded distance
+        ("distance"), or up when it timed out having covered half the
+        commanded distance and down when it fell in the first half of the
+        episode ("survival"); past the top row it re-enters at
+        `rand_level`. Envs that do not reset keep theirs."""
+        tc = self.cfg.terrain
+        level, env_origin = state.terrain_level, state.env_origin
+        dist = torch.linalg.norm(qpos[:, :2] - env_origin[:, :2], dim=1)
+        need = torch.linalg.norm(commands[:, :2], dim=1) * self.cfg.env.episode_length_s * 0.5
+        if getattr(tc, "curriculum_mode", "distance") == "survival":
+            move_up = time_out & (dist >= need)
+            move_down = ~time_out & (state.episode_length < self.max_episode_length // 2)
+        else:
+            move_up = dist > tc.terrain_length / 2
+            move_down = (dist < need) & ~move_up
+        new_level = level + move_up.to(level.dtype) - move_down.to(level.dtype)
+        new_level = torch.where(new_level >= self.max_terrain_level, rand_level.to(level.dtype),
+                                torch.clamp(new_level, min=0))
+        level = torch.where(done, new_level, level)
+        origin = self.terrain_origins[level.long(), state.terrain_type.long()]
+        return level, torch.where(done[:, None], origin, env_origin)
 
     # ------------------------------------------------------------------ #
 
@@ -459,9 +531,17 @@ class HumanoidEnv:
             last_feet_z=torch.where(fin2, fsu.last_feet_z, 0.05),
         )
 
+        # ---- terrain curriculum (legged_robot.py:400-420) ----
+        level, env_origin = state.terrain_level, state.env_origin
+        if cfg.terrain.curriculum and self.terrain_origins is not None:
+            rand_level = torch.randint(0, self.max_terrain_level, (n,), generator=self.gen,
+                                       device=dev)
+            level, env_origin = self._terrain_curriculum(state, phys.qpos, commands, done,
+                                                         time_out, rand_level)
+
         # ---- masked auto-reset ----
         d1 = done[:, None]
-        qpos_r, qvel_r = self._reset_phys(n)
+        qpos_r, qvel_r = self._reset_phys(n, env_origin)
         phys = phys.replace(
             qpos=torch.where(d1, qpos_r, phys.qpos),
             qvel=torch.where(d1, qvel_r, phys.qvel),
@@ -519,6 +599,13 @@ class HumanoidEnv:
             ],
             dim=1,
         )
+        if self.measure_heights:
+            # yaw-rotated sample grid around the base (legged_robot.py:759-795)
+            pts = S.quat_apply_yaw(quat_post[:, None, :],
+                                   self.height_points.expand(n, -1, -1))
+            h = self.terrain_height_fn(pts[..., 0] + phys.qpos[:, 0:1], pts[..., 1] + phys.qpos[:, 1:2])
+            h_obs = torch.clamp(phys.qpos[:, 2:3] - 0.5 - h, -1.0, 1.0) * os_.height_measurements
+            single_priv = torch.cat([single_priv, h_obs], dim=1)
         if single_obs.shape[1] != cfg.env.num_single_obs:
             raise ValueError(f"obs frame {single_obs.shape[1]} != {cfg.env.num_single_obs}")
         if single_priv.shape[1] != cfg.env.single_num_privileged_obs:
@@ -564,9 +651,9 @@ class HumanoidEnv:
             episode_sums=episode_sums,
             episode_reward=episode_reward,
             cmd_vx_range=state.cmd_vx_range,
-            terrain_level=state.terrain_level,
+            terrain_level=level,
             terrain_type=state.terrain_type,
-            env_origin=state.env_origin,
+            env_origin=env_origin,
         )
         trans = Transition(
             obs=obs,
@@ -579,7 +666,7 @@ class HumanoidEnv:
             ep_len_at_reset=ep_len_at_reset,
             ep_reward_at_reset=ep_reward_at_reset,
             nonfinite=(~finite).to(torch.int32),
-            terrain_level=state.terrain_level.to(torch.float32),
+            terrain_level=level.to(torch.float32),
         )
         return new_state, trans
 
@@ -593,5 +680,13 @@ class HumanoidEnv:
 
 
 def make_env(cfg: LeggedRobotCfg, num_envs: Optional[int] = None, device="cuda", **kw) -> HumanoidEnv:
-    """Build a flat-ground env on `device` (default: the card)."""
+    """Build an env on `device` (default: the card), synthesizing the
+    terrain from `cfg.terrain` (seeded `default_rng(0)`, as the JAX
+    package does) when the config asks for a heightfield; `terrain_map`,
+    `terrain_origins` and `terrain_height_fn` passed in take precedence."""
+    if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
+        tmap = kw.get("terrain_map") or TerrainMap.build(cfg.terrain, np.random.default_rng(0))
+        kw.setdefault("terrain_height_fn", make_height_fn(tmap, device))
+        kw.setdefault("terrain_origins", tmap.env_origins)
+        kw.setdefault("terrain_map", tmap)
     return HumanoidEnv(cfg, num_envs=num_envs, device=device, **kw)

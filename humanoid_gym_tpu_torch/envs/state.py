@@ -64,7 +64,8 @@ class EnvState:
 
     cmd_vx_range: torch.Tensor  # (N, 2) command-curriculum lin_vel_x range
 
-    # terrain placement (flat ground: zeros)
+    # terrain placement: the subterrain row (curriculum level) and column
+    # (type) and its origin (flat ground: zeros)
     terrain_level: torch.Tensor  # (N,) int32
     terrain_type: torch.Tensor  # (N,) int32
     env_origin: torch.Tensor  # (N, 3)

@@ -1,11 +1,14 @@
 """Batched contact + joint-limit rows and the contact solvers.
 
-Port of humanoid_gym_tpu/physics/contact.py for flat ground:
+Port of humanoid_gym_tpu/physics/contact.py: `terrain_contact_frames`,
 `build_contact_setup`, `joint_limit_bounds`, `_project_cone`, `apgd_solve`,
 `pgs_solve` and `resolve_contacts`, which dispatches on the solver name
 ("apgd", "pgs" in plain PyTorch; "apgd_pallas" to the APGD kernel of
-physics/solve.py). Everything takes the env axis first. Sloped contact
-frames (heightfield terrain) are not ported.
+physics/solve.py). Everything takes the env axis first. On a heightfield
+the caller passes per-point frames (t1, t2, n) frozen at the policy-step
+start: each point's three rows of J are projected onto them, the gap is
+measured along the normal (vertical gap x n_z), and the impulses come back
+in the world frame.
 
 Unilateral normal rows obey v_n+ >= b complementary to lambda_n >= 0, with
 PhysX-like depenetration: approach-limited within contact_offset of the
@@ -32,6 +35,23 @@ class ContactSetup(NamedTuple):
     lo_bound: torch.Tensor  # (N, K) velocity lower bound per normal row
     phi: torch.Tensor  # (N, K) signed gap of force-solved points
     pos_w: torch.Tensor  # (N, K, 3) world candidate positions
+    frames: torch.Tensor | None  # (N, K, 3, 3) rows (t1, t2, n) per point,
+    # or None on flat ground (identity frames: world x / y / z rows)
+
+
+def terrain_contact_frames(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """Per-point contact frames from the terrain slope: rows (t1, t2, n)
+    with n = normalize(-dh/dx, -dh/dy, 1), the surface normal of the height
+    function, and tangents spanning the surface plane; t1 = normalize(e_y x
+    n) = (n_z, 0, -n_x) / |.| is never degenerate while the surface is
+    walkable (n_z > 0). gx, gy: (..., K) -> (..., K, 3, 3)."""
+    ones = torch.ones_like(gx)
+    n = torch.stack([-gx, -gy, ones], dim=-1)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+    t1 = torch.stack([n[..., 2], torch.zeros_like(gx), -n[..., 0]], dim=-1)
+    t1 = t1 / torch.linalg.norm(t1, dim=-1, keepdim=True)
+    t2 = torch.linalg.cross(n, t1, dim=-1)
+    return torch.stack([t1, t2, n], dim=-2)
 
 
 def build_contact_setup(
@@ -42,8 +62,11 @@ def build_contact_setup(
     contact_offset=0.01,
     baumgarte=0.2,
     max_depen_vel: float = 1.0,
+    frames_override: torch.Tensor | None = None,
 ) -> ContactSetup:
-    """contact_offset and baumgarte are floats or (N,) per-env tensors."""
+    """contact_offset and baumgarte are floats or (N,) per-env tensors;
+    frames_override (N, K, 3, 3) are policy-step-start sloped frames (None:
+    flat ground)."""
     k = dyn.k
     n = k.p.shape[0]
     mask = ancestor_mask(model)
@@ -58,6 +81,14 @@ def build_contact_setup(
     phi = pos[..., 2] - ground
 
     Jpts = point_jacobian(basis, mask[body_idx], pos)  # (N,K,3,nv)
+    phi_n = phi
+    if frames_override is not None:
+        if tuple(frames_override.shape) != (n, pos.shape[1], 3, 3):
+            raise ValueError(f"frames_override must be (N, K, 3, 3) = {(n, pos.shape[1], 3, 3)}, "
+                             f"got {tuple(frames_override.shape)}")
+        # each point's rows rotated into (t1, t2, n); the gap along the normal
+        Jpts = torch.einsum("nkdc,nkcv->nkdv", frames_override, Jpts)
+        phi_n = phi * frames_override[..., 2, 2]
 
     coff = torch.as_tensor(contact_offset, dtype=phi.dtype, device=phi.device)
     bmg = torch.as_tensor(baumgarte, dtype=phi.dtype, device=phi.device)
@@ -65,16 +96,16 @@ def build_contact_setup(
         coff = coff[:, None]
     if bmg.dim():
         bmg = bmg[:, None]
-    inactive = phi > coff
-    b_pen = torch.clamp(bmg * (-phi) / dt, max=max_depen_vel)
-    b_gap = -phi / dt
-    lo = torch.where(phi <= 0.0, b_pen, b_gap)
+    inactive = phi_n > coff
+    b_pen = torch.clamp(bmg * (-phi_n) / dt, max=max_depen_vel)
+    b_gap = -phi_n / dt
+    lo = torch.where(phi_n <= 0.0, b_pen, b_gap)
     lo = torch.where(inactive, torch.full_like(lo, -1e9), lo)
 
     K = pos.shape[1]
     qj_rows = torch.eye(model.nv, device=phi.device, dtype=phi.dtype)[6:].expand(n, model.nj, model.nv)
     J = torch.cat([Jpts.reshape(n, 3 * K, model.nv), qj_rows], dim=1)
-    return ContactSetup(J=J, lo_bound=lo, phi=phi, pos_w=pos)
+    return ContactSetup(J=J, lo_bound=lo, phi=phi, pos_w=pos, frames=frames_override)
 
 
 def joint_limit_bounds(
@@ -238,6 +269,7 @@ def delassus_operands(
     max_depen_vel: float = 1.0,
     baumgarte=0.2,
     compliance=0.0,
+    frames_override=None,
 ):
     """What a contact solver is handed at v_free: (setup, limit_sign,
     limit_bound, B, A, u0, step_bound). A = J Mtilde^-1 J^T through the
@@ -245,10 +277,11 @@ def delassus_operands(
     compliance * trace(A) / nrow on the diagonal; u0 = J v_free; the APGD
     step bound ||B B^T||_inf + reg, which every APGD path shares (same
     nonzero spectrum as A, invariant to limit-row sign folding).
-    compliance is a float or an (N,) tensor."""
+    compliance is a float or an (N,) tensor; frames_override as in
+    `build_contact_setup`."""
     setup = build_contact_setup(
         model, dyn, terrain_height_fn, dt, contact_offset=contact_offset,
-        max_depen_vel=max_depen_vel, baumgarte=baumgarte,
+        max_depen_vel=max_depen_vel, baumgarte=baumgarte, frames_override=frames_override,
     )
     sign, lb = joint_limit_bounds(model, qpos, dt)
     n = setup.phi.shape[0]
@@ -283,14 +316,14 @@ def resolve_contacts(
 ) -> ContactResult:
     """Contact and joint-limit impulses at v_free (solver "apgd",
     "apgd_pallas" or "pgs" on the operands of `delassus_operands`) and the
-    velocity after them, qvel_new = v_free + L^-T (B lam)."""
-    if frames_override is not None:
-        raise ValueError("the PyTorch port has no sloped contact frames yet (flat ground only)")
+    velocity after them, qvel_new = v_free + L^-T (B lam). With sloped
+    frames the impulses are reported in the world frame."""
     setup, sign, lb, B, A, u0, step_bound = delassus_operands(
         model, dyn, qpos, v_free, terrain_height_fn, dt, contact_offset=contact_offset,
         max_depen_vel=max_depen_vel, baumgarte=baumgarte, compliance=compliance,
+        frames_override=frames_override,
     )
-    n, K = setup.phi.shape
+    K = setup.phi.shape[1]
     L = dyn.Mtilde_chol
     if solver == "apgd":
         lam = apgd_solve(A, u0, K, setup.lo_bound, sign, lb, mu, iterations,
@@ -307,6 +340,16 @@ def resolve_contacts(
         raise ValueError(f"unknown contact solver {solver!r}")
     qvel_new = v_free + solve_upper_unrolled(L.transpose(1, 2), (B @ lam[..., None])[..., 0])
     return ContactResult(
-        qvel_new=qvel_new, impulses=lam[:, : 3 * K].reshape(n, K, 3), phi=setup.phi,
+        qvel_new=qvel_new, impulses=world_impulses(lam, setup), phi=setup.phi,
         pos_w=setup.pos_w, lam=lam,
     )
+
+
+def world_impulses(lam: torch.Tensor, setup: ContactSetup) -> torch.Tensor:
+    """The contact rows of lam (N, nrow) as (N, K, 3) world-frame impulses:
+    rotated out of the (t1, t2, n) frames where the setup has them."""
+    n, K = setup.phi.shape
+    imp = lam[:, : 3 * K].reshape(n, K, 3)
+    if setup.frames is not None:
+        imp = torch.einsum("nkd,nkdc->nkc", imp, setup.frames)
+    return imp

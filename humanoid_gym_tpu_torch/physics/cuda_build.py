@@ -53,6 +53,8 @@ class KernelLibrary:
         lib.hgt_const_count.restype = ci
         lib.hgt_mega_step.argtypes = [vp, vp, ci, cf, ci, ci, cf, vp]
         lib.hgt_mega_step.restype = ci
+        lib.hgt_mega_step_terrain.argtypes = [vp, vp, vp, ci, cf, ci, ci, cf, cf, cf, cf, cf, vp]
+        lib.hgt_mega_step_terrain.restype = ci
         lib.hgt_solve.argtypes = [vp] * 11 + [ci, ci, vp]
         lib.hgt_solve.restype = ci
         dense.hgt_apgd.argtypes = [vp] * 9 + [ci, ci, vp]

@@ -16,7 +16,19 @@ env-major (N, 120) in / (N, 136) out in the `IN_*` / `OUT_*` row layout of
 the TPU kernel). A CPU tensor goes to
 `mega_step_plain`, a batched port of the TPU package's single-env
 fallback `step` (mega_kernel.py:1669-1774) with the kernel's own solve
-stage. Flat ground only.
+stage.
+
+On a heightfield (`terrain_map`) both take a second input of `IN2_ROWS`
+rows per env, built once per policy step by `terrain_patches` from the
+step-start state (mega_kernel.py:1575-1664): per contact point the 3 x 3
+node patch of the grid (meters) around its step-start node, the patch
+origin, and the step-start slope plus the contact-slope DR bias. Every
+substep then looks the ground up bilinearly inside that patch (a point
+that moved more than a cell clamps to the patch edge), measures the gap
+along the sloped normal, projects its J rows onto (t1, t2, n), and the
+per-foot impulse sums come back in the world frame. The CUDA kernel is the
+`TERRAIN` instantiation of the same template (`hgt_mega_kernel<true>`);
+on a CUDA tensor a terrain step launches it or raises.
 """
 
 from __future__ import annotations
@@ -24,8 +36,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..terrain.terrain import TerrainMap, flat_height_fn, grid_tensor
 from . import spatial as S
-from .contact import build_contact_setup, joint_limit_bounds
+from .contact import build_contact_setup, joint_limit_bounds, world_impulses
 from .cuda_build import check, kernel_library
 from .dynamics import Dyn, bias_forces_explicit, mass_matrix
 from .kinematics import ancestor_mask, body_velocities, fk
@@ -42,6 +55,16 @@ IN_LAM = 56
 IN_ROWS = 120
 OUT_QPOS, OUT_QVEL, OUT_LAM, OUT_TAU, OUT_FF, OUT_FK = 0, 19, 37, 97, 109, 115
 OUT_ROWS = 136
+# terrain second input (mega_kernel.py:90-100): per contact point k the 3x3
+# node patch, tap-major at row (i*3+j)*16 + k, node (ox+i, oy+j), in meters;
+# the patch origin ox / oy (grid units); the step-start slope gx / gy
+# (dh/dx, dh/dy) with the slope DR bias added
+IN2_PMIN = 0
+IN2_OX = 9 * N_POINTS
+IN2_OY = 10 * N_POINTS
+IN2_GX = 11 * N_POINTS
+IN2_GY = 12 * N_POINTS
+IN2_ROWS = 13 * N_POINTS  # 208
 # external DOF order [base 0:6, left leg 6:12, right leg 12:18] -> the
 # solver-internal order [left leg, right leg, base], and back
 PERM = list(range(6, 18)) + list(range(6))
@@ -56,11 +79,6 @@ CONST_LAYOUT = (
     ("knee", 2),
 )
 CONST_COUNT = sum(n for _, n in CONST_LAYOUT)  # 541
-
-def flat_height_fn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Plane terrain (mesh_type='plane', the XBot-L default)."""
-    return torch.zeros_like(x)
-
 
 def check_mega_topology(model: RobotModel) -> None:
     """The kernel is specialized to XBot-L's tree: two 6-joint chains off
@@ -126,15 +144,34 @@ def unpack_outputs(out: torch.Tensor):
     )
 
 
+def terrain_constants(tmap: TerrainMap):
+    """(border, 1 / horizontal_scale, nrow - 1.001, ncol - 1.001): the
+    launch constants of the terrain variant (the clip of the grid
+    coordinate, as `make_contact_height_fn` clips it)."""
+    nrow, ncol = tmap.height_field.shape
+    return (float(tmap.border_size), 1.0 / float(tmap.horizontal_scale), nrow - 1.001,
+            ncol - 1.001)
+
+
 def mega_kernel_launch(packed: torch.Tensor, consts: np.ndarray, dt: float, decimation: int,
-                       iterations: int, max_depen_vel: float) -> torch.Tensor:
+                       iterations: int, max_depen_vel: float, packed2: torch.Tensor | None = None,
+                       terrain=None) -> torch.Tensor:
     """Launch the mega kernel on (N, 120) CUDA rows; returns (N, 136) rows.
-    Counts launches in `mega_kernel_launch.launches`."""
+    With `terrain` (the 4 floats of `terrain_constants`) and `packed2`
+    (N, IN2_ROWS) the terrain variant runs. Counts flat launches in
+    `mega_kernel_launch.launches`, terrain launches in
+    `mega_kernel_launch.terrain_launches`."""
     if not packed.is_cuda:
         raise ValueError("mega_kernel_launch takes CUDA tensors")
     if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[1] != IN_ROWS \
             or not packed.is_contiguous():
         raise ValueError(f"packed inputs must be contiguous float32 (N, {IN_ROWS})")
+    if (terrain is None) != (packed2 is None):
+        raise ValueError("the terrain variant takes both packed2 and terrain")
+    if packed2 is not None and (
+            packed2.device != packed.device or packed2.dtype != torch.float32
+            or tuple(packed2.shape) != (packed.shape[0], IN2_ROWS) or not packed2.is_contiguous()):
+        raise ValueError(f"packed2 must be contiguous float32 (N, {IN2_ROWS}) on the device of packed")
     lib = kernel_library()
     if lib.lib.hgt_const_count() != CONST_COUNT:
         raise RuntimeError("csrc/mega.cu constant layout disagrees with CONST_LAYOUT")
@@ -145,16 +182,145 @@ def mega_kernel_launch(packed: torch.Tensor, consts: np.ndarray, dt: float, deci
     n = packed.shape[0]
     out = torch.empty((n, OUT_ROWS), device=packed.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(packed.device).cuda_stream
-    err = lib.lib.hgt_mega_step(
-        packed.data_ptr(), out.data_ptr(), n, float(dt), int(decimation), int(iterations),
-        float(max_depen_vel), stream,
-    )
-    check(err, "hgt_mega_step launch")
-    mega_kernel_launch.launches += 1
+    if terrain is None:
+        err = lib.lib.hgt_mega_step(
+            packed.data_ptr(), out.data_ptr(), n, float(dt), int(decimation), int(iterations),
+            float(max_depen_vel), stream,
+        )
+        check(err, "hgt_mega_step launch")
+        mega_kernel_launch.launches += 1
+    else:
+        err = lib.lib.hgt_mega_step_terrain(
+            packed.data_ptr(), packed2.data_ptr(), out.data_ptr(), n, float(dt), int(decimation),
+            int(iterations), float(max_depen_vel), *[float(t) for t in terrain], stream,
+        )
+        check(err, "hgt_mega_step_terrain launch")
+        mega_kernel_launch.terrain_launches += 1
     return out
 
 
 mega_kernel_launch.launches = 0
+mega_kernel_launch.terrain_launches = 0
+
+
+def make_contact_xy(model: RobotModel):
+    """contact_xy(qpos (N, nq)) -> (N, K, 2): the world xy of the sole
+    contact points, specialized to the two 6-joint leg chains (the TPU
+    package's `make_contact_xy_batched`, mega_kernel.py:475): both legs walk
+    their chains together as a leading axis of 2, the joint rotations of all
+    12 joints are formed at once (Rodrigues about the unit axis), and the
+    points are placed base-relative before the base position is added, as
+    the kernel places them. About 110 tensor operations (views included)
+    where the generic `fk` takes about 700."""
+    check_mega_topology(model)
+    depth = model.nj // 2
+    legs = torch.arange(model.nj, device=model.device).reshape(2, depth)  # joints of each chain
+    axis = model.joint_axis / torch.linalg.norm(model.joint_axis, dim=1, keepdim=True)
+    zero = torch.zeros_like(axis[:, 0])
+    K = torch.stack([torch.stack([zero, -axis[:, 2], axis[:, 1]], -1),
+                     torch.stack([axis[:, 2], zero, -axis[:, 0]], -1),
+                     torch.stack([-axis[:, 1], axis[:, 0], zero], -1)], dim=1)  # (nj, 3, 3)
+    K2 = K @ K
+    jrot, jpos = model.joint_rot[legs], model.joint_pos[legs]  # (2, depth, 3, 3), (2, depth, 3)
+    half = N_POINTS // 2
+    offs = model.contact_point_offset.reshape(2, half, 3)  # L points first (check_mega_topology)
+
+    def contact_xy(qpos: torch.Tensor) -> torch.Tensor:
+        n = qpos.shape[0]
+        q = qpos[:, 7:7 + model.nj]
+        Rot = (torch.eye(3, device=q.device, dtype=q.dtype) + torch.sin(q)[..., None, None] * K
+               + (1.0 - torch.cos(q))[..., None, None] * K2)  # (N, nj, 3, 3)
+        Rot = Rot[:, legs]  # (N, 2, depth, 3, 3)
+        R = S.quat_to_mat(qpos[:, 3:7])[:, None].expand(n, 2, 3, 3)
+        p = torch.zeros((n, 2, 3), device=q.device, dtype=q.dtype)
+        for d in range(depth):
+            p = (R @ jpos[:, d, :, None])[..., 0] + p
+            R = R @ jrot[:, d] @ Rot[:, :, d]
+        pts = torch.einsum("nlij,lkj->nlki", R, offs) + p[:, :, None]  # (N, 2, half, 3)
+        return pts.reshape(n, N_POINTS, 3)[..., :2] + qpos[:, None, :2]
+
+    return contact_xy
+
+
+def make_terrain_patches(model: RobotModel, tmap: TerrainMap):
+    """terrain_patches(qpos (N, nq), slope_bias (N, 2)) -> (N, IN2_ROWS):
+    the values of the TPU package's `terrain_patches`
+    (mega_kernel.py:1575-1664) from direct gathers on the grid. From the
+    step-start contact points' xy (`make_contact_xy`): node (px, py) = the floor of the
+    clipped grid coordinate; the 3x3 node patch at ox = clip(px - 1, 0,
+    nrow - 3), oy likewise, in meters; the slope of the bilinear cell at
+    (px, py) plus the bias."""
+    hf = grid_tensor(tmap, model.device, scaled=True)
+    border, inv_h, gx_max, gy_max = terrain_constants(tmap)
+    nrow, ncol = tmap.height_field.shape
+    contact_xy = make_contact_xy(model)
+
+    def terrain_patches(qpos: torch.Tensor, slope_bias: torch.Tensor) -> torch.Tensor:
+        xy = contact_xy(qpos)
+        gxf = torch.clamp((xy[..., 0] + border) * inv_h, 0.0, gx_max)
+        gyf = torch.clamp((xy[..., 1] + border) * inv_h, 0.0, gy_max)
+        px = gxf.to(torch.int64)
+        py = gyf.to(torch.int64)
+        ox = torch.clamp(px - 1, 0, nrow - 3)
+        oy = torch.clamp(py - 1, 0, ncol - 3)
+        taps = [hf[ox + i, oy + j] for i in range(3) for j in range(3)]
+        h00, h10 = hf[px, py], hf[px + 1, py]
+        h01, h11 = hf[px, py + 1], hf[px + 1, py + 1]
+        fx = gxf - px
+        fy = gyf - py
+        gx = ((h10 - h00) * (1 - fy) + (h11 - h01) * fy) * inv_h + slope_bias[:, 0:1]
+        gy = ((h01 - h00) * (1 - fx) + (h11 - h10) * fx) * inv_h + slope_bias[:, 1:2]
+        return torch.cat(taps + [ox.to(torch.float32), oy.to(torch.float32), gx, gy],
+                         dim=1).contiguous()
+
+    return terrain_patches
+
+
+def patch_frames(in2: torch.Tensor) -> torch.Tensor:
+    """(N, K, 3, 3) rows (t1, t2, n) from the slope rows of `in2`, with the
+    kernel's arithmetic: n = (-gx, -gy, 1) rsqrt(gx^2 + gy^2 + 1), t1 =
+    (n_z, 0, -n_x) rsqrt(n_z^2 + n_x^2), t2 = n x t1 (t1_y = 0)."""
+    gx = in2[:, IN2_GX:IN2_GX + N_POINTS]
+    gy = in2[:, IN2_GY:IN2_GY + N_POINTS]
+    n_inv = torch.rsqrt(gx * gx + gy * gy + 1.0)
+    nx, ny, nz = -gx * n_inv, -gy * n_inv, n_inv
+    t1_inv = torch.rsqrt(nz * nz + nx * nx)
+    t1x, t1z = nz * t1_inv, -nx * t1_inv
+    zero = torch.zeros_like(gx)
+    t1 = torch.stack([t1x, zero, t1z], dim=-1)
+    t2 = torch.stack([ny * t1z, nz * t1x - nx * t1z, -ny * t1x], dim=-1)
+    n = torch.stack([nx, ny, nz], dim=-1)
+    return torch.stack([t1, t2, n], dim=-2)
+
+
+def make_patch_height_fn(in2: torch.Tensor, terrain):
+    """The kernel's ground lookup: height_fn(x, y) for the (N, K) contact
+    points of the envs whose `in2` rows these are, bilinear inside each
+    point's 3x3 patch with u, v (the grid coordinate relative to the patch
+    origin) clipped to [0, 1.999]: a point outside its window clamps to the
+    patch edge, not to the grid edge."""
+    border, inv_h, gx_max, gy_max = terrain
+    n = in2.shape[0]
+    taps = in2[:, IN2_PMIN:IN2_PMIN + 9 * N_POINTS].reshape(n, 3, 3, N_POINTS)
+    ox = in2[:, IN2_OX:IN2_OX + N_POINTS]
+    oy = in2[:, IN2_OY:IN2_OY + N_POINTS]
+
+    def height_fn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        fx = torch.clamp((x + border) * inv_h, 0.0, gx_max)
+        fy = torch.clamp((y + border) * inv_h, 0.0, gy_max)
+        u = torch.clamp(fx - ox, 0.0, 1.999)
+        v = torch.clamp(fy - oy, 0.0, 1.999)
+        iu, iv = torch.floor(u), torch.floor(v)
+        fu, fv = u - iu, v - iv
+        v0 = iv == 0.0
+        hy = [(1.0 - fv) * torch.where(v0, taps[:, a, 0], taps[:, a, 1])
+              + fv * torch.where(v0, taps[:, a, 1], taps[:, a, 2]) for a in range(3)]
+        u0 = iu == 0.0
+        h_lo = torch.where(u0, hy[0], hy[1])
+        h_hi = torch.where(u0, hy[1], hy[2])
+        return (1.0 - fu) * h_lo + fu * h_hi
+
+    return height_fn
 
 
 def pd_torques(qpos, qvel, targets, kp, kd, torque_limit):
@@ -165,13 +331,14 @@ def pd_torques(qpos, qvel, targets, kp, kd, torque_limit):
 
 def solve_operands(model: RobotModel, dt: float, qpos, qvel, targets, kp_eff, kd_eff,
                    torque_limit, mass_scale, fric, cstiff, coff, comp, lam0,
-                   max_depen_vel: float = 1.0):
+                   max_depen_vel: float = 1.0, height_fn=flat_height_fn, frames=None):
     """One substep's PD torques and the contact solve's operands, built with
     the generic batched physics (the TPU fallback's compute_dynamics /
     build_contact_setup / joint_limit_bounds) and permuted into the
     solver-internal DOF order [left leg, right leg, base] that the kernel
-    and `solve.fused_solve` use. Returns (tau, [Mt, Jt, qvel, rhs, target,
-    sign, mu, comp, lam0])."""
+    and `solve.fused_solve` use; on terrain with the patch height function
+    and the sloped frames. Returns (tau, [Mt, Jt, qvel, rhs, target, sign,
+    mu, comp, lam0], setup)."""
     n = qpos.shape[0]
     tau = pd_torques(qpos, qvel, targets, kp_eff, kd_eff, torque_limit)
     implicit_d = (kd_eff + model.dof_damping).expand(n, -1)
@@ -183,8 +350,9 @@ def solve_operands(model: RobotModel, dt: float, qpos, qvel, targets, kp_eff, kd
     tau_fric = -model.dof_friction * torch.tanh(dq / 0.05) - model.dof_damping * dq
     gen_force = torch.cat([torch.zeros_like(qvel[:, :6]), tau + tau_fric], dim=1)
     setup = build_contact_setup(
-        model, Dyn(k=k, M=M, Mtilde_chol=None, h=h), flat_height_fn, dt,
+        model, Dyn(k=k, M=M, Mtilde_chol=None, h=h), height_fn, dt,
         contact_offset=coff, max_depen_vel=max_depen_vel, baumgarte=0.2 * cstiff,
+        frames_override=frames,
     )
     sign_l, lb = joint_limit_bounds(model, qpos, dt)
     D = torch.cat([torch.zeros_like(qvel[:, :6]), implicit_d], dim=1)
@@ -201,12 +369,13 @@ def solve_operands(model: RobotModel, dt: float, qpos, qvel, targets, kp_eff, kd
         qvel[:, PERM].contiguous(),
         rhs[:, PERM].contiguous(),
         target, sign, fric.contiguous(), comp.contiguous(), lam0.contiguous(),
-    ]
+    ], setup
 
 
 def mega_step_plain(model: RobotModel, dt: float, decimation: int, kp, kd, torque_limit,
                     iterations: int, max_depen_vel: float,
-                    qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, targets):
+                    qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, targets,
+                    in2=None, terrain=None):
     """Plain version of the mega kernel: a batched port of the TPU
     package's single-env fallback `step` (mega_kernel.py:1669-1774) —
     generic dynamics, contact and limit rows, integration, impulse sums and
@@ -216,7 +385,13 @@ def mega_step_plain(model: RobotModel, dt: float, decimation: int, kp, kd, torqu
     tests/test_fused_core_opt.py:122-127), so at the main path's 8
     iterations the fallback's order and the kernel's order follow different
     iterates (measured qvel ~1e-2 apart after one policy step); the two
-    agree at convergence."""
+    agree at convergence.
+
+    With `in2` (N, IN2_ROWS) and `terrain` (`terrain_constants`) it is the
+    plain version of the terrain variant and reads the same rows as the
+    kernel: the ground from each point's patch (`make_patch_height_fn`),
+    the frames from the slope rows (`patch_frames`), and the impulse sums
+    in the world frame."""
     n = qpos.shape[0]
     kp_eff = kp * kps[:, None]
     kd_eff = kd * kds[:, None]
@@ -224,9 +399,23 @@ def mega_step_plain(model: RobotModel, dt: float, decimation: int, kp, kd, torqu
     mass_scale[:, 0] = bms
     tau = ff = None
     lam = lam0
+    height_fn, frames = flat_height_fn, None
+    if terrain is not None:
+        height_fn, frames = make_patch_height_fn(in2, terrain), patch_frames(in2)
     for _ in range(decimation):
-        tau, ops = solve_operands(model, dt, qpos, qvel, targets, kp_eff, kd_eff, torque_limit,
-                                  mass_scale, fric, cstiff, coff, comp, lam, max_depen_vel)
+        # the kernel's convention: kinematics BASE-RELATIVE (base origin at
+        # 0), the base position added back only where the ground is looked
+        # up; at world xy of ~100 m a float32 coordinate rounds to ~1e-5 m,
+        # which the Baumgarte term (0.2 / dt) would turn into ~1e-3 m/s
+        base = qpos[:, 0:3]
+
+        def height_rel(x, y, base=base):
+            return height_fn(x + base[:, 0:1], y + base[:, 1:2]) - base[:, 2:3]
+
+        qpos_rel = torch.cat([torch.zeros_like(base), qpos[:, 3:]], dim=1)
+        tau, ops, setup = solve_operands(model, dt, qpos_rel, qvel, targets, kp_eff, kd_eff,
+                                         torque_limit, mass_scale, fric, cstiff, coff, comp, lam,
+                                         max_depen_vel, height_rel, frames)
         qvel_i, lam = fused_solve_plain(*ops, iterations=iterations)
         qvel_new = qvel_i[:, INV_PERM]
         vj = torch.maximum(torch.minimum(qvel_new[:, 6:], model.dof_vel_limit), -model.dof_vel_limit)
@@ -234,7 +423,7 @@ def mega_step_plain(model: RobotModel, dt: float, decimation: int, kp, kd, torqu
         pos_new = qpos[:, 0:3] + dt * qvel[:, 0:3]
         quat_new = S.quat_integrate(qpos[:, 3:7], qvel[:, 3:6], dt)
         qpos = torch.cat([pos_new, quat_new, qpos[:, 7:] + dt * vj], dim=1)
-        imp = lam[:, : 3 * N_POINTS].reshape(n, 2, N_POINTS // 2, 3)
+        imp = world_impulses(lam, setup).reshape(n, 2, N_POINTS // 2, 3)
         ff = imp.sum(dim=2).reshape(n, 6)  # foot-major: L points first, then R
     k_f = fk(model, qpos)
     bv = body_velocities(model, qpos, qvel, k_f)
@@ -261,29 +450,43 @@ def make_mega_step_batched(
     torque_limit,
     iterations: int,
     max_depen_vel: float = 1.0,
+    terrain_map: TerrainMap | None = None,
 ):
     """Whole-policy-step physics over a batch of envs.
 
     Signature: (qpos, qvel, friction, base_mass_scale, contact_stiffness,
     contact_offset, kp_scale, kd_scale, contact_compliance, lam0 (N,60),
-    targets) -> (qpos_new, qvel_new, lam, tau, ff, fk14). CUDA tensors run
-    the kernel; CPU tensors run `mega_step_plain`."""
+    slope_bias (N,2), targets) -> (qpos_new, qvel_new, lam, tau, ff,
+    fk14). CUDA tensors run the kernel; CPU tensors run `mega_step_plain`.
+    With a `terrain_map` each call first builds the IN2 rows
+    (`step.terrain_patches`, exposed as in the TPU package) and runs the
+    terrain variant; slope_bias is read only there."""
     check_mega_topology(model)
     consts = pack_model_constants(model, kp, kd, torque_limit)
     dev = model.device
     kp_t = torch.as_tensor(kp, dtype=torch.float32, device=dev)
     kd_t = torch.as_tensor(kd, dtype=torch.float32, device=dev)
     tl_t = torch.as_tensor(torque_limit, dtype=torch.float32, device=dev)
+    terrain = terrain_patches = None
+    if terrain_map is not None:
+        terrain = terrain_constants(terrain_map)
+        terrain_patches = make_terrain_patches(model, terrain_map)
 
-    def step(qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, targets):
+    def step(qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, slope_bias, targets):
+        in2 = terrain_patches(qpos, slope_bias) if terrain is not None else None
         if qpos.is_cuda:
             packed = pack_inputs(qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, targets)
-            out = mega_kernel_launch(packed, consts, dt, decimation, iterations, max_depen_vel)
+            out = mega_kernel_launch(packed, consts, dt, decimation, iterations, max_depen_vel,
+                                     packed2=in2, terrain=terrain)
             return unpack_outputs(out)
         return mega_step_plain(
             model, dt, decimation, kp_t, kd_t, tl_t, iterations, max_depen_vel,
             qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, targets,
+            in2=in2, terrain=terrain,
         )
 
     step.consts = consts
+    step.terrain = terrain
+    if terrain_patches is not None:
+        step.terrain_patches = terrain_patches
     return step

@@ -1,15 +1,21 @@
 """The policy-step physics: PhysicsState, the substep and the policy step.
 
-Port of humanoid_gym_tpu/physics/step.py for flat ground: one call runs
-`decimation` 1 kHz substeps (PD actuation -> dynamics -> contacts ->
-integration) for a batch of envs. Solver "mega" hands the whole policy step
-to physics/mega.py (one kernel launch on the card); every other solver
+Port of humanoid_gym_tpu/physics/step.py: one call runs `decimation`
+1 kHz substeps (PD actuation -> dynamics -> contacts -> integration) for a
+batch of envs. Solver "mega" hands the whole policy step to
+physics/mega.py (one kernel launch on the card); every other solver
 ("apgd", "pgs", "apgd_pallas", "fused_pallas") loops `make_substep` in
 Python, with the contact solve of "apgd_pallas" / "fused_pallas" in the
 CUDA kernels of physics/solve.py. A CUDA state runs the kernels, a CPU
 state their plain versions; there is no interpret mode, so the
 `*_interpret` solver names are refused. All state tensors carry the env
 axis first.
+
+On a heightfield (`terrain_map` with a non-flat `terrain_height_fn`) the
+contacts resolve against the bilinear surface with sloped frames frozen at
+the policy-step start, from the surface gradient plus the env's contact-
+slope DR bias: the mega kernel gathers them once per launch, and every
+substep solver gets the same frames for the whole decimation window.
 """
 
 from __future__ import annotations
@@ -20,9 +26,13 @@ from dataclasses import dataclass
 import torch
 
 from . import spatial as S
-from .contact import ContactResult, build_contact_setup, joint_limit_bounds, resolve_contacts
+from ..terrain.terrain import flat_height_fn, make_contact_height_fn, make_grad_fn
+from .contact import (
+    ContactResult, build_contact_setup, joint_limit_bounds, resolve_contacts,
+    terrain_contact_frames, world_impulses,
+)
 from .dynamics import compute_dynamics, solve_mtilde
-from .mega import flat_height_fn, make_mega_step_batched, pd_torques
+from .mega import make_contact_xy, make_mega_step_batched, pd_torques
 from .model import RobotModel
 from .solve import fused_dense_solve
 
@@ -47,7 +57,8 @@ class PhysicsState:
     # warm-start carry: the last substep's impulses (physical signs,
     # (N, 3*ncon + nj)); zeroed on env reset
     contact_lam: torch.Tensor
-    # contact-slope DR bias (N, 2): inert on flat ground, kept for layout
+    # contact-slope DR bias (N, 2) added to the terrain gradient of the
+    # sloped contact frames; inert on flat ground
     slope_bias: torch.Tensor
     # end-of-step feet/knee kinematics (N, 14) in the OUT_FK layout
     fk_out: torch.Tensor
@@ -110,14 +121,17 @@ def substep_dynamics(model: RobotModel, dt: float, state: PhysicsState, targets,
 
 
 def fused_operands(model: RobotModel, dt: float, state: PhysicsState, targets, kp, kd,
-                   torque_limit, terrain_height_fn=flat_height_fn, max_depen_vel: float = 1.0):
+                   torque_limit, terrain_height_fn=flat_height_fn, max_depen_vel: float = 1.0,
+                   frames_override=None):
     """(tau, setup, operands): the ten operands `solve.fused_dense_solve`
-    takes at this state, contiguous, in the external DOF order."""
+    takes at this state, contiguous, in the external DOF order; with
+    sloped frames, J's contact rows are already projected onto them."""
     tau, dyn, implicit_d, rhs = substep_dynamics(
         model, dt, state, targets, kp, kd, torque_limit, factor=False)
     setup = build_contact_setup(
         model, dyn, terrain_height_fn, dt, max_depen_vel=max_depen_vel,
         baumgarte=0.2 * state.contact_stiffness, contact_offset=state.contact_offset,
+        frames_override=frames_override,
     )
     sign, lb = joint_limit_bounds(model, state.qpos, dt)
     D = torch.cat([torch.zeros_like(state.qvel[:, :6]), implicit_d], dim=1)
@@ -138,27 +152,26 @@ def make_substep(
     max_depen_vel: float = 1.0,
     solver: str = "apgd",
 ):
-    """Returns substep(state, joint_targets (N, nj)) -> state: one 1 kHz
-    step of PD actuation, dynamics, the contact solve and semi-implicit
-    integration, for every env."""
+    """Returns substep(state, joint_targets (N, nj), frames_override=None)
+    -> state: one 1 kHz step of PD actuation, dynamics, the contact solve
+    and semi-implicit integration, for every env. frames_override (N, K,
+    3, 3) are the policy-step-start sloped contact frames on a heightfield
+    (None: flat ground, identity frames)."""
     if solver not in SOLVERS or solver == "mega":
         raise ValueError(f"make_substep runs solvers {SOLVERS[1:]}, got {solver!r}")
     nb = model.nbody
     body_idx = torch.as_tensor(model.contact_point_body, device=model.device)
 
     def substep(state: PhysicsState, targets: torch.Tensor, frames_override=None) -> PhysicsState:
-        if frames_override is not None:
-            raise ValueError("the PyTorch port has no sloped contact frames yet (flat ground only)")
         qpos, qvel = state.qpos, state.qvel
         n = qpos.shape[0]
         if solver == "fused_pallas":
             # Cholesky + v_free + Delassus + APGD + dv in one kernel launch
             tau, setup, ops = fused_operands(model, dt, state, targets, kp, kd, torque_limit,
-                                             terrain_height_fn, max_depen_vel)
+                                             terrain_height_fn, max_depen_vel, frames_override)
             qvel_new, lam = fused_dense_solve(*ops, iterations=solver_iterations)
-            K = setup.phi.shape[1]
             res = ContactResult(
-                qvel_new=qvel_new, impulses=lam[:, : 3 * K].reshape(n, K, 3), phi=setup.phi,
+                qvel_new=qvel_new, impulses=world_impulses(lam, setup), phi=setup.phi,
                 pos_w=setup.pos_w, lam=lam,
             )
         else:
@@ -169,6 +182,7 @@ def make_substep(
                 iterations=solver_iterations, max_depen_vel=max_depen_vel, solver=solver,
                 baumgarte=0.2 * state.contact_stiffness, contact_offset=state.contact_offset,
                 compliance=state.contact_compliance, lam0=state.contact_lam,
+                frames_override=frames_override,
             )
         # DOF velocity limits (URDF <limit velocity>)
         vj = torch.maximum(torch.minimum(res.qvel_new[:, 6:], model.dof_vel_limit),
@@ -200,34 +214,49 @@ def make_physics_step(
     solver_iterations: int = 8,
     solver: str = "mega",
     max_depen_vel: float = 1.0,
+    terrain_height_fn=flat_height_fn,
+    terrain_map=None,
 ):
     """Returns step(state, joint_targets (N, nj)) -> state, running
     `decimation` substeps at sim_dt with the targets held. Solver "mega"
     is one kernel launch per call; the others loop `make_substep` and leave
-    `fk_out` untouched (zeros), so the env computes its own kinematics."""
+    `fk_out` untouched (zeros), so the env computes its own kinematics.
+
+    terrain_height_fn is the env's (observation) height function; with a
+    non-flat one and the `terrain_map` it came from, contacts use the map's
+    bilinear surface and sloped frames (module docstring)."""
     if solver.endswith("_interpret"):
         raise ValueError(
             f"solver {solver!r}: the PyTorch port has no interpret mode (a CPU tensor takes the "
             f"plain version, a CUDA tensor the kernel); use {solver[:-len('_interpret')]!r}")
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; the PyTorch port runs {SOLVERS}")
+    on_terrain = terrain_map is not None and terrain_height_fn is not flat_height_fn
     if solver != "mega":
         dev = model.device
         f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+        contact_height_fn = make_contact_height_fn(terrain_map, dev) if on_terrain \
+            else terrain_height_fn
         substep = make_substep(
-            model, sim_dt, f(kp), f(kd), f(torque_limit), flat_height_fn, solver_iterations,
+            model, sim_dt, f(kp), f(kd), f(torque_limit), contact_height_fn, solver_iterations,
             max_depen_vel=max_depen_vel, solver=solver,
         )
+        frames_at = _make_frames_at(model, make_grad_fn(terrain_map, dev)) if on_terrain else None
 
         def substep_loop(state: PhysicsState, targets: torch.Tensor) -> PhysicsState:
+            frames0 = frames_at(state.qpos, state.slope_bias) if on_terrain else None
             for _ in range(decimation):
-                state = substep(state, targets)
+                state = substep(state, targets, frames0)
             return state
 
         return substep_loop
+    if terrain_height_fn is not flat_height_fn and terrain_map is None:
+        raise ValueError("solver 'mega' needs flat ground or the TerrainMap of the height function "
+                         "(its kernel reads patches of the map's grid)")
     mega = make_mega_step_batched(
         model, sim_dt, decimation, kp, kd, torque_limit,
         iterations=solver_iterations, max_depen_vel=max_depen_vel,
+        terrain_map=terrain_map if on_terrain else None,
     )
     foot_idx = [b for b, _, _ in model.contact_point_runs()]
     nb = model.nbody
@@ -236,7 +265,8 @@ def make_physics_step(
         qpos, qvel, lam, tau, ff, fk14 = mega(
             state.qpos, state.qvel, state.friction, state.base_mass_scale,
             state.contact_stiffness, state.contact_offset, state.kp_scale,
-            state.kd_scale, state.contact_compliance, state.contact_lam, targets,
+            state.kd_scale, state.contact_compliance, state.contact_lam, state.slope_bias,
+            targets,
         )
         n = qpos.shape[0]
         cf = torch.zeros((n, nb, 3), device=qpos.device, dtype=qpos.dtype)
@@ -246,4 +276,19 @@ def make_physics_step(
             contact_lam=lam, fk_out=fk14,
         )
 
+    step.terrain_patches = getattr(mega, "terrain_patches", None)
     return step
+
+
+def _make_frames_at(model: RobotModel, grad_fn):
+    """frames_at(qpos, slope_bias) -> (N, K, 3, 3): the sloped contact
+    frames at the contact points' positions, the surface gradient there
+    plus the env's slope bias."""
+    contact_xy = make_contact_xy(model)
+
+    def frames_at(qpos, slope_bias):
+        xy = contact_xy(qpos)
+        gx, gy = grad_fn(xy[..., 0], xy[..., 1])
+        return terrain_contact_frames(gx + slope_bias[:, 0:1], gy + slope_bias[:, 1:2])
+
+    return frames_at

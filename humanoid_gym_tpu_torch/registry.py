@@ -1,10 +1,14 @@
 """Task registry: name -> (env config factory, train config factory).
 
-Port of humanoid_gym_tpu/registry.py with the flat-ground XBot-L tasks the
-port can run: `humanoid_ppo`, `humanoid_ppo_small`, `humanoid_ppo_robust`.
-The terrain, XBot-S and joint tasks (and with them the custom env factory
-of the reference's TaskSpec) are registered when those paths are ported;
-until then their names raise the same KeyError as any unknown one.
+Port of humanoid_gym_tpu/registry.py with the XBot-L tasks the port can
+run: flat `humanoid_ppo`, `humanoid_ppo_small`, `humanoid_ppo_robust`, and
+terrain `humanoid_ppo_terrain`, `humanoid_ppo_terrain_robust` (the
+production recipe), `humanoid_ppo_rubble`, built as the reference builds
+them (registry.py:72-169). Not registered, so their names raise the same
+KeyError as any unknown one: `humanoid_ppo_deploy`, whose "deploy" terrain
+style samples the MuJoCo deployment heightfield through `mujoco` (the
+port does not use it), and the XBot-S and joint tasks (and with them the
+custom env factory of the reference's TaskSpec), which are not ported yet.
 """
 
 from __future__ import annotations
@@ -81,6 +85,65 @@ def _register_builtin():
         return cfg
 
     register("humanoid_ppo_robust", robust, robust_ppo)
+
+    def terrain():  # trimesh curriculum + push + full DR
+        cfg = XBotLCfg()
+        cfg.terrain.mesh_type = "trimesh"
+        cfg.terrain.curriculum = True
+        return cfg
+
+    def terrain_ppo():
+        cfg = XBotLCfgPPO()
+        cfg.runner.experiment_name = "XBot_ppo_terrain"
+        return cfg
+
+    register("humanoid_ppo_terrain", terrain, terrain_ppo)
+
+    def terrain_robust():  # production config: terrain curriculum + the
+        # contact-model DR transfer recipe, with survival promotion and the
+        # speed-tracking terms of its v2 recipe
+        cfg = terrain()
+        cfg.domain_rand.randomize_contact_stiffness = True
+        cfg.domain_rand.randomize_contact_offset = True
+        cfg.domain_rand.randomize_contact_compliance = True
+        cfg.domain_rand.randomize_contact_slope = True
+        cfg.terrain.curriculum_mode = "survival"
+        cfg.rewards.scales.low_speed = 0.6
+        cfg.rewards.scales.track_vel_hard = 1.0
+        return cfg
+
+    def terrain_robust_ppo():
+        cfg = XBotLCfgPPO()
+        cfg.runner.experiment_name = "XBot_ppo_terrain_robust"
+        return cfg
+
+    register("humanoid_ppo_terrain_robust", terrain_robust, terrain_robust_ppo)
+
+    def rubble():  # deployment-matched coarse unevenness + contact DR
+        cfg = XBotLCfg()
+        cfg.terrain.mesh_type = "trimesh"
+        cfg.terrain.curriculum = True
+        cfg.terrain.style = "rubble"
+        cfg.terrain.terrain_proportions = [0.2]  # 20% gentle, 80% rubble
+        # the finer level ladder (20 rows, init spread 10), 5 m patches and
+        # an amplitude floor of 8 cm cells at level 0
+        cfg.terrain.num_rows = 20
+        cfg.terrain.max_init_terrain_level = 10
+        cfg.terrain.terrain_length = 5.0
+        cfg.terrain.rubble_base = 0.08
+        cfg.terrain.rubble_span = 0.27
+        cfg.domain_rand.randomize_contact_stiffness = True
+        cfg.domain_rand.randomize_contact_offset = True
+        cfg.domain_rand.randomize_contact_compliance = True
+        cfg.domain_rand.randomize_contact_slope = True
+        return cfg
+
+    def rubble_ppo():
+        cfg = XBotLCfgPPO()
+        cfg.runner.experiment_name = "XBot_ppo_rubble"
+        return cfg
+
+    register("humanoid_ppo_rubble", rubble, rubble_ppo)
 
 
 _register_builtin()

@@ -53,6 +53,14 @@ def test_operation_counts_behind_the_bounds(smoke):
     assert smoke.fused_dense_ops(8, executed=True) == 263787 - (18 * 18 - 171) * (2 * 60 + 1)
     t, by = smoke._bound_ms(4096 * 4 * 256, 4096 * smoke.mega_ops(10, 8))
     assert by == "operations" and abs(t - 0.05906) < 1e-4
+    # the terrain variant: the flat launch's work plus the terrain work,
+    # linear in substeps, a few percent more; still bound by operations
+    extra = smoke.mega_terrain_ops(10, 8) - smoke.mega_ops(10, 8)
+    assert 0.01 * smoke.mega_ops(10, 8) < extra < 0.05 * smoke.mega_ops(10, 8)
+    per_sub_t = smoke.mega_terrain_ops(2, 8) - smoke.mega_terrain_ops(1, 8)
+    assert smoke.mega_terrain_ops(10, 8) == smoke.mega_terrain_ops(0, 8) + 10 * per_sub_t
+    t, by = smoke._bound_ms(4096 * 4 * (120 + 208 + 136), 4096 * smoke.mega_terrain_ops(10, 8))
+    assert by == "operations" and t > 0.05906
 
 
 def test_kernel_records_hold_only_measured_keys_and_the_bound():
@@ -69,7 +77,7 @@ def test_kernel_records_hold_only_measured_keys_and_the_bound():
         assert isinstance(call, ast.Call) and getattr(call.func, "id", None) == "dict"
         assert {k.arg for k in call.keywords} == allowed, ast.unparse(node.targets[0])
         found += 1
-    assert found == 4
+    assert found == 5
 
 
 def test_dense_variant_patches_apply_to_the_shipped_source():
@@ -88,3 +96,32 @@ def test_dense_variant_patches_apply_to_the_shipped_source():
     assert all(src != shipped for src in others) and len(set(others)) == len(others)
     for header in mod.HEADERS:
         assert os.path.exists(os.path.join(mod.CSRC, header))
+
+
+def test_kernels_line_has_the_terrain_variant():
+    """The `kernels` line lists five kernels, the terrain variant among them
+    with the TPU kernel it replaces, and its launches come from phase 9."""
+    src = open(SCRIPT).read()
+    assert src.count('route="cuda"') == 5
+    assert 'replaces="humanoid_gym_tpu/physics/mega_kernel.py:560"' in src
+    assert 'launches=launches_terrain["mega_terrain"]' in src
+    assert "_phase4t_mega_terrain(c, records)" in src and "_phase9_terrain_path(card)" in src
+
+
+def test_ptxas_summary_names_both_instantiations(smoke):
+    """ptxas names the two instantiations of hgt_mega_kernel by their
+    mangled template arguments; the summary tells them apart."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z15hgt_mega_kernelILb0EEvPKfS1_Pfiffiif9MgTerrain' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _Z15hgt_mega_kernelILb0EEv",
+        "    112 bytes stack frame, 108 bytes spill stores, 108 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 0 barriers, 416 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z15hgt_mega_kernelILb1EEvPKfS1_Pfiffiif9MgTerrain' "
+        "for 'sm_90a'",
+        "    200 bytes stack frame, 190 bytes spill stores, 190 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 0 barriers, 416 bytes cmem[0]",
+    ])
+    out = smoke._ptxas_summary(log)
+    assert "hgt_mega_kernel<false>: Used 64 registers" in out and "112 bytes stack" in out
+    assert "hgt_mega_kernel<true>: Used 64 registers" in out and "200 bytes stack" in out

@@ -182,7 +182,9 @@ def test_resolve_contacts_rejects_frames_and_unknown_solver(models):
     dyn = _torch_dyn(tm, qpos, qvel)
     args = (tm, dyn, torch.from_numpy(qpos), torch.from_numpy(v_free), torch_flat, 0.001,
             torch.tensor([0.7]))
-    with pytest.raises(ValueError, match="sloped contact frames"):
-        TC.resolve_contacts(*args, frames_override=torch.zeros((1, 16, 3, 3)))
+    # sloped frames are taken (tests/test_torch_terrain.py); frames that are
+    # not one (3, 3) frame per contact point are refused
+    with pytest.raises(ValueError, match="frames_override"):
+        TC.resolve_contacts(*args, frames_override=torch.zeros((1, 15, 3, 3)))
     with pytest.raises(ValueError, match="unknown contact solver"):
         TC.resolve_contacts(*args, solver="tgs")

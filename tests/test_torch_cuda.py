@@ -55,14 +55,14 @@ def _mega_and_solve_match_plain(model, st, tgt, dev):
             st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance, st.contact_lam, tgt)
     step = MG.make_mega_step_batched(model, 0.001, 10, kp, kd, tl, iterations=8)
     n0 = MG.mega_kernel_launch.launches
-    got = step(*args)
+    got = step(*args[:10], st.slope_bias, args[10])
     assert MG.mega_kernel_launch.launches == n0 + 1
     want = MG.mega_step_plain(model, 0.001, 10, kp, kd, tl, 8, 1.0, *args)
     for g, w, tol in zip(got, want, (5e-4, 1e-2, 5e-3, 5e-2, 5e-3, 5e-4)):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
         assert float((g - w).abs().max()) <= tol
     ms = torch.ones((n, 13), device=dev)
-    _, ops = MG.solve_operands(model, 0.001, st.qpos, st.qvel, tgt, kp, kd, tl, ms, st.friction,
+    _, ops, _ = MG.solve_operands(model, 0.001, st.qpos, st.qvel, tgt, kp, kd, tl, ms, st.friction,
                                st.contact_stiffness, st.contact_offset, st.contact_compliance,
                                st.contact_lam)
     s0 = SV.fused_solve.launches
@@ -132,6 +132,49 @@ def test_env_step_runs_on_the_card(dev):
         state, tr = env.step(state, torch.zeros((64, 12), device=dev))
     assert tr.obs.is_cuda and torch.isfinite(tr.obs).all() and torch.isfinite(tr.reward).all()
 
+
+
+def test_terrain_mega_kernel_matches_plain(dev):
+    """The terrain variant at 64 envs of `humanoid_ppo_terrain_robust` on a
+    3 x 3 map (5 m border), placed by `init_state` and landed by 15 env
+    steps: one policy step within the chip_smoke tolerances of the plain
+    terrain step on the same IN2 rows, some active contact on a sloped
+    cell, the terrain counter counts and the flat one does not; a terrain
+    step on a CUDA tensor never takes the flat kernel."""
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    def ov(cfg):
+        cfg.terrain.num_rows, cfg.terrain.num_cols, cfg.terrain.border_size = 3, 3, 5.0
+        cfg.terrain.max_init_terrain_level = 2
+        cfg.sim.solver.solver_type = "mega"
+
+    env, cfg = registry.make_env("humanoid_ppo_terrain_robust", num_envs=64, cfg_overrides=ov,
+                                 device=dev, seed=0)
+    state = env.init_state()
+    zero = torch.zeros((64, 12), device=dev)
+    for _ in range(15):
+        state, _ = env.step(state, zero)
+    st, tgt = state.phys, env.default_dof_pos.expand(64, 12)
+    step = MG.make_mega_step_batched(env.model, 0.001, 10, env.p_gains, env.d_gains,
+                                     env.torque_limits, iterations=8, terrain_map=env.terrain_map)
+    args = (st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
+            st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance, st.contact_lam)
+    flat0, ter0 = MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches
+    got = step(*args, st.slope_bias, tgt)
+    assert (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches) == (flat0, ter0 + 1)
+    in2 = step.terrain_patches(st.qpos, st.slope_bias)
+    want = MG.mega_step_plain(env.model, 0.001, 10, env.p_gains, env.d_gains, env.torque_limits, 8,
+                              1.0, *args, tgt, in2=in2, terrain=step.terrain)
+    for g, w, tol in zip(got, want, (5e-4, 1e-2, 5e-3, 5e-2, 5e-3, 5e-4)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= tol
+    slope = torch.hypot(in2[:, MG.IN2_GX:MG.IN2_GY] - st.slope_bias[:, :1],
+                        in2[:, MG.IN2_GY:] - st.slope_bias[:, 1:])
+    assert bool(((want[2][:, 2:48:3] > 0) & (slope > 1e-6)).any())
+    with pytest.raises(ValueError):
+        MG.mega_kernel_launch(MG.pack_inputs(*args, tgt), step.consts, 0.001, 10, 8, 1.0,
+                              packed2=in2[:, :100].contiguous(), terrain=step.terrain)
 
 def _dense_operands(model, n, dev, lift=0.0, mid_range=False):
     """Operands of the two dense solver kernels at n states one policy step

@@ -60,14 +60,20 @@ def test_train_script_cpu_run(tmp_path):
     assert payload["iter"] == 2 and payload["env_state"]["phys"]["qpos"].shape == (8, 19)
 
 
+TASKS = ["humanoid_ppo", "humanoid_ppo_robust", "humanoid_ppo_rubble", "humanoid_ppo_small",
+         "humanoid_ppo_terrain", "humanoid_ppo_terrain_robust"]
+
+
 def test_unknown_task_raises_keyerror_naming_the_registered(tmp_path):
-    args = get_args(["--task", "humanoid_ppo_terrain", "--device", "cpu",
+    """`humanoid_ppo_deploy` stays unregistered (its terrain style reads the
+    MuJoCo deployment heightfield through `mujoco`)."""
+    args = get_args(["--task", "humanoid_ppo_deploy", "--device", "cpu",
                      "--log_root", str(tmp_path)])
     with pytest.raises(KeyError) as exc:
         _train_fn()(args)
-    for name in ("humanoid_ppo", "humanoid_ppo_small", "humanoid_ppo_robust"):
+    for name in TASKS:
         assert name in str(exc.value)
-    assert registry.task_names() == ["humanoid_ppo", "humanoid_ppo_robust", "humanoid_ppo_small"]
+    assert registry.task_names() == TASKS
 
 
 def test_resume_on_empty_log_root_fails_before_env_build(tmp_path, monkeypatch):
@@ -99,3 +105,52 @@ def test_registry_make_env_applies_overrides():
     _, rcfg = registry.make_env("humanoid_ppo_robust", num_envs=2, device="cpu",
                                 cfg_overrides=lambda c: setattr(c.sim.solver, "solver_type", "apgd"))
     assert rcfg.domain_rand.randomize_contact_compliance
+
+
+@pytest.mark.parametrize("task", ["humanoid_ppo_terrain", "humanoid_ppo_terrain_robust",
+                                  "humanoid_ppo_rubble"])
+def test_terrain_task_trains_on_cpu(task, tmp_path):
+    """Each terrain task builds at 4 envs on the CPU (the full 20 x 20 map,
+    2100 x 2100 nodes for the terrain tasks; 20 x 20 5 m rubble patches) as
+    the reference registry builds it, and one PPO iteration (T cut to 4,
+    solver mega: the plain terrain step) runs through OnPolicyRunner.learn
+    with finite losses and levels in range."""
+    from humanoid_gym_tpu import registry as jreg
+    from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+
+    def ov(cfg):
+        cfg.sim.solver.solver_type = "mega"
+
+    env, cfg = registry.make_env(task, num_envs=4, cfg_overrides=ov, device="cpu")
+    jcfg = jreg.get_task(task).make_env_cfg()
+    for name in ("mesh_type", "curriculum", "style", "num_rows", "num_cols", "terrain_length",
+                 "max_init_terrain_level", "terrain_proportions", "rubble_base", "rubble_span",
+                 "curriculum_mode"):
+        assert getattr(cfg.terrain, name) == getattr(jcfg.terrain, name), name
+    assert vars(cfg.domain_rand) == vars(jcfg.domain_rand)
+    assert vars(cfg.rewards.scales) == vars(jcfg.rewards.scales)
+    assert env.terrain_map.height_field.shape == (
+        cfg.terrain.num_rows * int(cfg.terrain.terrain_length / 0.1) + 500, 2100)
+    tcfg = registry.get_task(task).make_train_cfg()
+    assert tcfg.runner.experiment_name == jreg.get_task(task).make_train_cfg().runner.experiment_name
+    tcfg.runner.num_steps_per_env = 4
+    os.environ["HGT_WANDB"] = "0"
+    runner = OnPolicyRunner(env, tcfg, log_dir=str(tmp_path), seed=0)
+    runner.learn(1)
+    line = json.loads(open(os.path.join(str(tmp_path), "metrics.jsonl")).readline())
+    assert all(v == v and abs(v) != float("inf") for v in line.values())
+    lv = runner.env_state.terrain_level
+    assert 0 <= int(lv.min()) and int(lv.max()) < cfg.terrain.num_rows
+
+
+def test_deploy_task_and_style_are_refused():
+    """`humanoid_ppo_deploy` is not registered, and the "deploy" terrain
+    style raises where the map is built."""
+    with pytest.raises(KeyError, match="humanoid_ppo_deploy"):
+        registry.get_task("humanoid_ppo_deploy")
+
+    def ov(cfg):
+        cfg.terrain.style = "deploy"
+
+    with pytest.raises(ValueError, match="deploy"):
+        registry.make_env("humanoid_ppo_rubble", num_envs=2, cfg_overrides=ov, device="cpu")

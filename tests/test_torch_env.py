@@ -232,3 +232,210 @@ def test_env_step_substep_solver_matches_jax(solver):
         np.testing.assert_allclose(ts.last_feet_z.numpy(), js.last_feet_z, atol=2e-4)
         np.testing.assert_array_equal(ts.episode_length.numpy(), js.episode_length)
     assert float(ts.phys.fk_out.abs().max()) == 0.0
+
+
+# ------------------------------------------------------------------ terrain
+
+
+def _small_terrain(cfg, mode="survival"):
+    """A 3 x 3 map with a 5 m border (levels start at 0-1), the curriculum
+    in `mode`."""
+    cfg.terrain.num_rows, cfg.terrain.num_cols, cfg.terrain.border_size = 3, 3, 5.0
+    cfg.terrain.max_init_terrain_level = 1
+    cfg.terrain.curriculum_mode = mode
+    return cfg
+
+
+def _measured(cfg):
+    """measure_heights on: the 17 x 11 height samples join the privileged
+    frame."""
+    pts = len(cfg.terrain.measured_points_x) * len(cfg.terrain.measured_points_y)
+    cfg.terrain.measure_heights = True
+    cfg.env.single_num_privileged_obs = 73 + pts
+    cfg.env.num_privileged_obs = cfg.env.c_frame_stack * (73 + pts)
+    return cfg
+
+
+def _terrain_pair(n, iters):
+    """The JAX env (solver apgd) and the port's env (solver mega) for
+    `humanoid_ppo_terrain_robust` on the small map with measured heights,
+    quiet, from one config: both build the same map
+    (tests/test_torch_terrain.py)."""
+    from humanoid_gym_tpu import registry as jreg
+    from humanoid_gym_tpu_torch import registry as treg
+
+    def jov(c):
+        _measured(_small_terrain(_quiet(c, n, iters)))
+        c.sim.solver.solver_type = "apgd"
+
+    def tov(c):
+        _measured(_small_terrain(_quiet(c, n, iters)))
+        c.sim.solver.solver_type = "mega"
+
+    jenv, _ = jreg.make_env("humanoid_ppo_terrain_robust", num_envs=n, cfg_overrides=jov)
+    tenv, tcfg = treg.make_env("humanoid_ppo_terrain_robust", num_envs=n, cfg_overrides=tov,
+                               device="cpu")
+    np.testing.assert_array_equal(tenv.terrain_map.height_field, jenv.terrain_map.height_field)
+    return jenv, tenv, tcfg
+
+
+def test_terrain_env_step_matches_jax():
+    """`humanoid_ppo_terrain_robust` on a small map, with the measured
+    heights in the privileged obs: two batched env steps
+    from one shared state whose robots stand on the terrain (the base 0.87 m
+    over the bilinear ground, so the soles touch it), then a third in which
+    every env times out, so the survival curriculum moves each level (none
+    past the top row, where the re-entry level is drawn). The tolerances of
+    `test_env_step_matches_jax`; levels and origins exact."""
+    from humanoid_gym_tpu.terrain.terrain import make_contact_height_fn
+
+    n, iters = 3, 200
+    jenv, tenv, _ = _terrain_pair(n, iters)
+    js = jax.jit(jenv.init_state)(jax.random.split(jax.random.PRNGKey(5), n), jnp.arange(n))
+    qpos = np.array(js.phys.qpos)
+    ground = make_contact_height_fn(jenv.terrain_map)(jnp.asarray(qpos[:, 0]), jnp.asarray(qpos[:, 1]))
+    qpos[:, 2] = np.asarray(ground) + 0.87
+    js = js.replace(phys=js.phys.replace(qpos=jnp.asarray(qpos)))
+    ts = env_state_from_jax(js)
+    np.testing.assert_array_equal(ts.terrain_level.numpy(), np.asarray(js.terrain_level))
+    assert int(ts.terrain_level.max()) <= 1
+    jstep = jax.jit(jenv.step)
+    rng = np.random.default_rng(4)
+    max_force = 0.0
+    for i in range(3):
+        if i == 2:  # every env times out with a zero command: promoted
+            js = js.replace(episode_length=jnp.full((n,), jenv.max_episode_length, jnp.int32),
+                            commands=jnp.zeros_like(js.commands))
+            ts = env_state_from_jax(js)
+        a = rng.uniform(-0.3, 0.3, (n, 12)).astype(np.float32)
+        js, jtr = jstep(js, jnp.asarray(a))
+        ts, ttr = tenv.step(ts, torch.from_numpy(a))
+        np.testing.assert_array_equal(ttr.done.numpy(), np.asarray(jtr.done))
+        np.testing.assert_array_equal(ts.terrain_level.numpy(), np.asarray(js.terrain_level))
+        np.testing.assert_array_equal(ttr.terrain_level.numpy(), np.asarray(jtr.terrain_level))
+        np.testing.assert_allclose(ts.env_origin.numpy(), js.env_origin, atol=1e-6)
+        if i == 2:
+            assert np.asarray(jtr.done).all() and np.asarray(jtr.time_out).all()
+            break
+        assert not np.asarray(jtr.done).any()
+        np.testing.assert_allclose(ts.phys.qpos.numpy(), js.phys.qpos, atol=2e-4)
+        np.testing.assert_allclose(ts.phys.qvel.numpy(), js.phys.qvel, atol=5e-3)
+        np.testing.assert_allclose(ttr.obs.numpy(), jtr.obs, atol=5e-3)
+        np.testing.assert_allclose(ttr.privileged_obs.numpy(), jtr.privileged_obs, atol=5e-3)
+        np.testing.assert_allclose(ttr.reward.numpy(), jtr.reward, atol=1e-4)
+        np.testing.assert_allclose(ts.phys.contact_forces.numpy(), js.phys.contact_forces, atol=5.0)
+        heights = ttr.privileged_obs.numpy().reshape(n, 3, -1)[:, -1, 73:]
+        assert heights.shape == (n, 187) and np.ptp(heights) > 0.0
+        max_force = max(max_force, float(np.abs(np.asarray(js.phys.contact_forces)).max()))
+    assert max_force > 20.0, "no contact force: the robots never touched the terrain"
+
+
+def test_terrain_reset_placement():
+    """init_state: levels in [0, max_init_terrain_level] with the curriculum
+    and over every row without it; types spread over the env index
+    (env * num_cols // num_envs); the base at the subterrain origin plus
+    the init height, with at most 1 m of xy jitter."""
+    from humanoid_gym_tpu_torch import registry as treg
+
+    for curriculum, top in ((True, 1), (False, 2)):
+        def ov(c, curriculum=curriculum):
+            _small_terrain(c)
+            c.terrain.curriculum = curriculum
+            c.sim.solver.solver_type = "apgd"
+
+        env, cfg = treg.make_env("humanoid_ppo_terrain", num_envs=60, cfg_overrides=ov,
+                                 device="cpu", seed=2)
+        st = env.init_state()
+        lv, tp = st.terrain_level.numpy(), st.terrain_type.numpy()
+        assert lv.min() == 0 and lv.max() == top
+        np.testing.assert_array_equal(tp, np.arange(60) * 3 // 60)
+        origin = env.terrain_map.env_origins[lv, tp]
+        np.testing.assert_allclose(st.env_origin.numpy(), origin, atol=1e-6)
+        d = st.phys.qpos[:, :3].numpy() - origin
+        assert np.abs(d[:, :2]).max() <= 1.0 and np.abs(d[:, :2]).max() > 0.5
+        np.testing.assert_allclose(d[:, 2], cfg.init_state.pos[2], atol=1e-6)
+
+
+def _curriculum_reference(mode, level, ttype, origin, qpos, commands, done, time_out, ep_len,
+                          rand_level, origins, num_rows, terrain_length, ep_len_s, max_len):
+    """The JAX package's terrain curriculum (envs/env.py:686-716) in numpy."""
+    dist = np.linalg.norm(qpos[:, :2] - origin[:, :2], axis=1)
+    need = np.linalg.norm(commands[:, :2], axis=1) * ep_len_s * 0.5
+    if mode == "survival":
+        up = time_out & (dist >= need)
+        down = ~time_out & (ep_len < max_len // 2)
+    else:
+        up = dist > terrain_length / 2
+        down = (dist < need) & ~up
+    new = level + up.astype(np.int32) - down.astype(np.int32)
+    new = np.where(new >= num_rows, rand_level, np.maximum(new, 0))
+    level = np.where(done, new, level)
+    return level, np.where(done[:, None], origins[level, ttype], origin)
+
+
+@pytest.mark.parametrize("mode", ["distance", "survival"])
+def test_terrain_curriculum_update(mode):
+    """`_terrain_curriculum` with injected draws against the reference rule
+    on 200 envs: every branch (promoted, demoted, kept, above the top row
+    re-entering at the injected level, envs that do not reset)."""
+    from humanoid_gym_tpu_torch import registry as treg
+
+    def ov(c):
+        _small_terrain(c, mode)
+        c.sim.solver.solver_type = "apgd"
+
+    env, cfg = treg.make_env("humanoid_ppo_terrain_robust", num_envs=200, cfg_overrides=ov,
+                             device="cpu")
+    st = env.init_state()
+    rng = np.random.default_rng(7)
+    n = 200
+    level = rng.integers(0, 3, n).astype(np.int32)
+    ttype = st.terrain_type.numpy()
+    origins = env.terrain_map.env_origins.astype(np.float32)
+    origin = origins[level, ttype]
+    qpos = st.phys.qpos.numpy().copy()
+    qpos[:, :2] = origin[:, :2] + rng.uniform(-6.0, 6.0, (n, 2))
+    commands = rng.uniform(-1.0, 1.0, (n, 4)).astype(np.float32)
+    commands[:20] = 0.0
+    done = rng.uniform(size=n) < 0.7
+    time_out = done & (rng.uniform(size=n) < 0.5)
+    ep_len = rng.integers(0, env.max_episode_length, n).astype(np.int32)
+    rand_level = rng.integers(0, 3, n)
+    st = st.replace(terrain_level=torch.from_numpy(level), env_origin=torch.from_numpy(origin),
+                    episode_length=torch.from_numpy(ep_len))
+    got_l, got_o = env._terrain_curriculum(st, torch.from_numpy(qpos), torch.from_numpy(commands),
+                                           torch.from_numpy(done), torch.from_numpy(time_out),
+                                           torch.from_numpy(rand_level))
+    want_l, want_o = _curriculum_reference(
+        mode, level, ttype, origin, qpos, commands, done, time_out, ep_len, rand_level, origins,
+        3, cfg.terrain.terrain_length, cfg.env.episode_length_s, env.max_episode_length)
+    np.testing.assert_array_equal(got_l.numpy(), want_l)
+    np.testing.assert_allclose(got_o.numpy(), want_o, atol=1e-6)
+    moved = want_l - level
+    assert (moved[done] > 0).any() and (moved[done] < 0).any() and (moved[done] == 0).any()
+    assert (moved[~done] == 0).all() and ((level == 2) & done & (moved != 1)).any()
+
+
+def test_survival_curriculum_promotes_standing_survivor():
+    """Port of tests/test_terrain.py:202 with injected state: an env that
+    reaches timeout at zero command without walking is promoted in the
+    survival mode and held in the distance mode (walked 0 m < half a
+    subterrain, but not less than the zero distance it was asked for)."""
+    from humanoid_gym_tpu_torch import registry as treg
+
+    for mode, want in (("survival", 1), ("distance", 0)):
+        def ov(c, mode=mode):
+            _small_terrain(c, mode)
+            c.sim.solver.solver_type = "apgd"
+
+        env, _ = treg.make_env("humanoid_ppo_rubble", num_envs=2, cfg_overrides=ov, device="cpu")
+        st = env.init_state()
+        st = st.replace(terrain_level=torch.zeros(2, dtype=torch.int32),
+                        env_origin=torch.from_numpy(
+                            env.terrain_map.env_origins[0, st.terrain_type.numpy()].astype(np.float32)))
+        qpos = st.phys.qpos.clone()
+        qpos[:, :2] = st.env_origin[:, :2]
+        yes = torch.ones(2, dtype=torch.bool)
+        lvl, _ = env._terrain_curriculum(st, qpos, torch.zeros((2, 4)), yes, yes,
+                                         torch.zeros(2, dtype=torch.int64))
+        assert lvl.tolist() == [want, want], mode

@@ -40,6 +40,8 @@ def test_scan_covers_the_port():
     assert "scripts/train_torch.py" in names
     assert "humanoid_gym_tpu_torch/runner/on_policy_runner.py" in names
     assert "humanoid_gym_tpu_torch/physics/mega.py" in names
+    for f in ("__init__.py", "primitives.py", "terrain.py"):
+        assert f"humanoid_gym_tpu_torch/terrain/{f}" in names
     assert len(names) > 15
 
 

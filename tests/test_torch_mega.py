@@ -149,9 +149,12 @@ def _states(n, seed):
 
 
 def _torch_step(tm, tl, iters, args):
+    """The port's batched step on the 11 per-env arrays of `_states` (the
+    slope bias, read only on terrain, is zeros)."""
     step = MG.make_mega_step_batched(tm, 0.001, 10, torch.from_numpy(KP), torch.from_numpy(KD),
                                      tl, iterations=iters)
-    return [x.numpy() for x in step(*[torch.from_numpy(a) for a in args])]
+    t = [torch.from_numpy(a) for a in args]
+    return [x.numpy() for x in step(*t[:10], torch.zeros((t[0].shape[0], 2)), t[10])]
 
 
 def test_plain_mega_matches_jax_fallback(models):
@@ -198,6 +201,96 @@ def test_plain_mega_matches_pallas_kernel_interpret(models):
     np.testing.assert_allclose(got[5][:, :10], np.asarray(want[5])[:, :10], atol=2e-4)
     np.testing.assert_allclose(got[5][:, 10:], np.asarray(want[5])[:, 10:], atol=5e-3)
 
+
+
+@pytest.fixture(scope="module")
+def terrain_maps():
+    """A small reference map (4 x 4 subterrains: slopes up and down,
+    stairs, obstacles, roughness; 5 m border) and its port copy."""
+    from humanoid_gym_tpu.config.base import TerrainCfg
+    from humanoid_gym_tpu.terrain.terrain import TerrainMap
+    from humanoid_gym_tpu_torch.algo.convert import terrain_map_from_jax
+
+    cfg = TerrainCfg()
+    cfg.num_rows, cfg.num_cols, cfg.border_size = 4, 4, 5.0
+    cfg.terrain_proportions = [0.0, 0.1, 0.3, 0.6, 0.9, 1.0, 1.0]
+    jmap = TerrainMap.build(cfg, np.random.default_rng(0))
+    return jmap, terrain_map_from_jax(jmap)
+
+
+def _terrain_args(jmap, n, seed):
+    """`_states` with the base over random points of the map's sloped rows
+    (levels 1-3: slopes, stairs, obstacles, roughness), 0.87 m (+-0.02)
+    above the bilinear ground there, and a slope bias of up to 0.05: the 11
+    per-env arrays and the (n, 2) bias."""
+    from humanoid_gym_tpu.terrain.terrain import make_contact_height_fn
+
+    args = _states(n, seed)
+    rng = np.random.default_rng(seed + 100)
+    x = rng.uniform(jmap.env_length, 4 * jmap.env_length, n).astype(np.float32)
+    y = rng.uniform(0.5, 4 * jmap.env_width - 0.5, n).astype(np.float32)
+    qpos = args[0]
+    qpos[:, 0], qpos[:, 1] = x, y
+    qpos[:, 2] += np.asarray(make_contact_height_fn(jmap)(jnp.asarray(x), jnp.asarray(y))) - 0.03
+    return args, rng.uniform(-0.05, 0.05, (n, 2)).astype(np.float32)
+
+
+def _torch_terrain_step(tm, tmap, iters, args, sbias):
+    step = MG.make_mega_step_batched(tm, 0.001, 10, torch.from_numpy(KP), torch.from_numpy(KD),
+                                     tm.dof_effort * 0.85, iterations=iters, terrain_map=tmap)
+    t = [torch.from_numpy(a) for a in args]
+    return [x.numpy() for x in step(*t[:10], torch.from_numpy(sbias), t[10])]
+
+
+def test_plain_terrain_mega_matches_jax_fallback(models, terrain_maps):
+    """The plain terrain mega step (the kernel's patch lookup and frames
+    from the IN2 rows) vs the JAX single-env fallback `step` with the
+    terrain map (the grid's bilinear height, frames from the step-start
+    gradient), per env, on envs over slopes, stairs and roughness, both
+    solved to convergence (200 iterations, the Queue C rule). The
+    tolerances of `test_plain_mega_matches_jax_fallback`."""
+    jm, tm = models
+    jmap, tmap = terrain_maps
+    n, iters = 4, 200
+    args, sbias = _terrain_args(jmap, n, seed=9)
+    got = _torch_terrain_step(tm, tmap, iters, args, sbias)
+    tl = np.asarray(jm.dof_effort) * 0.85
+    jstep = jax.jit(JMK.make_mega_step_batched(jm, 0.001, 10, KP, KD, tl, iterations=iters,
+                                               terrain_map=jmap))
+    tols = {"qpos": 2e-4, "qvel": 5e-3, "lam": 5e-3, "tau": 5e-2, "ff": 5e-3}
+    for e in range(n):
+        want = jstep(*[jnp.asarray(a[e]) for a in args[:10]], jnp.asarray(sbias[e]),
+                     jnp.asarray(args[10][e]))
+        for k, name in enumerate(OUT_NAMES[:5]):
+            np.testing.assert_allclose(got[k][e], want[k], atol=tols[name], err_msg=name)
+        np.testing.assert_allclose(got[5][e][:10], want[5][:10], atol=2e-4, err_msg="fk14 pos")
+        np.testing.assert_allclose(got[5][e][10:], want[5][10:], atol=5e-3, err_msg="fk14 vel")
+    ff = got[4].reshape(n, 2, 3)
+    assert np.abs(ff[..., 2]).max() > 1e-2, "no contact impulse: the check would be vacuous"
+    assert np.abs(ff[..., :2]).max() > 1e-3, "no tangential world impulse: frames untested"
+
+
+@pytest.mark.slow
+def test_plain_terrain_mega_matches_pallas_kernel_interpret(models, terrain_maps):
+    """The plain terrain mega step vs the TPU kernel built with the terrain
+    (interpret mode, under vmap) at the main path's 8 iterations, on the
+    same IN2 rows in both: the tolerances of the flat interpret check."""
+    jm, tm = models
+    jmap, tmap = terrain_maps
+    n, iters = 4, 8
+    args, sbias = _terrain_args(jmap, n, seed=10)
+    got = _torch_terrain_step(tm, tmap, iters, args, sbias)
+    tl = np.asarray(jm.dof_effort) * 0.85
+    jstep = JMK.make_mega_step_batched(jm, 0.001, 10, KP, KD, tl, iterations=iters, interpret=True,
+                                       terrain_map=jmap)
+    want = jax.jit(jax.vmap(jstep))(*[jnp.asarray(a) for a in args[:10]], jnp.asarray(sbias),
+                                    jnp.asarray(args[10]))
+    tols = {"qpos": 2e-4, "qvel": 5e-3, "lam": 5e-3, "tau": 5e-2, "ff": 5e-3}
+    for k, name in enumerate(OUT_NAMES[:5]):
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), atol=tols[name], err_msg=name)
+    np.testing.assert_allclose(got[5][:, :10], np.asarray(want[5])[:, :10], atol=2e-4)
+    np.testing.assert_allclose(got[5][:, 10:], np.asarray(want[5])[:, 10:], atol=5e-3)
+    assert np.abs(got[4]).max() > 1e-2
 
 def test_row_layouts_match_tpu_kernel():
     for name in ("IN_QPOS", "IN_QVEL", "IN_TGT", "IN_FRIC", "IN_MS", "IN_CSTIFF", "IN_COFF",
@@ -283,11 +376,21 @@ def test_shared_memory_map_matches_cuda_source():
     # the pair table: lower-triangle entries outside the cross-leg block
     pairs = [(i, a) for i in range(SV.NV) for a in range(i + 1) if not (a < 6 <= i < 12)]
     assert len(pairs) == d["HGT_NPAIR"]
-    # residency: 32 warps per SM within 227 KB (1 KB reserved per block)
-    mega_bytes = 4 * (d["MG_HEAD_FLOATS"] + d["MG_WARPS"] * d["MG_WARP_FLOATS"])
+    # the terrain variant's region after the flat map: the IN2 row as it
+    # comes (taps, ox, oy; gx, gy at IN2_GX), then the frames over gx, gy
+    for name in ("IN2_PMIN", "IN2_OX", "IN2_OY", "IN2_GX", "IN2_GY", "IN2_ROWS"):
+        assert d[name] == getattr(MG, name), name
+    assert d["MG_T"] >= d["MG_WARP_FLOATS"] and d["MG_T"] % 4 == 0
+    assert d["MG_T_FR"] == MG.IN2_GX and d["MG_T_FR"] + 5 * SV.N_POINTS <= d["MG_T_FLOATS"]
+    assert MG.IN2_ROWS <= d["MG_T_FLOATS"]
+    assert d["MG_WARP_FLOATS_T"] == d["MG_T"] + d["MG_T_FLOATS"] and d["MG_WARP_FLOATS_T"] % 4 == 0
+    # residency: 32 warps per SM within 227 KB (1 KB reserved per block),
+    # for the flat and the terrain variant
     solve_bytes = 4 * (d["SV_HEAD_FLOATS"] + d["SV_WARPS"] * d["SV_WARP_FLOATS"])
     assert d["MG_MIN_BLOCKS"] * d["MG_WARPS"] == 32
-    assert d["MG_MIN_BLOCKS"] * (mega_bytes + 1024) <= 232448
+    for per_warp in ("MG_WARP_FLOATS", "MG_WARP_FLOATS_T"):
+        mega_bytes = 4 * (d["MG_HEAD_FLOATS"] + d["MG_WARPS"] * d[per_warp])
+        assert d["MG_MIN_BLOCKS"] * (mega_bytes + 1024) <= 232448, per_warp
     assert (32 // d["SV_WARPS"]) * (solve_bytes + 1024) <= 232448
 
 

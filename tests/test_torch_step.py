@@ -149,3 +149,92 @@ def test_physics_state_from_jax_covers_every_field(models):
     tst = physics_state_from_jax(jst)
     for f in dataclasses.fields(TS.PhysicsState):
         np.testing.assert_array_equal(getattr(tst, f.name).numpy(), np.asarray(getattr(jst, f.name)))
+
+
+# ------------------------------------------------------------------ terrain
+
+
+@pytest.fixture(scope="module")
+def terrain_maps():
+    """A small reference map (4 x 4 subterrains: slopes up and down,
+    stairs, obstacles, roughness; 5 m border) and its port copy."""
+    from humanoid_gym_tpu.config.base import TerrainCfg
+    from humanoid_gym_tpu.terrain.terrain import TerrainMap
+    from humanoid_gym_tpu_torch.algo.convert import terrain_map_from_jax
+
+    cfg = TerrainCfg()
+    cfg.num_rows, cfg.num_cols, cfg.border_size = 4, 4, 5.0
+    cfg.terrain_proportions = [0.0, 0.1, 0.3, 0.6, 0.9, 1.0, 1.0]
+    jmap = TerrainMap.build(cfg, np.random.default_rng(0))
+    return jmap, terrain_map_from_jax(jmap)
+
+
+def _terrain_states(jm, jmap, n, seed):
+    """`_jax_states` moved over the map: the base over random points of the
+    sloped rows (levels 1-3), 0.87 m (+-0.02) above the bilinear ground
+    there, so that the soles start 0-5 cm from it, and a contact-slope bias
+    of up to 0.05."""
+    from humanoid_gym_tpu.terrain.terrain import make_contact_height_fn
+
+    st, tgt = _jax_states(jm, n, seed)
+    rng = np.random.default_rng(seed + 100)
+    x = rng.uniform(jmap.env_length, 4 * jmap.env_length, n).astype(np.float32)
+    y = rng.uniform(0.5, 4 * jmap.env_width - 0.5, n).astype(np.float32)
+    ground = np.asarray(make_contact_height_fn(jmap)(jnp.asarray(x), jnp.asarray(y)))
+    qpos = np.array(st.qpos)
+    qpos[:, 0], qpos[:, 1] = x, y
+    qpos[:, 2] += ground - 0.03
+    sb = rng.uniform(-0.05, 0.05, (n, 2)).astype(np.float32)
+    return st.replace(qpos=jnp.asarray(qpos), slope_bias=jnp.asarray(sb)), tgt
+
+
+@pytest.mark.parametrize("solver, jax_solver", [
+    ("apgd", "apgd"), ("pgs", "pgs"), ("apgd_pallas", "apgd"), ("fused_pallas", "apgd"),
+])
+def test_terrain_physics_step_matches_jax(models, terrain_maps, solver, jax_solver):
+    """One policy step on the heightfield: contacts on the bilinear surface
+    with the sloped frames frozen at the step start (gradient + slope
+    bias), in every substep solver. Same tolerances as the flat case:
+    qpos 2e-4, qvel 5e-3, world-frame contact forces 2 N, torques 5e-2,
+    lam (frame components) 2e-3."""
+    from humanoid_gym_tpu.terrain.terrain import make_height_fn as jax_height
+    from humanoid_gym_tpu_torch.terrain.terrain import make_height_fn as torch_height
+
+    jm, tm = models
+    jmap, tmap = terrain_maps
+    n = 4
+    jst, tgt = _terrain_states(jm, jmap, n, seed=8)
+    jstep = JS.make_physics_step(jm, 0.001, 10, jnp.asarray(KP), jnp.asarray(KD),
+                                 jm.dof_effort * 0.85, jax_height(jmap), solver_iterations=8,
+                                 solver=jax_solver, terrain_map=jmap)
+    want = jax.jit(jax.vmap(jstep))(jst, jnp.asarray(tgt))
+    tstep = TS.make_physics_step(tm, 0.001, 10, KP, KD, tm.dof_effort * 0.85,
+                                 solver_iterations=8, solver=solver,
+                                 terrain_height_fn=torch_height(tmap), terrain_map=tmap)
+    got = tstep(physics_state_from_jax(jst), torch.from_numpy(tgt))
+    np.testing.assert_allclose(got.qpos.numpy(), want.qpos, atol=2e-4)
+    np.testing.assert_allclose(got.qvel.numpy(), want.qvel, atol=5e-3)
+    np.testing.assert_allclose(got.contact_forces.numpy(), want.contact_forces, atol=2.0)
+    np.testing.assert_allclose(got.torques.numpy(), want.torques, atol=5e-2)
+    np.testing.assert_allclose(got.contact_lam.numpy(), want.contact_lam, atol=2e-3)
+    forces = np.asarray(want.contact_forces)
+    assert np.abs(forces[..., 2]).max() > 20.0, "no contact force"
+    assert np.abs(forces[..., :2]).max() > 1.0, "no tangential world force: frames untested"
+
+
+def test_terrain_frames_differ_from_flat(models, terrain_maps):
+    """The frames matter: the same states solved with identity frames on the
+    same bilinear ground move differently (so the comparison above cannot
+    pass on flat frames)."""
+    from humanoid_gym_tpu_torch.terrain.terrain import make_contact_height_fn, make_height_fn
+
+    jm, tm = models
+    jmap, tmap = terrain_maps
+    jst, tgt = _terrain_states(jm, jmap, 4, seed=8)
+    tst = physics_state_from_jax(jst)
+    sloped = TS.make_physics_step(tm, 0.001, 10, KP, KD, tm.dof_effort * 0.85, solver="apgd",
+                                  terrain_height_fn=make_height_fn(tmap), terrain_map=tmap)
+    level = TS.make_physics_step(tm, 0.001, 10, KP, KD, tm.dof_effort * 0.85, solver="apgd",
+                                 terrain_height_fn=make_contact_height_fn(tmap))
+    a, b = sloped(tst, torch.from_numpy(tgt)), level(tst, torch.from_numpy(tgt))
+    assert float((a.qvel - b.qvel).abs().max()) > 1e-2

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1-4, 4t, 6 and 7, then the records; no contract line
+    python3 chip_smoke.py --kernels-only   # phases 1-4, 4t, 10, 10t, 6 and 7, then the records; no contract line
 
 Phases (each prints one line of its numbers; any failure raises, so the
 script exits non-zero):
@@ -44,7 +44,33 @@ script exits non-zero):
      T=60, solver mega (warm-up, 2 timed iterations): 60 terrain-kernel
      launches per iteration and no flat one, the terrain levels, and the
      launches per iteration under the profiler;
- 10. one JSON line with a record per kernel, the card line, then the
+ 10. two robot models in one stream (run after phase 4t): the mega kernel
+     launched with XBot-S's constants against the plain XBot-S step at 4096
+     envs over 1 and 5 policy steps; XBot-L and XBot-S launches queued L,
+     S, L, S on one stream with no synchronisation, each bit-equal to the
+     same launch run alone; both timed in turns;
+ 10t. the same for the terrain variant: XBot-S landed on phase 4t's map
+     against the plain XBot-S terrain step, interleaved with XBot-L on
+     phase 4t's landed states;
+ 11. joint XBot-L + XBot-S training through the entry points:
+     `registry.make_env("humanoid_joint_ppo")` and `("humanoid_joint_deploy")`
+     -> `OnPolicyRunner.learn` at 2048 + 2048 envs, T=60, solver mega, the
+     estimator head on (warm-up, 2 timed iterations): 120 flat (joint_ppo)
+     or 120 terrain (joint_deploy) launches per iteration and no other,
+     finite losses, an estimator loss that falls on a fixed batch (the
+     observations ending the warm-up iteration, initial weights against
+     the last iteration's; the logged per-iteration loss is reported), and
+     on the deploy task envs that drew level 20 on the 20 rows standing on
+     row 19's origin;
+ 12. the repo's trained policies through the kernel (`actor_critic_from_npz`,
+     deployment-clean overrides, 4096 envs, 400 policy steps): (a)
+     `xbotl_walk_demo` on `humanoid_ppo` at vx 0.4, at least 95% survive and
+     the median distance is at least 0.8 m; (b) `xbotl_footing_demo` (the
+     joint policy) on `humanoid_s_ppo` at vx 0.4 sqrt(s), at least 95%
+     survive and the median distance is at least half the ideal; (c)
+     `xbotl_footing_demo` on `humanoid_ppo_rubble` through the terrain
+     variant, reported;
+ 13. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
@@ -264,16 +290,16 @@ def _bound_ms(nbytes: float, ops: float):
 
 # ---- inputs ----
 
-def _states(model, n, seed, device):
+def _states(model, n, seed, device, z=0.9):
     """Perturbed standing states with DR values drawn as the JAX package's
-    tests/test_mega_kernel.py:_states draws them."""
+    tests/test_mega_kernel.py:_states draws them; the base at height z."""
     import numpy as np
     import torch
 
     from humanoid_gym_tpu_torch.physics.step import default_state
 
     rng = np.random.default_rng(seed)
-    st = default_state(model, n, [0.0, 0.0, 0.9], [1.0, 0.0, 0.0, 0.0])
+    st = default_state(model, n, [0.0, 0.0, z], [1.0, 0.0, 0.0, 0.0])
     qpos = st.qpos.cpu().numpy()
     qpos[:, 7:] = rng.uniform(-0.1, 0.1, (n, 12))
     qpos[:, 2] += rng.uniform(-0.02, 0.02, n)
@@ -317,22 +343,24 @@ def _mega_tols(sim_dt):
             "ff": 5.0 * sim_dt, "fk_pos": 5e-4, "fk_vel": 1e-2}
 
 
-def _setup(dev):
-    """The XBot-L model, gains and the mega step (kernel and plain) that
-    phases 3 and 4 share."""
+def _setup(dev, robot="L"):
+    """The XBot-L (or, robot="S", the XBot-S) model, gains and the mega step
+    (kernel and plain) that phases 3, 4 and 10 share."""
     import types
 
     import torch
 
     from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
+    from humanoid_gym_tpu_torch.config.xbots import SCALE, XBotSCfg
     from humanoid_gym_tpu_torch.envs.env import _match_gains
     from humanoid_gym_tpu_torch.physics import mega as MG
     from humanoid_gym_tpu_torch.physics.model import build_xbot_model
 
-    c = types.SimpleNamespace(dev=dev)
-    c.cfg = XBotLCfg()
+    c = types.SimpleNamespace(dev=dev, robot=robot)
+    c.cfg = XBotLCfg() if robot == "L" else XBotSCfg()
     c.cfg.sim.solver.solver_type = "mega"
-    c.model = build_xbot_model().to(dev)
+    c.model = build_xbot_model(c.cfg.asset.file, mesh_dir=c.cfg.asset.mesh_dir).to(dev)
+    c.z = 0.9 if robot == "L" else 0.9 * SCALE  # standing base height of the perturbed states
     c.sim_dt, c.dec = c.cfg.sim.dt, c.cfg.control.decimation
     c.iters = c.cfg.sim.solver.solver_iterations
     c.kp = torch.as_tensor(_match_gains(c.model.dof_names, c.cfg.control.stiffness), device=dev)
@@ -479,7 +507,7 @@ def _phase4_mega(c, records):
                             st1.kd_scale, st1.contact_compliance, st1.contact_lam, tgt1)
 
     def launch(decimation, iterations):
-        return MG.mega_kernel_launch(packed, c.mega.consts, c.sim_dt, decimation, iterations, 1.0)
+        return MG.mega_kernel_launch(packed, c.mega.consts_dev, c.sim_dt, decimation, iterations, 1.0)
 
     ms_mk = _time_ms(lambda: launch(c.dec, c.iters), reps=20)
     ms_i0 = _time_ms(lambda: launch(c.dec, 0), reps=20)
@@ -522,7 +550,8 @@ def _phase4t_mega_terrain(c, records):
     """Phase 4t: the terrain variant against its plain version on the full
     map. Each step's IN2 rows come from one `terrain_patches` call on the
     state it starts from; where kernel and plain start from one state (the
-    first step) they read the same call's rows."""
+    first step) they read the same call's rows. Returns the landed states,
+    their targets and the terrain step, which phase 10t reuses."""
     import numpy as np
     import torch
 
@@ -540,21 +569,16 @@ def _phase4t_mega_terrain(c, records):
     step = MG.make_mega_step_batched(env.model, cfg.sim.dt, cfg.control.decimation, env.p_gains,
                                      env.d_gains, env.torque_limits, iterations=c.iters,
                                      terrain_map=env.terrain_map)
-    terr, consts = step.terrain, step.consts
-
-    def args_of(st, tgt):
-        return (st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
-                st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance,
-                st.contact_lam, tgt)
+    terr, consts = step.terrain, step.consts_dev
 
     def kernel(st, tgt, in2):
-        packed = MG.pack_inputs(*args_of(st, tgt))
+        packed = MG.pack_inputs(*_phys_args(st, tgt))
         return MG.unpack_outputs(MG.mega_kernel_launch(packed, consts, c.sim_dt, c.dec, c.iters,
                                                        1.0, packed2=in2, terrain=terr))
 
     def plain(st, tgt, in2):
         return MG.mega_step_plain(env.model, c.sim_dt, c.dec, env.p_gains, env.d_gains,
-                                  env.torque_limits, c.iters, 1.0, *args_of(st, tgt), in2=in2,
+                                  env.torque_limits, c.iters, 1.0, *_phys_args(st, tgt), in2=in2,
                                   terrain=terr)
 
     tols = _mega_tols(c.sim_dt)
@@ -585,7 +609,7 @@ def _phase4t_mega_terrain(c, records):
         line = (f"phase 4t mega terrain: {n} env(s), {n_steps} step(s) | " + " ".join(
             f"{k} {v:.3e}/{tols[k]:.0e}" for k, v in errs.items()) + f" | finite {finite}")
         if (n, n_steps) == (N_ENVS, 1):
-            keep = (MG.pack_inputs(*args_of(st0, tgt)), in2, st0, tgt)
+            keep = (MG.pack_inputs(*_phys_args(st0, tgt)), in2, st0, tgt)
             level_in2 = step.terrain_patches(st0.qpos, torch.zeros_like(st0.slope_bias))
             slope = torch.hypot(level_in2[:, MG.IN2_GX:MG.IN2_GY], level_in2[:, MG.IN2_GY:])
             lam_n = ok[2][:, 2:3 * MG.N_POINTS:3]
@@ -622,6 +646,373 @@ def _phase4t_mega_terrain(c, records):
          f"{ops} operations per env)")
     records["mega_terrain"] = dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                                    bound_by=b_by)
+    return st_all, tgt_all, step
+
+
+def _phys_args(st, tgt):
+    return (st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
+            st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance, st.contact_lam, tgt)
+
+
+def _interleave(runs, launch):
+    """`runs`: name -> the packed inputs of one launch. Each launch run
+    alone (synchronised after it), then L, S, L, S queued on one stream
+    with no synchronisation between them: True if every queued output is
+    bit-equal to the same launch run alone."""
+    import torch
+
+    alone = {}
+    for name, args in runs.items():
+        alone[name] = launch(name, *args)
+        torch.cuda.synchronize()
+    queued = [(name, launch(name, *runs[name])) for name in ("L", "S", "L", "S")]
+    torch.cuda.synchronize()
+    return all(torch.equal(out, alone[name]) for name, out in queued)
+
+
+def _phase10_two_models(c, cs, extra):
+    """Phase 10: the flat mega kernel under XBot-S's constants against the
+    plain XBot-S step (4096 envs over 1 and 5 policy steps); then XBot-L
+    and XBot-S launches interleaved on one stream; both launches timed in
+    turns (L, S, S, L)."""
+    import torch
+
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    tols = _mega_tols(cs.sim_dt)
+    worst = 0.0
+    for n_steps in (1, 5):
+        st0, tgt0 = _states(cs.model, N_ENVS, seed=0, device=cs.dev, z=cs.z)
+        sk, sp = st0, st0
+        for _ in range(n_steps):
+            ok, op = cs.kernel(sk, tgt0), cs.plain(sp, tgt0)
+            sk, sp = cs.advance(sk, ok), cs.advance(sp, op)
+        torch.cuda.synchronize()
+        errs = _mega_errors(ok, op)
+        finite = all(bool(torch.isfinite(t).all()) for t in ok)
+        _log(f"phase 10 mega, XBot-S constants: {N_ENVS} envs, {n_steps} step(s) | " + " ".join(
+            f"{k} {v:.3e}/{tols[k]:.0e}" for k, v in errs.items()) + f" | finite {finite} | "
+            f"base height {float(ok[0][:, 2].mean()):.3f} m")
+        bad = {k: v for k, v in errs.items() if not v <= tols[k]}
+        if bad or not finite:
+            raise AssertionError(f"mega kernel with XBot-S constants disagrees with the plain "
+                                 f"XBot-S step: {bad}")
+        worst = max(worst, max(errs.values()))
+    runs, models = {}, {"L": c, "S": cs}
+    for name, m in models.items():
+        st, tgt = _states(m.model, N_ENVS, seed=1, device=m.dev, z=m.z)
+        runs[name] = (MG.pack_inputs(*_phys_args(m.advance(st, m.plain(st, tgt)), tgt)),)
+
+    def launch(name, packed):
+        m = models[name]
+        return MG.mega_kernel_launch(packed, m.mega.consts_dev, m.sim_dt, m.dec, m.iters, 1.0)
+
+    same = _interleave(runs, launch)
+    if not same:
+        raise AssertionError("interleaved XBot-L / XBot-S launches differ from the lone launches")
+    turns = [_time_ms(lambda n=n: launch(n, *runs[n]), reps=20) for n in ("L", "S", "S", "L")]
+    _log(f"phase 10 two models in one stream: L, S, L, S queued with no synchronisation, each "
+         f"bit-equal to its lone launch: {same} | {N_ENVS} envs, in turns L {turns[0]:.3f} | "
+         f"S {turns[1]:.3f} | S {turns[2]:.3f} | L {turns[3]:.3f} ms per launch (the flat "
+         f"launch with its constants in a __device__ array, same card: 0.527-0.533 ms)")
+    extra["mega"] = dict(s_model_max_abs_err=worst, interleaved_bit_equal=same,
+                         s_model_ms=0.5 * (turns[1] + turns[2]))
+
+
+def _s_on_the_terrain_map(dev):
+    """XBot-S envs (`humanoid_s_ppo`, solver mega) on the map of phase 4t's
+    task: the same terrain config with no Froude height scale, so the same
+    grid; placed by `init_state`, LAND_STEPS policy steps at the default
+    pose."""
+    import torch
+
+    from humanoid_gym_tpu_torch import registry
+
+    terrain = registry.get_task(TERRAIN_TASK).make_env_cfg().terrain
+
+    def ov(cfg):
+        cfg.terrain = terrain
+        cfg.sim.solver.solver_type = "mega"
+
+    env, cfg = registry.make_env("humanoid_s_ppo", num_envs=N_ENVS, cfg_overrides=ov, device=dev,
+                                 seed=0)
+    state = env.init_state()
+    zero = torch.zeros((N_ENVS, cfg.env.num_actions), device=dev)
+    for _ in range(LAND_STEPS):
+        state, _ = env.step(state, zero)
+    return env, cfg, state.phys, env.default_dof_pos.expand(N_ENVS, -1).contiguous()
+
+
+def _phase10t_two_models_terrain(c, landed_l, extra):
+    """Phase 10t: the terrain variant under XBot-S's constants against the
+    plain XBot-S terrain step, on S robots landed on phase 4t's map (4096
+    envs over 1 and 5 policy steps); then XBot-L (phase 4t's landed states)
+    and XBot-S terrain launches interleaved on one stream; both timed in
+    turns."""
+    import torch
+
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    st_l, tgt_l, step_l = landed_l
+    env, cfg, st_s, tgt_s = _s_on_the_terrain_map(c.dev)
+    step_s = MG.make_mega_step_batched(env.model, cfg.sim.dt, cfg.control.decimation,
+                                       env.p_gains, env.d_gains, env.torque_limits,
+                                       iterations=c.iters, terrain_map=env.terrain_map)
+    if step_s.terrain != step_l.terrain:
+        raise AssertionError("the XBot-S envs are not on phase 4t's map")
+    tols = _mega_tols(c.sim_dt)
+
+    def kernel(step, st, tgt):
+        in2 = step.terrain_patches(st.qpos, st.slope_bias)
+        return MG.unpack_outputs(MG.mega_kernel_launch(
+            MG.pack_inputs(*_phys_args(st, tgt)), step.consts_dev, c.sim_dt, c.dec, c.iters, 1.0,
+            packed2=in2, terrain=step.terrain))
+
+    def plain(st, tgt):
+        in2 = step_s.terrain_patches(st.qpos, st.slope_bias)
+        return MG.mega_step_plain(env.model, c.sim_dt, c.dec, env.p_gains, env.d_gains,
+                                  env.torque_limits, c.iters, 1.0, *_phys_args(st, tgt), in2=in2,
+                                  terrain=step_s.terrain)
+
+    worst = 0.0
+    for n_steps in (1, 5):
+        sk, sp = st_s, st_s
+        for _ in range(n_steps):
+            ok, op = kernel(step_s, sk, tgt_s), plain(sp, tgt_s)
+            sk, sp = c.advance(sk, ok), c.advance(sp, op)
+        torch.cuda.synchronize()
+        errs = _mega_errors(ok, op)
+        finite = all(bool(torch.isfinite(t).all()) for t in ok)
+        _log(f"phase 10t mega terrain, XBot-S constants: {N_ENVS} envs, {n_steps} step(s) | "
+             + " ".join(f"{k} {v:.3e}/{tols[k]:.0e}" for k, v in errs.items())
+             + f" | finite {finite} | base height {float(ok[0][:, 2].mean()):.3f} m")
+        bad = {k: v for k, v in errs.items() if not v <= tols[k]}
+        if bad or not finite:
+            raise AssertionError(f"terrain mega kernel with XBot-S constants disagrees with the "
+                                 f"plain XBot-S terrain step: {bad}")
+        worst = max(worst, max(errs.values()))
+    steps = {"L": step_l, "S": step_s}
+    runs = {name: (MG.pack_inputs(*_phys_args(st, tgt)),
+                   steps[name].terrain_patches(st.qpos, st.slope_bias))
+            for name, st, tgt in (("L", st_l, tgt_l), ("S", st_s, tgt_s))}
+
+    def launch(name, packed, in2):
+        return MG.mega_kernel_launch(packed, steps[name].consts_dev, c.sim_dt, c.dec, c.iters, 1.0,
+                                     packed2=in2, terrain=steps[name].terrain)
+
+    same = _interleave(runs, launch)
+    if not same:
+        raise AssertionError("interleaved XBot-L / XBot-S terrain launches differ from the lone "
+                             "launches")
+    turns = [_time_ms(lambda n=n: launch(n, *runs[n]), reps=20) for n in ("L", "S", "S", "L")]
+    _log(f"phase 10t two models in one stream (terrain): L, S, L, S queued with no "
+         f"synchronisation, each bit-equal to its lone launch: {same} | {N_ENVS} envs, in turns "
+         f"L {turns[0]:.3f} | S {turns[1]:.3f} | S {turns[2]:.3f} | L {turns[3]:.3f} ms per "
+         f"launch (the terrain launch with its constants in a __device__ array, same card: "
+         f"0.546-0.558 ms)")
+    extra["mega_terrain"] = dict(s_model_max_abs_err=worst, interleaved_bit_equal=same,
+                                 s_model_ms=0.5 * (turns[1] + turns[2]))
+
+
+def _joint_path(task, card, dev, timed_iters=2):
+    """Phase 11 for one joint task: XBot-L + XBot-S (2048 + 2048 envs), T=60,
+    solver mega, through registry.make_env -> OnPolicyRunner.learn. A first
+    runner warms up with one iteration and leaves its final checkpoint (the
+    list state of both sub-envs); a second loads it and runs the timed
+    iterations with the launch counters zeroed just before and read just
+    after; then one more iteration from its state unprofiled and one under
+    the profiler. The estimator head is held on one fixed batch, the observations
+    that end the warm-up iteration: its loss there with the initial weights
+    against the loss after the last timed iteration must fall (the logged
+    per-iteration loss is reported: each iteration measures it on its own
+    rollout, whose velocity spread grows as the untrained policy's robots
+    fall, so it need not fall while the head learns). Returns the launch
+    counts of the timed run."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.physics import mega as MG, solve as SV
+    from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+
+    def est_loss(net, obs, priv):
+        lo, hi = tcfg.algorithm.estimator_slice
+        with torch.no_grad():
+            return float(torch.mean(torch.square(net.estimate(obs) - priv[:, lo:hi])))
+
+    t0 = time.perf_counter()
+    env, cfg = registry.make_env(task, num_envs=N_ENVS, cfg_overrides=_solver_mega, device=dev,
+                                 seed=0)
+    make_s = time.perf_counter() - t0
+    tcfg = registry.get_task(task).make_train_cfg()
+    shape = ([e.num_envs for e in env.envs], [e.model.body_mass.sum().item() for e in env.envs],
+             tcfg.runner.num_steps_per_env, cfg.env.num_observations, cfg.env.num_privileged_obs,
+             tcfg.policy.estimator_dim, tcfg.algorithm.estimator_coef)
+    if shape[0] != [N_ENVS // 2] * 2 or not shape[1][1] < shape[1][0] or shape[2:] != (
+            T_STEPS, 705, 219, 3, 1.0):
+        raise AssertionError(f"{task}: not the full-width joint XBot-L + XBot-S recipe: {shape}")
+    terrain = cfg.terrain.mesh_type == "trimesh"
+    with tempfile.TemporaryDirectory(prefix="hgt_smoke_") as root:
+        t0 = time.perf_counter()
+        warm = OnPolicyRunner(env, tcfg, log_dir=os.path.join(root, "warm"), seed=1)
+        levels0, top = None, ""
+        if terrain:
+            # levels as drawn in [0, max_init_terrain_level] = [0, num_rows]:
+            # a level of num_rows stands on the top row's origin
+            levels0 = torch.cat([st.terrain_level for st in warm.env_state])
+            rows = cfg.terrain.num_rows
+            for sub, st in zip(env.envs, warm.env_state):
+                at_top = st.terrain_level == rows
+                want = sub.terrain_origins[rows - 1, st.terrain_type.long()]
+                if not torch.equal(st.env_origin[at_top], want[at_top]):
+                    raise AssertionError(f"{task}: a level of {rows} is not on row {rows - 1}")
+            n_top = int((levels0 == rows).sum())
+            if n_top == 0:
+                raise AssertionError(f"{task}: no env drew the level {rows} on {rows} rows")
+            top = f" | {n_top} envs drew level {rows} on {rows} rows, each on row {rows - 1}'s origin"
+        net0 = copy.deepcopy(warm.net)
+        warm.learn(1)
+        batch = (warm.obs.clone(), warm.priv_obs.clone())
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        first = [json.loads(ln) for ln in open(os.path.join(root, "warm", "metrics.jsonl"))]
+        timed = OnPolicyRunner(env, tcfg, log_dir=os.path.join(root, "timed"), seed=2)
+        timed.load(os.path.join(root, "warm", "model_1.ckpt"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+        SV.fused_solve.launches = SV.fused_dense_solve.launches = SV.apgd_solve_kernel.launches = 0
+        t0 = time.perf_counter()
+        timed.learn(timed_iters)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"mega": MG.mega_kernel_launch.launches,
+                    "mega_terrain": MG.mega_kernel_launch.terrain_launches,
+                    "solve_standalone": SV.fused_solve.launches,
+                    "fused_dense": SV.fused_dense_solve.launches,
+                    "apgd": SV.apgd_solve_kernel.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        lines = first + [json.loads(ln) for ln in open(os.path.join(root, "timed", "metrics.jsonl"))]
+        fixed = (est_loss(net0, *batch), est_loss(timed.net, *batch))
+    if [ln["iter"] for ln in lines] != list(range(1 + timed_iters)):
+        raise AssertionError(f"{task}: metrics.jsonl iterations {[ln['iter'] for ln in lines]}")
+    for ln in lines:
+        for k in ("Loss/value_function", "Loss/surrogate", "Loss/entropy", "Loss/kl",
+                  "Loss/estimator", "Train/mean_step_reward", "Episode/terrain_level"):
+            if not np.isfinite(ln[k]):
+                raise AssertionError(f"{task}: non-finite {k} = {ln[k]}")
+    est = [ln["Loss/estimator"] for ln in lines]
+    if not (all(np.isfinite(fixed)) and fixed[1] < fixed[0]):
+        raise AssertionError(f"{task}: the estimator loss on the fixed batch did not fall: {fixed}")
+    own = "mega_terrain" if terrain else "mega"
+    want = 2 * T_STEPS * timed_iters  # one launch per sub-env and policy step
+    if launches[own] != want or any(v for k, v in launches.items() if k != own):
+        raise AssertionError(f"{task}: launches {launches}, expected {own} = {want} only")
+    mean_ms = wall_ms / timed_iters
+    iter_ms = [ln["Perf/iter_time"] * 1e3 for ln in lines[1:]]
+    _log(f"phase 11 joint path: {task} XBot-L + XBot-S {N_ENVS // 2} + {N_ENVS // 2} envs "
+         f"T={T_STEPS} solver mega through registry.make_env -> OnPolicyRunner.learn | env built in "
+         f"{make_s:.1f} s, warm-up {warm_s:.1f} s | {timed_iters} iterations in {wall_ms:.1f} ms "
+         f"(dispatch to dispatch: {', '.join(f'{x:.1f}' for x in iter_ms)} ms) | "
+         f"{T_STEPS * N_ENVS / (mean_ms / 1e3):.1f} env steps/s | {own} launches {launches[own]} "
+         f"(= 2 x {T_STEPS} x {timed_iters}), "
+         f"{'flat' if terrain else 'terrain'} {launches['mega' if terrain else 'mega_terrain']} | "
+         f"estimator loss on the fixed batch {fixed[0]:.4g} -> {fixed[1]:.4g}, logged "
+         f"{', '.join(f'{x:.4g}' for x in est)} (iterations 0-{timed_iters}) | "
+         f"value_loss {lines[-1]['Loss/value_function']:.4g} mean_step_reward "
+         f"{lines[-1]['Train/mean_step_reward']:.4g}{top} | peak mem {peak_gib:.2f} GiB | {card}")
+    t0 = time.perf_counter()
+    timed._train_iter(timed.train_state, timed.env_state, timed.obs, timed.priv_obs, timed.gen)
+    torch.cuda.synchronize()
+    plain_iter_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        timed._train_iter(timed.train_state, timed.env_state, timed.obs, timed.priv_obs, timed.gen)
+        torch.cuda.synchronize()
+    _profile_line(f"phase 11 profile ({task}, one iteration; unprofiled {plain_iter_ms:.1f} ms)",
+                  prof, plain_iter_ms, "iteration")
+    return launches
+
+
+def _roll_policy(task, policy, vx, terrain, dev, n_steps=400):
+    """Roll a shipped actor (loaded by actor_critic_from_npz) on 4096 envs of
+    `task` with the deployment-clean overrides of tests/test_xbots.py:71-83
+    (no noise, pushes, friction / mass DR, action delay or noise, no
+    heading command; `terrain` keeps the task's map and curriculum
+    placement, else flat), solver mega, the command held at (vx, 0, 0), for
+    n_steps policy steps through the kernel. Returns (share of envs that
+    never fell, median forward distance in m; a fallen env counts the
+    distance it had walked when it fell)."""
+    import torch
+
+    from humanoid_gym_tpu_torch import HGT_ROOT_DIR, registry
+    from humanoid_gym_tpu_torch.algo.convert import actor_critic_from_npz
+    from humanoid_gym_tpu_torch.algo.networks import ActorCritic
+
+    def ov(cfg):
+        if not terrain:
+            cfg.terrain.mesh_type = "plane"
+            cfg.terrain.curriculum = False
+        cfg.noise.add_noise = False
+        cfg.domain_rand.push_robots = False
+        cfg.domain_rand.randomize_friction = False
+        cfg.domain_rand.randomize_base_mass = False
+        cfg.domain_rand.action_delay = 0.0
+        cfg.domain_rand.action_noise = 0.0
+        cfg.commands.heading_command = False
+        cfg.sim.solver.solver_type = "mega"
+
+    env, cfg = registry.make_env(task, num_envs=N_ENVS, cfg_overrides=ov, device=dev, seed=0)
+    net = ActorCritic(cfg.env.num_observations, cfg.env.num_privileged_obs, cfg.env.num_actions,
+                      seed=0).to(dev)
+    actor_critic_from_npz(net, os.path.join(HGT_ROOT_DIR, "resources", "policies", f"{policy}.npz"))
+    state, obs, _ = env.reset_all()
+    cmd = torch.tensor([vx, 0.0, 0.0, 0.0], device=dev).expand(N_ENVS, 4).contiguous()
+    x0 = state.phys.qpos[:, 0].clone()
+    alive = torch.ones(N_ENVS, dtype=torch.bool, device=dev)
+    dist = torch.zeros(N_ENVS, device=dev)
+    with torch.no_grad():
+        for _ in range(n_steps):
+            state = state.replace(commands=cmd)
+            state, tr = env.step(state, net.act(obs)[0])
+            obs = tr.obs
+            alive &= ~(tr.done & ~tr.time_out)
+            dist = torch.where(alive, state.phys.qpos[:, 0] - x0, dist)
+    torch.cuda.synchronize()
+    return float(alive.float().mean()), float(dist.median())
+
+
+def _phase12_trained_policies(card, dev):
+    """Phase 12: the repo's trained policies on the card through the kernel,
+    400 policy steps at 4096 envs: (a) the flat walk demo on XBot-L, (b) the
+    joint (footing) demo on XBot-S at the Froude-scaled command, both gated;
+    (c) the footing demo on the rubble map through B1t, reported."""
+    import math
+
+    from humanoid_gym_tpu_torch.config.xbots import SCALE
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    vx_s = 0.4 * math.sqrt(SCALE)
+    cases = (("a", "humanoid_ppo", "xbotl_walk_demo", 0.4, False, 0.8),
+             ("b", "humanoid_s_ppo", "xbotl_footing_demo", vx_s, False, 0.5 * vx_s * 4.0),
+             ("c", "humanoid_ppo_rubble", "xbotl_footing_demo", 0.4, True, None))
+    for tag, task, policy, vx, terrain, need in cases:
+        n0 = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
+        t0 = time.perf_counter()
+        survived, median = _roll_policy(task, policy, vx, terrain, dev)
+        seconds = time.perf_counter() - t0
+        n1 = (MG.mega_kernel_launch.launches - n0[0], MG.mega_kernel_launch.terrain_launches - n0[1])
+        if n1 != ((0, 401) if terrain else (401, 0)):
+            raise AssertionError(f"phase 12 ({tag}): kernel launches (flat, terrain) {n1}")
+        gate = "reported, not gated" if need is None else f"gate >= 0.95 and >= {need:.3f} m"
+        _log(f"phase 12 ({tag}) trained policy: {policy} on {task}, {N_ENVS} envs, vx "
+             f"{vx:.4f} m/s, 400 steps (4 s) in {seconds:.1f} s | survived {survived:.4f}, median "
+             f"forward distance {median:.3f} m ({gate}) | {card}")
+        if need is not None and not (survived >= 0.95 and median >= need):
+            raise AssertionError(f"phase 12 ({tag}): {policy} on {task} survived {survived}, "
+                                 f"median {median} m")
 
 
 def _phase6_apgd(c, st1, tgt1, records):
@@ -1069,11 +1460,15 @@ def main() -> int:
     records = {}
     st1, tgt0, ops_in = _phase3_solve(c, records)
     _phase4_mega(c, records)
-    _phase4t_mega_terrain(c, records)
+    landed_l = _phase4t_mega_terrain(c, records)
+    extra = {}  # phase 10's results for the B1 and B1t rows
+    _phase10_two_models(c, _setup(dev, robot="S"), extra)
+    _phase10t_two_models_terrain(c, landed_l, extra)
+    del landed_l
     if "--kernels-only" in sys.argv[1:]:
         _phase6_apgd(c, st1, tgt0, records)
         _phase7_fused_dense(c, st1, tgt0, ops_in, records)
-        print(json.dumps(records), flush=True)
+        print(json.dumps({"records": records, "two_models": extra}), flush=True)
         print(f"card: {card}", flush=True)
         return 0
 
@@ -1144,11 +1539,19 @@ def main() -> int:
     # ---- phase 9: the terrain path through the entry points ----
     launches_terrain = _phase9_terrain_path(card)
 
+    # ---- phase 11: joint XBot-L + XBot-S training through the entry points ----
+    launches_joint = _joint_path("humanoid_joint_ppo", card, dev)
+    launches_joint_deploy = _joint_path("humanoid_joint_deploy", card, dev)
+
+    # ---- phase 12: the repo's trained policies through the kernel ----
+    _phase12_trained_policies(card, dev)
+
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",
              source="humanoid_gym_tpu_torch/csrc/mega.cu",
              replaces="humanoid_gym_tpu/physics/mega_kernel.py:550",
-             launches=launches["mega"], library_ms=None, **records["mega"]),
+             launches=launches["mega"], joint_launches=launches_joint["mega"], library_ms=None,
+             **records["mega"], **extra["mega"]),
         dict(name="hgt_solve_env (contact solve; runs inside hgt_mega_kernel, "
                   "timed through its stand-alone launch hgt_solve_kernel)",
              route="cuda", source="humanoid_gym_tpu_torch/csrc/solve.cuh",
@@ -1167,7 +1570,9 @@ def main() -> int:
                   "the TPU kernel's IN2 rows)", route="cuda",
              source="humanoid_gym_tpu_torch/csrc/mega.cu",
              replaces="humanoid_gym_tpu/physics/mega_kernel.py:560",
-             launches=launches_terrain["mega_terrain"], library_ms=None, **records["mega_terrain"]),
+             launches=launches_terrain["mega_terrain"],
+             joint_deploy_launches=launches_joint_deploy["mega_terrain"], library_ms=None,
+             **records["mega_terrain"], **extra["mega_terrain"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

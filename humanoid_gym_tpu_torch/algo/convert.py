@@ -2,7 +2,10 @@
 
 - `actor_critic_from_flax`: flax `Dense` kernels are (in, out);
   `nn.Linear` weights are (out, in). The std is a plain (num_actions,)
-  parameter in both.
+  parameter in both; the estimator head comes across where it exists.
+- `actor_critic_from_npz`: an actor-only policy artifact (`W{i}` (in, out),
+  `b{i}`, `n_layers`; `export/policy_export.py`, the shipped
+  `resources/policies/*.npz`) into the actor of the port's ActorCritic.
 - `physics_state_from_jax` / `env_state_from_jax`: a batched JAX
   `PhysicsState` / `EnvState` (any object whose attributes convert with
   `numpy.array`) as the port's dataclasses, leaf for leaf. The JAX
@@ -37,13 +40,34 @@ def actor_critic_from_flax(params_np) -> dict:
     ActorCritic."""
     p = params_np.get("params", params_np)
     sd = {}
-    for head in ("actor", "critic"):
-        for i, layer in enumerate(_layers(p[head])):
+    for head in ("actor", "critic", "estimator"):
+        for i, layer in enumerate(_layers(p.get(head, {}))):
             k = np.array(layer["kernel"], np.float32)
             sd[f"{head}.layers.{i}.weight"] = torch.from_numpy(np.ascontiguousarray(k.T))
             sd[f"{head}.layers.{i}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
     sd["std"] = torch.from_numpy(np.array(p["std"], np.float32))
     return sd
+
+
+def actor_critic_from_npz(net, path: str):
+    """Load the actor-only `.npz` at `path` into `net.actor` (an
+    ActorCritic of the port), in place; the critic, the std and any
+    estimator stay as they are. Raises ValueError if the layer count or a
+    shape differs from the net's. Returns `net`."""
+    data = np.load(path)
+    n = int(data["n_layers"])
+    layers = net.actor.layers
+    if n != len(layers):
+        raise ValueError(f"{path}: {n} layers, the actor has {len(layers)}")
+    with torch.no_grad():
+        for i, lin in enumerate(layers):
+            W, b = data[f"W{i}"], data[f"b{i}"]
+            if W.shape != tuple(lin.weight.shape[::-1]) or b.shape != tuple(lin.bias.shape):
+                raise ValueError(f"{path}: layer {i} is {W.shape}, the actor's "
+                                 f"{tuple(lin.weight.shape[::-1])}")
+            lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(W.T, np.float32)))
+            lin.bias.copy_(torch.from_numpy(np.asarray(b, np.float32)))
+    return net
 
 
 def _leaf(x, device) -> torch.Tensor:

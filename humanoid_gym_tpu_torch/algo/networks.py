@@ -3,7 +3,10 @@
 Port of humanoid_gym_tpu/algo/networks.py: two independent ELU MLPs —
 actor obs -> hidden dims -> num_actions (mean), critic priv_obs -> hidden
 dims -> 1 (value) — plus a state-independent learned std kept as a raw
-parameter initialised to init_noise_std.
+parameter initialised to init_noise_std, and with `estimator_dim > 0` the
+DWL-style estimator head: an ELU MLP obs -> estimator_hidden ->
+estimator_dim that predicts privileged quantities (the base linear
+velocity) from the deployable actor observation (`estimate`).
 
 Mixed precision follows the JAX package's `compute_dtype="auto"`: on the
 card the HIDDEN-layer matmuls run in bf16 (float32 master weights, cast per
@@ -74,10 +77,13 @@ class ActorCritic(nn.Module):
         init_noise_std: float = 1.0,
         compute_dtype: str = "auto",
         seed: int = 0,
+        estimator_dim: int = 0,
+        estimator_hidden: Sequence[int] = (256, 128),
     ):
         super().__init__()
         self.num_actions = num_actions
         self.compute_dtype = compute_dtype
+        self.estimator_dim = estimator_dim
         self.actor = MLP(num_obs, actor_hidden, num_actions, compute_dtype)
         self.critic = MLP(num_priv, critic_hidden, 1, compute_dtype)
         self.std = nn.Parameter(torch.full((num_actions,), float(init_noise_std)))
@@ -85,10 +91,15 @@ class ActorCritic(nn.Module):
         gen.manual_seed(seed)
         self.actor.reset_parameters(gen)
         self.critic.reset_parameters(gen)
+        if estimator_dim > 0:
+            self.estimator = MLP(num_obs, estimator_hidden, estimator_dim, compute_dtype)
+            self.estimator.reset_parameters(gen)
 
     def set_compute_dtype(self, name: str) -> None:
-        """Switch the hidden-layer compute dtype of both MLPs."""
-        self.compute_dtype = self.actor.compute_dtype = self.critic.compute_dtype = name
+        """Switch the hidden-layer compute dtype of every MLP."""
+        self.compute_dtype = name
+        for mlp in self.children():
+            mlp.compute_dtype = name
 
     def act(self, obs):
         """Policy distribution parameters; the raw std is floored at 1e-3."""
@@ -97,6 +108,10 @@ class ActorCritic(nn.Module):
     def evaluate(self, priv_obs):
         """State value."""
         return self.critic(priv_obs)[..., 0]
+
+    def estimate(self, obs):
+        """Privileged-state estimate from the deployable obs (estimator head)."""
+        return self.estimator(obs)
 
 
 def normal_log_prob(mean, std, x):

@@ -11,6 +11,9 @@ Port of humanoid_gym_tpu/algo/ppo.py with the same numerical contract:
   minibatch's Adam step
 - clipped surrogate + clipped value loss + entropy bonus, global grad-norm
   clip (a non-finite norm drops the minibatch's update), plain Adam
+- with an estimator head and `estimator_coef > 0`, the supervised term
+  coef * mean((estimate(obs) - priv[:, lo:hi])^2), the target detached
+  (`estimator_slice`, the newest privileged frame's base linear velocity)
 
 `make_train_iter(env, net, cfg, num_envs)` returns
 train_iter(ts, env_state, obs, priv_obs, gen) ->
@@ -47,6 +50,10 @@ class PPOConfig:
     gamma: float = 0.994
     lam: float = 0.9
     num_steps_per_env: int = 60
+    # DWL-style estimator head: supervised on a slice of the privileged obs
+    # (the base linear velocity at [199:202] of the stacked XBot critic obs)
+    estimator_coef: float = 0.0
+    estimator_slice: tuple = (199, 202)
 
     @staticmethod
     def from_cfg(a) -> "PPOConfig":
@@ -63,6 +70,8 @@ class PPOConfig:
             desired_kl=a.desired_kl,
             gamma=a.gamma,
             lam=a.lam,
+            estimator_coef=getattr(a, "estimator_coef", 0.0),
+            estimator_slice=tuple(getattr(a, "estimator_slice", (199, 202))),
         )
 
 
@@ -209,16 +218,25 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int) -> d
                 value_loss = torch.mean(torch.square(ret - value))
             entropy = normal_entropy(std, logp.shape)
             total = surrogate_loss + cfg.value_loss_coef * value_loss - cfg.entropy_coef * entropy.mean()
-            aux = (surrogate_loss.detach(), value_loss.detach(), entropy.mean().detach(), kl_mean)
+            if cfg.estimator_coef > 0.0 and net.estimator_dim > 0:
+                lo, hi = cfg.estimator_slice
+                est_loss = torch.mean(torch.square(net.estimate(obs) - priv[:, lo:hi].detach()))
+                total = total + cfg.estimator_coef * est_loss
+            else:
+                est_loss = torch.zeros((), device=obs.device)
+            aux = (surrogate_loss.detach(), value_loss.detach(), entropy.mean().detach(), kl_mean,
+                   est_loss.detach())
             return total, aux
 
         return loss_fn
 
     def minibatch_update(ts: TrainState, mb) -> Tuple[TrainState, Dict]:
         net = ts.net
-        total, (surr_l, val_l, ent, kl_mean) = make_loss_fn(mb)(net)
+        total, (surr_l, val_l, ent, kl_mean, est_l) = make_loss_fn(mb)(net)
         names, params = zip(*net.named_parameters())
-        grads = dict(zip(names, torch.autograd.grad(total, params)))
+        # an estimator head that the loss does not use (coef 0) gets zero
+        # gradients, as under jax.grad
+        grads = dict(zip(names, torch.autograd.grad(total, params, materialize_grads=True)))
         lr = ts.lr
         if cfg.schedule == "adaptive":
             lr = torch.where(
@@ -242,6 +260,7 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int) -> d
             "entropy": ent,
             "kl": kl_mean,
             "grad_norm": gnorm.detach(),
+            "estimator_loss": est_l,
         }
 
     def update_phase(ts: TrainState, roll: Rollout, adv, ret, gen):

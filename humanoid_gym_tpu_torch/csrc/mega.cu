@@ -53,9 +53,10 @@
 //                    quaternion step, lane 18 stores it.
 //
 // Shared memory: MG_WARP_FLOATS = 1448 floats (5792 B) per env, see the map
-// below, plus per block the 541 model constants (read from a __device__
-// array once per block: lanes on different bodies or joints read different
-// addresses, which __constant__ memory serialises) and the pair table.
+// below, plus per block the 541 model constants (copied once per block from
+// the launch's `model` argument, a (541,) float32 device array: lanes on
+// different bodies or joints read different addresses, which __constant__
+// memory serialises) and the pair table.
 // Residency: 4096 envs / 132 SMs = 31.03, so one wave needs 32 resident
 // warps per SM: at most 64 registers per thread (65,536 / 1024) and
 // (232,448 - 2 x 1,024 reserved) / 32 = 7,200 B per env. With MG_WARPS = 16
@@ -98,10 +99,13 @@
 // per env (MG_T, 1,024 B): 16 x 6,816 + 2,464 = 111,520 B a block, two
 // blocks still fit an SM, so 4096 envs remain one wave.
 //
-// Host side: the model constants go up with a synchronous copy and the
-// launches go to the stream the caller names, so hgt_set_model must not
-// run while another stream's launch is in flight; g_model lives on the
-// device that was current at upload. The callers use one device.
+// Host side: each launch names its model's constants by pointer, as the TPU
+// kernel takes them as an input block (mega_kernel.py:1442-1458), so
+// launches of two models (XBot-L and XBot-S in a joint batch) may follow one
+// another on one stream, or run on two, with no upload and no
+// synchronisation between them. The constants array must stay allocated
+// until the launch has run; the caller keeps one per model on the device of
+// the inputs. Launches go to the stream the caller names.
 //
 // Layouts (env-major, float32): input (N, 120) rows
 //   0:19 qpos, 19:37 qvel, 37:49 targets, 49 friction, 50 base-mass scale,
@@ -219,8 +223,6 @@ struct MgTerrain {
     float border, inv_h, gx_max, gy_max;
 };
 
-__device__ float g_model[C_TOTAL];
-
 __device__ __forceinline__ void cross3(const float* a, const float* b, float* o) {
     o[0] = a[1] * b[2] - a[2] * b[1];
     o[1] = a[2] * b[0] - a[0] * b[2];
@@ -239,9 +241,10 @@ __device__ __forceinline__ float dot3(const float* a, const float* b) {
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
-// Block-wide: model constants and the pair table into the block's header.
-__device__ __forceinline__ void load_header(float* smem) {
-    for (int i = threadIdx.x; i < C_TOTAL; i += blockDim.x) smem[i] = g_model[i];
+// Block-wide: the launch's model constants and the pair table into the
+// block's header.
+__device__ __forceinline__ void load_header(float* smem, const float* __restrict__ model) {
+    for (int i = threadIdx.x; i < C_TOTAL; i += blockDim.x) smem[i] = model[i];
     hgt_fill_pairs(reinterpret_cast<unsigned char*>(smem + 544));
     __syncthreads();
 }
@@ -701,10 +704,10 @@ template <bool TERRAIN>
 __global__ void __launch_bounds__(MG_WARPS * 32, MG_MIN_BLOCKS)
 hgt_mega_kernel(const float* __restrict__ in, float* __restrict__ out, int n, float dt,
                 int decimation, int iterations, float max_depen_vel,
-                const float* __restrict__ in2, MgTerrain terr) {
+                const float* __restrict__ in2, MgTerrain terr, const float* __restrict__ model) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
-    load_header(smem);
+    load_header(smem, model);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int e = blockIdx.x * MG_WARPS + warp;
     if (e >= n) return;  // whole warps leave; no block-wide barrier follows
@@ -880,17 +883,12 @@ static cudaError_t allow_smem(K kernel, size_t bytes, bool (&allowed)[MAX_DEVICE
 
 extern "C" {
 
-int hgt_set_model(const float* host_consts, int count) {
-    if (count != C_TOTAL) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaMemcpyToSymbol(g_model, host_consts, sizeof(float) * C_TOTAL);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-}
-
 int hgt_const_count(void) { return C_TOTAL; }
 
-int hgt_mega_step(const float* in, float* out, int n, float dt, int decimation,
-                  int iterations, float max_depen_vel, void* stream) {
+// model: the (C_TOTAL,) constants of the model this launch steps, on the
+// device of in / out.
+int hgt_mega_step(const float* in, const float* model, float* out, int n, float dt,
+                  int decimation, int iterations, float max_depen_vel, void* stream) {
     if (n <= 0) return 0;
     size_t bytes = sizeof(float) * (MG_HEAD_FLOATS + MG_WARPS * MG_WARP_FLOATS);
     static bool allowed[MAX_DEVICES] = {};
@@ -898,14 +896,14 @@ int hgt_mega_step(const float* in, float* out, int n, float dt, int decimation,
     if (err != cudaSuccess) return (int)err;
     int grid = (n + MG_WARPS - 1) / MG_WARPS;
     hgt_mega_kernel<false><<<grid, MG_WARPS * 32, bytes, (cudaStream_t)stream>>>(
-        in, out, n, dt, decimation, iterations, max_depen_vel, nullptr, MgTerrain{});
+        in, out, n, dt, decimation, iterations, max_depen_vel, nullptr, MgTerrain{}, model);
     return (int)cudaGetLastError();
 }
 
 // The terrain variant: in2 (n, IN2_ROWS) env-major beside in (n, IN_ROWS).
-int hgt_mega_step_terrain(const float* in, const float* in2, float* out, int n, float dt,
-                          int decimation, int iterations, float max_depen_vel, float border,
-                          float inv_h, float gx_max, float gy_max, void* stream) {
+int hgt_mega_step_terrain(const float* in, const float* in2, const float* model, float* out,
+                          int n, float dt, int decimation, int iterations, float max_depen_vel,
+                          float border, float inv_h, float gx_max, float gy_max, void* stream) {
     if (n <= 0) return 0;
     size_t bytes = sizeof(float) * (MG_HEAD_FLOATS + MG_WARPS * MG_WARP_FLOATS_T);
     static bool allowed[MAX_DEVICES] = {};
@@ -914,7 +912,7 @@ int hgt_mega_step_terrain(const float* in, const float* in2, float* out, int n, 
     int grid = (n + MG_WARPS - 1) / MG_WARPS;
     hgt_mega_kernel<true><<<grid, MG_WARPS * 32, bytes, (cudaStream_t)stream>>>(
         in, out, n, dt, decimation, iterations, max_depen_vel, in2,
-        MgTerrain{border, inv_h, gx_max, gy_max});
+        MgTerrain{border, inv_h, gx_max, gy_max}, model);
     return (int)cudaGetLastError();
 }
 

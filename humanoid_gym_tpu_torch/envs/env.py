@@ -25,7 +25,9 @@ dispatch, by solver type).
 On terrain (`mesh_type` "heightfield" or "trimesh", built by `make_env`
 from `cfg.terrain`): envs start at their subterrain's origin (level drawn in
 [0, max_init_terrain_level], every row without the curriculum; type spread
-over the env index) with +-1 m of xy jitter; the termination probes and
+over the env index; a level past the top row stands on the top row's
+origin, as the JAX package's clamped gather puts it) with +-1 m of xy
+jitter; the termination probes and
 the measured heights read the 3-tap-min observation height function; the
 physics resolves contacts on the bilinear surface with sloped frames; the
 terrain curriculum moves a resetting env's level by distance walked or by
@@ -300,7 +302,7 @@ class HumanoidEnv:
             level = torch.randint(0, max_init + 1, (n,), generator=self.gen, device=dev,
                                   dtype=torch.int32)
             ttype = (torch.arange(n, device=dev) * tc.num_cols // max(self.num_envs, 1)).to(torch.int32)
-            origin = self.terrain_origins[level.long(), ttype.long()]
+            origin = self.terrain_origin(level, ttype)
         else:
             level = torch.zeros((n,), dtype=torch.int32, device=dev)
             ttype = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -348,6 +350,14 @@ class HumanoidEnv:
             env_origin=origin,
         )
 
+    def terrain_origin(self, level: torch.Tensor, ttype: torch.Tensor) -> torch.Tensor:
+        """The origin of subterrain (level, ttype), the level clamped to the
+        top row: the state keeps a drawn level of up to
+        max_init_terrain_level, which may equal num_rows, and the JAX
+        package's gather clamps such an index (envs/env.py:401-412)."""
+        return self.terrain_origins[torch.clamp(level.long(), max=self.max_terrain_level - 1),
+                                    ttype.long()]
+
     def _terrain_curriculum(self, state: EnvState, qpos, commands, done, time_out, rand_level):
         """(level, env_origin) after the terrain curriculum
         (legged_robot.py:400-420; reference env.py:686-716): a resetting env
@@ -371,7 +381,7 @@ class HumanoidEnv:
         new_level = torch.where(new_level >= self.max_terrain_level, rand_level.to(level.dtype),
                                 torch.clamp(new_level, min=0))
         level = torch.where(done, new_level, level)
-        origin = self.terrain_origins[level.long(), state.terrain_type.long()]
+        origin = self.terrain_origin(level, state.terrain_type)
         return level, torch.where(done[:, None], origin, env_origin)
 
     # ------------------------------------------------------------------ #

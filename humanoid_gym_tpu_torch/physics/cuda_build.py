@@ -34,9 +34,8 @@ NVCC_FLAGS = [
 
 
 class KernelLibrary:
-    """The loaded libraries (`lib`: mega.cu, `dense`: dense_solve.cu), their
-    build record, and the model constants last uploaded to the mega
-    library's device memory."""
+    """The loaded libraries (`lib`: mega.cu, `dense`: dense_solve.cu) and
+    their build record."""
 
     def __init__(self, lib: ctypes.CDLL, dense: ctypes.CDLL, paths: dict, build_seconds: float,
                  log: str):
@@ -45,15 +44,13 @@ class KernelLibrary:
         self.paths = paths
         self.build_seconds = build_seconds
         self.log = log
-        self.uploaded_consts: bytes | None = None
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hgt_set_model.argtypes = [vp, ci]
-        lib.hgt_set_model.restype = ci
         lib.hgt_const_count.argtypes = []
         lib.hgt_const_count.restype = ci
-        lib.hgt_mega_step.argtypes = [vp, vp, ci, cf, ci, ci, cf, vp]
+        lib.hgt_mega_step.argtypes = [vp, vp, vp, ci, cf, ci, ci, cf, vp]
         lib.hgt_mega_step.restype = ci
-        lib.hgt_mega_step_terrain.argtypes = [vp, vp, vp, ci, cf, ci, ci, cf, cf, cf, cf, cf, vp]
+        lib.hgt_mega_step_terrain.argtypes = [vp, vp, vp, vp, ci, cf, ci, ci, cf, cf, cf, cf, cf,
+                                              vp]
         lib.hgt_mega_step_terrain.restype = ci
         lib.hgt_solve.argtypes = [vp] * 11 + [ci, ci, vp]
         lib.hgt_solve.restype = ci

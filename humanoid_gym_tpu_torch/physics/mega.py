@@ -13,7 +13,10 @@ returns the six outputs of `make_mega_step_batched`:
 A CUDA tensor goes to the kernel (csrc/mega.cu: one warp per env with the
 env's state in that warp's shared memory, all substeps in one launch,
 env-major (N, 120) in / (N, 136) out in the `IN_*` / `OUT_*` row layout of
-the TPU kernel). A CPU tensor goes to
+the TPU kernel; the model's 541 constants, `CONST_LAYOUT`, by pointer to a
+device tensor each launch names, as the TPU kernel takes them as an input
+block, so launches of two robots need nothing between them). A CPU tensor
+goes to
 `mega_step_plain`, a batched port of the TPU package's single-env
 fallback `step` (mega_kernel.py:1669-1774) with the kernel's own solve
 stage.
@@ -153,10 +156,19 @@ def terrain_constants(tmap: TerrainMap):
             ncol - 1.001)
 
 
-def mega_kernel_launch(packed: torch.Tensor, consts: np.ndarray, dt: float, decimation: int,
+def model_constants_tensor(consts: np.ndarray, device) -> torch.Tensor:
+    """The (CONST_COUNT,) float32 blob of `pack_model_constants` as the
+    contiguous tensor on `device` that a kernel launch reads."""
+    return torch.as_tensor(np.ascontiguousarray(consts, np.float32), device=device).contiguous()
+
+
+def mega_kernel_launch(packed: torch.Tensor, consts: torch.Tensor, dt: float, decimation: int,
                        iterations: int, max_depen_vel: float, packed2: torch.Tensor | None = None,
                        terrain=None) -> torch.Tensor:
     """Launch the mega kernel on (N, 120) CUDA rows; returns (N, 136) rows.
+    `consts` is the model's (CONST_COUNT,) float32 constants on the device
+    of `packed` (`model_constants_tensor`): the launch reads them from
+    there, so launches of different models need no upload between them.
     With `terrain` (the 4 floats of `terrain_constants`) and `packed2`
     (N, IN2_ROWS) the terrain variant runs. Counts flat launches in
     `mega_kernel_launch.launches`, terrain launches in
@@ -166,6 +178,11 @@ def mega_kernel_launch(packed: torch.Tensor, consts: np.ndarray, dt: float, deci
     if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[1] != IN_ROWS \
             or not packed.is_contiguous():
         raise ValueError(f"packed inputs must be contiguous float32 (N, {IN_ROWS})")
+    if not isinstance(consts, torch.Tensor) or consts.device != packed.device \
+            or consts.dtype != torch.float32 or tuple(consts.shape) != (CONST_COUNT,) \
+            or not consts.is_contiguous():
+        raise ValueError(f"model constants must be a contiguous float32 ({CONST_COUNT},) tensor on "
+                         f"the device of packed")
     if (terrain is None) != (packed2 is None):
         raise ValueError("the terrain variant takes both packed2 and terrain")
     if packed2 is not None and (
@@ -175,24 +192,21 @@ def mega_kernel_launch(packed: torch.Tensor, consts: np.ndarray, dt: float, deci
     lib = kernel_library()
     if lib.lib.hgt_const_count() != CONST_COUNT:
         raise RuntimeError("csrc/mega.cu constant layout disagrees with CONST_LAYOUT")
-    blob = consts.tobytes()
-    if lib.uploaded_consts != blob:
-        check(lib.lib.hgt_set_model(consts.ctypes.data, CONST_COUNT), "hgt_set_model")
-        lib.uploaded_consts = blob
     n = packed.shape[0]
     out = torch.empty((n, OUT_ROWS), device=packed.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(packed.device).cuda_stream
     if terrain is None:
         err = lib.lib.hgt_mega_step(
-            packed.data_ptr(), out.data_ptr(), n, float(dt), int(decimation), int(iterations),
-            float(max_depen_vel), stream,
+            packed.data_ptr(), consts.data_ptr(), out.data_ptr(), n, float(dt), int(decimation),
+            int(iterations), float(max_depen_vel), stream,
         )
         check(err, "hgt_mega_step launch")
         mega_kernel_launch.launches += 1
     else:
         err = lib.lib.hgt_mega_step_terrain(
-            packed.data_ptr(), packed2.data_ptr(), out.data_ptr(), n, float(dt), int(decimation),
-            int(iterations), float(max_depen_vel), *[float(t) for t in terrain], stream,
+            packed.data_ptr(), packed2.data_ptr(), consts.data_ptr(), out.data_ptr(), n, float(dt),
+            int(decimation), int(iterations), float(max_depen_vel), *[float(t) for t in terrain],
+            stream,
         )
         check(err, "hgt_mega_step_terrain launch")
         mega_kernel_launch.terrain_launches += 1
@@ -458,12 +472,15 @@ def make_mega_step_batched(
     contact_offset, kp_scale, kd_scale, contact_compliance, lam0 (N,60),
     slope_bias (N,2), targets) -> (qpos_new, qvel_new, lam, tau, ff,
     fk14). CUDA tensors run the kernel; CPU tensors run `mega_step_plain`.
-    With a `terrain_map` each call first builds the IN2 rows
+    The model's constants are packed once, here: `step.consts` (NumPy) and,
+    on the card, `step.consts_dev`, the tensor every launch of this step
+    reads. With a `terrain_map` each call first builds the IN2 rows
     (`step.terrain_patches`, exposed as in the TPU package) and runs the
     terrain variant; slope_bias is read only there."""
     check_mega_topology(model)
     consts = pack_model_constants(model, kp, kd, torque_limit)
     dev = model.device
+    consts_dev = model_constants_tensor(consts, dev) if dev.type == "cuda" else None
     kp_t = torch.as_tensor(kp, dtype=torch.float32, device=dev)
     kd_t = torch.as_tensor(kd, dtype=torch.float32, device=dev)
     tl_t = torch.as_tensor(torque_limit, dtype=torch.float32, device=dev)
@@ -476,8 +493,8 @@ def make_mega_step_batched(
         in2 = terrain_patches(qpos, slope_bias) if terrain is not None else None
         if qpos.is_cuda:
             packed = pack_inputs(qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, targets)
-            out = mega_kernel_launch(packed, consts, dt, decimation, iterations, max_depen_vel,
-                                     packed2=in2, terrain=terrain)
+            out = mega_kernel_launch(packed, consts_dev, dt, decimation, iterations,
+                                     max_depen_vel, packed2=in2, terrain=terrain)
             return unpack_outputs(out)
         return mega_step_plain(
             model, dt, decimation, kp_t, kd_t, tl_t, iterations, max_depen_vel,
@@ -486,6 +503,7 @@ def make_mega_step_batched(
         )
 
     step.consts = consts
+    step.consts_dev = consts_dev
     step.terrain = terrain
     if terrain_patches is not None:
         step.terrain_patches = terrain_patches

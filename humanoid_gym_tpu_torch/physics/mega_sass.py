@@ -9,13 +9,18 @@ the flags of physics/cuda_build.py), both nvcc started together, and dumped
 with `cuobjdump -sass`. The flat kernel of each (a function named
 `hgt_mega_kernel`, the `<false>` instance where the source is a template) is
 compared instruction by instruction with addresses and encodings stripped.
-Prints both ptxas lines, the instruction counts and the number of
-instructions that differ. Needs the CUDA toolkit (the GPU machine).
+Prints both ptxas lines, the instruction counts, the number of
+instructions that differ at the same position, and an aligned diff
+(`difflib`): how many instructions the two share in matching runs and each
+run that one side replaces, inserts or deletes, so that a change confined
+to one place (a different load of the model constants) reads as that.
+Needs the CUDA toolkit (the GPU machine).
 """
 
 from __future__ import annotations
 
 import argparse
+import difflib
 import os
 import re
 import subprocess
@@ -77,6 +82,15 @@ def main() -> int:
             if x != y:
                 print(f"first difference at instruction {i}: base `{x}` here `{y}`")
                 break
+        ops = difflib.SequenceMatcher(None, a, b, autojunk=False).get_opcodes()
+        same = sum(i2 - i1 for tag, i1, i2, _, _ in ops if tag == "equal")
+        edits = [op for op in ops if op[0] != "equal"]
+        print(f"aligned: {same} instructions in matching runs, {len(edits)} edits "
+              f"({sum(i2 - i1 for _, i1, i2, _, _ in edits)} base instructions replaced or deleted, "
+              f"{sum(j2 - j1 for _, _, _, j1, j2 in edits)} instructions here replaced or inserted)")
+        for tag, i1, i2, j1, j2 in edits[:12]:
+            print(f"  {tag} base[{i1}:{i2}] -> here[{j1}:{j2}]: "
+                  f"{' ; '.join(a[i1:i2][:3])} -> {' ; '.join(b[j1:j2][:3])}")
     return 0
 
 

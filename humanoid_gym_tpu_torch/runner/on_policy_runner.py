@@ -13,8 +13,9 @@ copy into pinned memory, so it never waits for the newer iteration.
 Checkpoints are `torch.save` files of tensors and plain Python values:
 the train state (net weights, Adam moments and count, adaptive learning
 rate, iteration), the resolved net compute dtype, and on the final
-checkpoint the env state with its observations. The multi-device and
-multi-process parts of the reference runner are not ported.
+checkpoint the env state with its observations (for a joint env, the list
+of its sub-envs' states). The multi-device and multi-process parts of the
+reference runner are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +42,28 @@ def _state_to_dict(obj) -> dict:
         v = getattr(obj, f.name)
         out[f.name] = _state_to_dict(v) if dataclasses.is_dataclass(v) else v.detach().cpu()
     return out
+
+
+def _env_state_to_saved(state):
+    """An env state (an EnvState, or a joint env's list of them) as CPU
+    tensors in dicts."""
+    if isinstance(state, list):
+        return [_state_to_dict(s) for s in state]
+    return _state_to_dict(state)
+
+
+def _env_state_from_saved(saved, template):
+    """The inverse of `_env_state_to_saved` on the template's devices;
+    raises ValueError on a mismatch of the sub-env or env counts, KeyError
+    on a missing field."""
+    if isinstance(template, list):
+        if not isinstance(saved, list) or len(saved) != len(template):
+            raise ValueError("ckpt env state does not hold one state per sub-env")
+        return [_env_state_from_dict(d, t, t.episode_length.shape[0])
+                for d, t in zip(saved, template)]
+    if isinstance(saved, list):
+        raise ValueError("ckpt env state is a joint env's, the env is not joint")
+    return _env_state_from_dict(saved, template, template.episode_length.shape[0])
 
 
 def _env_state_from_dict(d: dict, template: EnvState, num_envs: int) -> EnvState:
@@ -76,8 +99,6 @@ class OnPolicyRunner:
         self.num_steps_per_env = train_cfg.runner.num_steps_per_env
         self.save_interval = train_cfg.runner.save_interval
 
-        if getattr(train_cfg.policy, "estimator_dim", 0):
-            raise ValueError("the PyTorch port has no estimator head yet (policy.estimator_dim > 0)")
         self.net = ActorCritic(
             ec.num_observations, ec.num_privileged_obs, ec.num_actions,
             actor_hidden=tuple(train_cfg.policy.actor_hidden_dims),
@@ -85,6 +106,8 @@ class OnPolicyRunner:
             init_noise_std=train_cfg.policy.init_noise_std,
             compute_dtype=getattr(train_cfg.policy, "compute_dtype", "auto"),
             seed=self.seed,
+            estimator_dim=getattr(train_cfg.policy, "estimator_dim", 0),
+            estimator_hidden=tuple(getattr(train_cfg.policy, "estimator_hidden_dims", (256, 128))),
         ).to(self.device)
         algo_cfg = PPOConfig.from_cfg(train_cfg.algorithm)
         algo_cfg.num_steps_per_env = self.num_steps_per_env
@@ -153,7 +176,12 @@ class OnPolicyRunner:
                 0, self.env.max_episode_length, (self.num_envs,), generator=self.gen,
                 device=self.device, dtype=torch.int32,
             )
-            self.env_state = self.env_state.replace(episode_length=ep_len)
+            if isinstance(self.env_state, list):  # a joint env: one slice per sub-env
+                parts = torch.split(ep_len, [st.episode_length.shape[0] for st in self.env_state])
+                self.env_state = [st.replace(episode_length=p)
+                                  for st, p in zip(self.env_state, parts)]
+            else:
+                self.env_state = self.env_state.replace(episode_length=ep_len)
 
         start_iter = self.current_learning_iteration
         tot_iter = start_iter + num_learning_iterations
@@ -228,7 +256,7 @@ class OnPolicyRunner:
             "Loss/entropy": float(metrics["entropy"]),
             "Loss/learning_rate": float(metrics["lr"]),
             "Loss/kl": float(metrics["kl"]),
-            "Loss/estimator": float(metrics.get("estimator_loss", 0.0)),
+            "Loss/estimator": float(metrics["estimator_loss"]),
             "Policy/mean_noise_std": float(metrics["action_std_mean"]),
             "Perf/total_fps": fps,
             "Perf/iter_time": dt_iter,
@@ -304,7 +332,7 @@ class OnPolicyRunner:
             "compute_dtype": self._resolved_dtype(),
         }
         if include_env_state:
-            payload["env_state"] = _state_to_dict(self.env_state)
+            payload["env_state"] = _env_state_to_saved(self.env_state)
             # the obs that correspond to that state, so the first resumed
             # rollout step is exactly on-policy
             payload["obs"] = self.obs.detach().cpu()
@@ -329,7 +357,7 @@ class OnPolicyRunner:
         es = payload.get("env_state")
         if es is not None:
             try:
-                self.env_state = _env_state_from_dict(es, self.env_state, self.num_envs)
+                self.env_state = _env_state_from_saved(es, self.env_state)
                 if payload.get("obs") is not None:
                     self.obs = payload["obs"].to(self.device)
                     self.priv_obs = payload["priv_obs"].to(self.device)

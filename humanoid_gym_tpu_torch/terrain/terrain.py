@@ -9,9 +9,9 @@ JAX package's grid, node for node.
 
 Menus (`cfg.style`): "humanoid" (the reference HumanoidTerrain menu, the
 XBot-L default), "legged" (the base Terrain menu), "rubble" (deployment-
-matched coarse unevenness) and the `selected` mode (one named primitive
-everywhere). The "deploy" style reads the MuJoCo deployment heightfield
-through `mujoco`, which the port does not use; it raises.
+matched coarse unevenness), "deploy" (windows of the MuJoCo deployment
+heightfield, read from its MJCF and PNG without `mujoco`) and the
+`selected` mode (one named primitive everywhere).
 
 World convention (reference legged_robot.py:777-795): world (x, y) in meters
 maps to grid node (x + border_size) / horizontal_scale along axis 0.
@@ -28,6 +28,10 @@ gathers are a TPU layout device that yields the same values):
 
 from __future__ import annotations
 
+import os
+import struct
+import xml.etree.ElementTree as ET
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,11 +57,6 @@ class TerrainMap:
         """cfg: config.base.TerrainCfg."""
         rng = rng or np.random.default_rng(0)
         style = getattr(cfg, "style", style) or style
-        if style == "deploy":
-            raise ValueError(
-                "terrain style 'deploy' samples the MuJoCo deployment heightfield through "
-                "`mujoco`, which the PyTorch port does not use; pick 'humanoid', 'legged' "
-                "or 'rubble'")
         w_px = int(cfg.terrain_width / cfg.horizontal_scale)
         l_px = int(cfg.terrain_length / cfg.horizontal_scale)
         border = int(cfg.border_size / cfg.horizontal_scale)
@@ -93,6 +92,14 @@ class TerrainMap:
                         g, rng, choice, difficulty, proportions,
                         base=getattr(cfg, "rubble_base", 0.05) * fs,
                         span=getattr(cfg, "rubble_span", 0.30) * fs,
+                        fs=fs,
+                    )
+                elif style == "deploy":
+                    _deploy_menu(
+                        g, rng, choice, difficulty, proportions,
+                        mjcf=getattr(cfg, "deploy_mjcf", None),
+                        base=getattr(cfg, "rubble_base", 0.05),
+                        span=getattr(cfg, "rubble_span", 0.30),
                         fs=fs,
                     )
                 else:
@@ -197,6 +204,150 @@ def _rubble_menu(g, rng, choice, difficulty, prop, base=0.05, span=0.30, fs=1.0)
     else:
         max_h = base + span * difficulty
         P.random_uniform(g, rng, 0.0, max_h, step=0.01, downsampled_scale=1.0)
+
+
+def _png_gray8(path: str) -> np.ndarray:
+    """An 8-bit grayscale, non-interlaced PNG as a (height, width) uint8
+    array, top row first: the IDAT stream inflated with zlib and each row
+    unfiltered (none, sub, up, average, Paeth; one byte per pixel)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if hdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    width, height, depth, color, _, _, interlace = hdr
+    if (depth, color, interlace) != (8, 0, 0):
+        raise ValueError(f"{path}: only 8-bit grayscale, non-interlaced PNGs are read "
+                         f"(bit depth {depth}, color type {color}, interlace {interlace})")
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != height * (width + 1):
+        raise ValueError(f"{path}: {len(raw)} bytes of image data for {width} x {height}")
+    img = np.zeros((height, width), np.uint8)
+    prev = [0] * width
+    for r in range(height):
+        filt = raw[r * (width + 1)]
+        line = raw[r * (width + 1) + 1:(r + 1) * (width + 1)]
+        row = [0] * width
+        for c in range(width):
+            a = row[c - 1] if c else 0
+            b = prev[c]
+            if filt == 0:
+                pred = 0
+            elif filt == 1:
+                pred = a
+            elif filt == 2:
+                pred = b
+            elif filt == 3:
+                pred = (a + b) >> 1
+            elif filt == 4:
+                ul = prev[c - 1] if c else 0
+                p = a + b - ul
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - ul)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else ul)
+            else:
+                raise ValueError(f"{path}: row {r} has unknown filter {filt}")
+            row[c] = (line[c] + pred) & 0xFF
+        img[r] = row
+        prev = row
+    return img
+
+
+def _mjcf_hfield(mjcf_path: str):
+    """(size (4,), PNG path) of the hfield under the MJCF's first hfield
+    geom, the file resolved against the MJCF's directory."""
+    root = ET.parse(mjcf_path).getroot()
+    geom = next((g for g in root.iter("geom") if g.get("type") == "hfield"), None)
+    if geom is None:
+        raise ValueError(f"{mjcf_path}: no hfield geom")
+    name = geom.get("hfield")
+    field = next((h for h in root.iter("hfield") if h.get("name") == name), None)
+    if field is None or field.get("file") is None:
+        raise ValueError(f"{mjcf_path}: hfield {name!r} has no PNG file")
+    size = np.array(field.get("size").split(), dtype=np.float64)
+    return size, os.path.join(os.path.dirname(os.path.abspath(mjcf_path)), field.get("file"))
+
+
+_DEPLOY_FIELD_CACHE: dict = {}
+
+
+def _load_deploy_field(mjcf_path: str):
+    """The deployment heightfield of an MJCF as (heights in meters indexed
+    [x, y], cell_x, cell_y), cached per path. What MuJoCo's loader makes of
+    the PNG: rows flipped top to bottom (MuJoCo's row 0 is the image's
+    bottom row), min-max normalised, times size[2]; its rows span y and its
+    columns x, so the grid is transposed to [x, y] with per-axis cell sizes
+    (2 size[0] / (ncol - 1), 2 size[1] / (nrow - 1))."""
+    if mjcf_path in _DEPLOY_FIELD_CACHE:
+        return _DEPLOY_FIELD_CACHE[mjcf_path]
+    size, png = _mjcf_hfield(mjcf_path)
+    img = _png_gray8(png)[::-1].astype(np.float32)
+    span = float(img.max() - img.min())
+    norm = (img - img.min()) / span if span > 0 else np.zeros_like(img)
+    nr, nc = img.shape
+    h = norm.astype(np.float64) * float(size[2])
+    out = (np.ascontiguousarray(h.T), 2.0 * float(size[0]) / (nc - 1),
+           2.0 * float(size[1]) / (nr - 1))
+    _DEPLOY_FIELD_CACHE[mjcf_path] = out
+    return out
+
+
+def _deploy_menu(g, rng, choice, difficulty, prop, mjcf=None, base=0.05, span=0.30, fs=1.0):
+    """Deployment-matched terrain (reference terrain.py:256-310): random
+    windows of the MuJoCo deployment heightfield, upsampled to the training
+    grid with MuJoCo's triangulated interpolation (cells split along the
+    (i, j) -> (i+1, j+1) diagonal), amplitude ramped with the curriculum
+    difficulty as (base + span * difficulty) / 0.35. prop[0] of the columns
+    keep the gentle humanoid roughness (fs scales it; the window heights
+    take their scale from the field, `deploy_mjcf`)."""
+    if choice < prop[0]:
+        r_height = difficulty * 0.07 * fs
+        P.random_uniform(g, rng, -r_height, r_height, step=0.005, downsampled_scale=0.2)
+        return
+    from .. import XBOT_TERRAIN_MJCF
+
+    h, cell_x, cell_y = _load_deploy_field(mjcf or XBOT_TERRAIN_MJCF)
+    # window of the field covering the subgrid's world extent
+    # (SubGrid.hf is (width, length) = (x-pixels, y-pixels); h is [x, y])
+    wl = g.width * g.horizontal_scale / cell_x
+    ww = g.length * g.horizontal_scale / cell_y
+    nx, ny = h.shape
+    if wl > nx - 1 or ww > ny - 1:
+        raise ValueError(
+            f"deploy field ({(nx - 1) * cell_x:.0f}x{(ny - 1) * cell_y:.0f} m) is smaller than "
+            f"the terrain patch ({g.width * g.horizontal_scale:.0f}x"
+            f"{g.length * g.horizontal_scale:.0f} m)")
+    r0 = rng.uniform(0, nx - 1 - wl)
+    c0 = rng.uniform(0, ny - 1 - ww)
+    xi = r0 + np.linspace(0.0, wl, g.width)
+    yi = c0 + np.linspace(0.0, ww, g.length)
+    x0 = np.floor(xi).astype(int)
+    y0 = np.floor(yi).astype(int)
+    x1 = np.minimum(x0 + 1, nx - 1)
+    y1 = np.minimum(y0 + 1, ny - 1)
+    fx = (xi - x0)[:, None]
+    fy = (yi - y0)[None, :]
+    h00 = h[np.ix_(x0, y0)]
+    h10 = h[np.ix_(x1, y0)]
+    h01 = h[np.ix_(x0, y1)]
+    h11 = h[np.ix_(x1, y1)]
+    lower = h00 + (h10 - h00) * fx + (h11 - h10) * fy
+    upper = h00 + (h01 - h00) * fy + (h11 - h01) * fx
+    win = np.where(fx >= fy, lower, upper)
+    win = win - win.min()
+    amp = np.clip((base + span * difficulty) / 0.35, 0.0, 1.0)
+    g.hf[:, :] = np.round(win * amp / g.vertical_scale).astype(np.int16)
 
 
 def _humanoid_menu(g, rng, choice, difficulty, prop, fs=1.0):

@@ -173,8 +173,81 @@ def test_terrain_mega_kernel_matches_plain(dev):
                         in2[:, MG.IN2_GY:] - st.slope_bias[:, 1:])
     assert bool(((want[2][:, 2:48:3] > 0) & (slope > 1e-6)).any())
     with pytest.raises(ValueError):
-        MG.mega_kernel_launch(MG.pack_inputs(*args, tgt), step.consts, 0.001, 10, 8, 1.0,
+        MG.mega_kernel_launch(MG.pack_inputs(*args, tgt), step.consts_dev, 0.001, 10, 8, 1.0,
                               packed2=in2[:, :100].contiguous(), terrain=step.terrain)
+
+
+def _s_model_and_gains(dev):
+    """The XBot-S model of `humanoid_s_ppo` on the card, its gains (kp x
+    s^4, kd x s^4.5) and torque limit."""
+    from humanoid_gym_tpu_torch.config.xbots import XBotSCfg
+    from humanoid_gym_tpu_torch.envs.env import _match_gains
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    cfg = XBotSCfg()
+    model = build_xbot_model(cfg.asset.file, mesh_dir=cfg.asset.mesh_dir).to(dev)
+    kp = torch.as_tensor(_match_gains(model.dof_names, cfg.control.stiffness), device=dev)
+    kd = torch.as_tensor(_match_gains(model.dof_names, cfg.control.damping), device=dev)
+    return model, kp, kd, model.dof_effort * 0.85
+
+
+def test_two_models_interleaved_on_one_stream(dev):
+    """XBot-L and XBot-S launches of the flat mega kernel, each naming its
+    own constants: S within the chip_smoke tolerances of the plain S step;
+    then L, S, L, S queued on one stream with no synchronisation between
+    them, each output bit-equal to the same launch run alone."""
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    n = 300
+    lm = build_xbot_model().to(dev)
+    sm, skp, skd, stl = _s_model_and_gains(dev)
+    lkp, lkd, ltl = _gains(lm, dev)
+    runs = {}
+    for name, model, kp, kd, tl, z in (("L", lm, lkp, lkd, ltl, 0.9), ("S", sm, skp, skd, stl, 0.65)):
+        st, tgt = _states(model, n, dev)
+        st = st.replace(qpos=torch.cat([st.qpos[:, :2], torch.full_like(st.qpos[:, 2:3], z),
+                                        st.qpos[:, 3:]], dim=1))
+        step = MG.make_mega_step_batched(model, 0.001, 10, kp, kd, tl, iterations=8)
+        args = (st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
+                st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance, st.contact_lam,
+                tgt)
+        packed = MG.pack_inputs(*args)
+        alone = MG.mega_kernel_launch(packed, step.consts_dev, 0.001, 10, 8, 1.0)
+        torch.cuda.synchronize()
+        want = MG.mega_step_plain(model, 0.001, 10, kp, kd, tl, 8, 1.0, *args)
+        for g, w, tol in zip(MG.unpack_outputs(alone), want, (5e-4, 1e-2, 5e-3, 5e-2, 5e-3, 5e-4)):
+            assert bool(torch.isfinite(g).all()) and float((g - w).abs().max()) <= tol, name
+        runs[name] = (packed, step.consts_dev, alone)
+    assert float((runs["L"][1] - runs["S"][1]).abs().max()) > 1.0
+    outs = [(name, MG.mega_kernel_launch(runs[name][0], runs[name][1], 0.001, 10, 8, 1.0))
+            for name in ("L", "S", "L", "S")]
+    torch.cuda.synchronize()
+    for name, out in outs:
+        assert torch.equal(out, runs[name][2]), name
+
+
+def test_mega_kernel_launch_rejects_bad_constants(dev):
+    """The constants of a launch must be a contiguous float32 (541,) tensor
+    on the device of the inputs: a NumPy blob, a CPU tensor, float64, the
+    wrong length or a strided view raise before anything launches."""
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model().to(dev)
+    kp, kd, tl = _gains(model, dev)
+    consts = MG.pack_model_constants(model, kp, kd, tl)
+    packed = torch.zeros((4, MG.IN_ROWS), device=dev)
+    good = MG.model_constants_tensor(consts, dev)
+    n0 = MG.mega_kernel_launch.launches
+    for bad in (consts, torch.from_numpy(consts), good.double(), good[:-1],
+                torch.stack([good, good], dim=1)[:, 0]):
+        with pytest.raises(ValueError, match="constants"):
+            MG.mega_kernel_launch(packed, bad, 0.001, 10, 8, 1.0)
+    assert MG.mega_kernel_launch.launches == n0
+    MG.mega_kernel_launch(packed, good, 0.001, 1, 0, 1.0)
+    torch.cuda.synchronize()
+    assert MG.mega_kernel_launch.launches == n0 + 1
 
 def _dense_operands(model, n, dev, lift=0.0, mid_range=False):
     """Operands of the two dense solver kernels at n states one policy step

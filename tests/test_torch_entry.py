@@ -60,20 +60,23 @@ def test_train_script_cpu_run(tmp_path):
     assert payload["iter"] == 2 and payload["env_state"]["phys"]["qpos"].shape == (8, 19)
 
 
-TASKS = ["humanoid_ppo", "humanoid_ppo_robust", "humanoid_ppo_rubble", "humanoid_ppo_small",
-         "humanoid_ppo_terrain", "humanoid_ppo_terrain_robust"]
+TASKS = ["humanoid_joint_deploy", "humanoid_joint_ppo", "humanoid_ppo", "humanoid_ppo_deploy",
+         "humanoid_ppo_robust", "humanoid_ppo_rubble", "humanoid_ppo_small", "humanoid_ppo_terrain",
+         "humanoid_ppo_terrain_robust", "humanoid_s_ppo"]
 
 
 def test_unknown_task_raises_keyerror_naming_the_registered(tmp_path):
-    """`humanoid_ppo_deploy` stays unregistered (its terrain style reads the
-    MuJoCo deployment heightfield through `mujoco`)."""
-    args = get_args(["--task", "humanoid_ppo_deploy", "--device", "cpu",
+    """A task name the registry does not hold raises a KeyError that names
+    the registered ones: every task of the JAX package's registry."""
+    from humanoid_gym_tpu import registry as jreg
+
+    args = get_args(["--task", "humanoid_ppo_unknown", "--device", "cpu",
                      "--log_root", str(tmp_path)])
     with pytest.raises(KeyError) as exc:
         _train_fn()(args)
     for name in TASKS:
         assert name in str(exc.value)
-    assert registry.task_names() == TASKS
+    assert registry.task_names() == TASKS == jreg.task_names()
 
 
 def test_resume_on_empty_log_root_fails_before_env_build(tmp_path, monkeypatch):
@@ -108,10 +111,11 @@ def test_registry_make_env_applies_overrides():
 
 
 @pytest.mark.parametrize("task", ["humanoid_ppo_terrain", "humanoid_ppo_terrain_robust",
-                                  "humanoid_ppo_rubble"])
+                                  "humanoid_ppo_rubble", "humanoid_ppo_deploy"])
 def test_terrain_task_trains_on_cpu(task, tmp_path):
     """Each terrain task builds at 4 envs on the CPU (the full 20 x 20 map,
-    2100 x 2100 nodes for the terrain tasks; 20 x 20 5 m rubble patches) as
+    2100 x 2100 nodes for the terrain tasks; 20 x 20 5 m rubble or
+    deployment-field patches) as
     the reference registry builds it, and one PPO iteration (T cut to 4,
     solver mega: the plain terrain step) runs through OnPolicyRunner.learn
     with finite losses and levels in range."""
@@ -144,13 +148,44 @@ def test_terrain_task_trains_on_cpu(task, tmp_path):
 
 
 def test_deploy_task_and_style_are_refused():
-    """`humanoid_ppo_deploy` is not registered, and the "deploy" terrain
-    style raises where the map is built."""
-    with pytest.raises(KeyError, match="humanoid_ppo_deploy"):
-        registry.get_task("humanoid_ppo_deploy")
+    """`humanoid_ppo_deploy` is registered with the reference's config, and
+    the "deploy" terrain style refuses, where the map is built, a
+    `deploy_mjcf` whose model has no hfield (the flat XBot-L MJCF)."""
+    from humanoid_gym_tpu import registry as jreg
+    from humanoid_gym_tpu_torch import XBOT_MJCF
+
+    cfg = registry.get_task("humanoid_ppo_deploy").make_env_cfg()
+    assert vars(cfg.terrain) == vars(jreg.get_task("humanoid_ppo_deploy").make_env_cfg().terrain)
 
     def ov(cfg):
-        cfg.terrain.style = "deploy"
+        cfg.terrain.deploy_mjcf = XBOT_MJCF
 
-    with pytest.raises(ValueError, match="deploy"):
-        registry.make_env("humanoid_ppo_rubble", num_envs=2, cfg_overrides=ov, device="cpu")
+    with pytest.raises(ValueError, match="hfield"):
+        registry.make_env("humanoid_ppo_deploy", num_envs=2, cfg_overrides=ov, device="cpu")
+
+
+def test_train_script_runs_the_joint_task(tmp_path, monkeypatch):
+    """`train_torch.py --task humanoid_joint_ppo --num_envs 4 --device cpu`
+    (T cut to 2 through the task's train config): the joint env from the
+    registry's custom factory, 2 XBot-L + 2 XBot-S envs, one iteration with
+    a finite estimator loss, and the final checkpoint holds the estimator
+    head and one env state per sub-env."""
+    spec = registry.get_task("humanoid_joint_ppo")
+
+    def short():
+        tc = spec.make_train_cfg()
+        tc.runner.num_steps_per_env = 2
+        return tc
+
+    monkeypatch.setitem(registry._REGISTRY, "humanoid_joint_ppo", spec._replace(make_train_cfg=short))
+    monkeypatch.setenv("HGT_WANDB", "0")
+    monkeypatch.delenv("HGT_SOLVER", raising=False)
+    args = get_args(["--task", "humanoid_joint_ppo", "--num_envs", "4", "--max_iterations", "1",
+                     "--device", "cpu", "--run_name", "joint", "--log_root", str(tmp_path)])
+    _train_fn()(args)
+    run = glob.glob(str(tmp_path / "*_joint"))[0]
+    line = json.loads(open(os.path.join(run, "metrics.jsonl")).readline())
+    assert line["Loss/estimator"] > 0.0 and line["Loss/estimator"] == line["Loss/estimator"]
+    payload = torch.load(os.path.join(run, "model_1.ckpt"), weights_only=True)
+    assert [s["phys"]["qpos"].shape for s in payload["env_state"]] == [(2, 19), (2, 19)]
+    assert "estimator.layers.2.weight" in payload["train_state"]["net"]

@@ -439,3 +439,76 @@ def test_survival_curriculum_promotes_standing_survivor():
         lvl, _ = env._terrain_curriculum(st, qpos, torch.zeros((2, 4)), yes, yes,
                                          torch.zeros(2, dtype=torch.int64))
         assert lvl.tolist() == [want, want], mode
+
+
+def test_terrain_level_past_the_top_row_matches_jax():
+    """A drawn level may equal num_rows (max_init_terrain_level = num_rows,
+    as `humanoid_joint_deploy` sets 20 on 20 rows): the JAX package's
+    clamped gather stands such an env on the top row's origin and keeps the
+    level in the state. At num_rows = 2, max_init_terrain_level = 2,
+    curriculum on, 64 envs:
+    - the port's own draws: levels over 0-2, origins those of
+      min(level, 1);
+    - JAX's draws injected into the port's lookup: origins equal to 1e-6;
+    - one env step of both from the shared state at zero command, every
+      other env timing out (so a resetting env keeps its level, and one at
+      level 2 re-enters at a drawn level): levels exact and origins to 1e-6
+      wherever the level is not the re-entry draw, and no lookup past the
+      top row for the envs that stay at level 2; then the port's curriculum
+      with JAX's re-entry levels injected: every level exact, every origin
+      to 1e-6."""
+    from humanoid_gym_tpu import registry as jreg
+    from humanoid_gym_tpu_torch import registry as treg
+
+    n = 64
+
+    def ov(c):
+        _quiet(c, n, 8)
+        c.terrain.num_rows, c.terrain.num_cols, c.terrain.border_size = 2, 3, 5.0
+        c.terrain.max_init_terrain_level = 2
+        c.sim.solver.solver_type = "apgd"
+
+    jenv, _ = jreg.make_env("humanoid_ppo_terrain", num_envs=n, cfg_overrides=ov)
+    tenv, _ = treg.make_env("humanoid_ppo_terrain", num_envs=n, cfg_overrides=ov, device="cpu",
+                            seed=1)
+    origins = tenv.terrain_map.env_origins.astype(np.float32)
+    np.testing.assert_array_equal(origins, np.asarray(jenv.terrain_origins))
+
+    own = tenv.init_state()
+    lv, tp = own.terrain_level.numpy(), own.terrain_type.numpy()
+    assert set(lv.tolist()) == {0, 1, 2}
+    np.testing.assert_allclose(own.env_origin.numpy(), origins[np.minimum(lv, 1), tp], atol=1e-6)
+
+    js = jax.jit(jenv.init_state)(jax.random.split(jax.random.PRNGKey(0), n), jnp.arange(n))
+    jl = np.array(js.terrain_level)
+    assert set(jl.tolist()) == {0, 1, 2}
+    got = tenv.terrain_origin(torch.from_numpy(jl), torch.from_numpy(np.array(js.terrain_type)))
+    np.testing.assert_allclose(got.numpy(), js.env_origin, atol=1e-6)
+
+    ep = np.zeros(n, np.int32)
+    ep[::2] = jenv.max_episode_length
+    js = js.replace(episode_length=jnp.asarray(ep), commands=jnp.zeros_like(js.commands))
+    ts = env_state_from_jax(js)
+    np.testing.assert_array_equal(ts.terrain_level.numpy(), jl)
+    a = np.zeros((n, 12), np.float32)
+    js1, jtr = jax.jit(jenv.step)(js, jnp.asarray(a))
+    ts1, ttr = tenv.step(ts, torch.from_numpy(a))
+    done = np.array(jtr.done)
+    np.testing.assert_array_equal(ttr.done.numpy(), done)
+    assert done[::2].all() and not done[1::2].any()
+    drawn = done & (jl == 2)  # kept at 2, the top: a re-entry draw
+    assert drawn.any() and (~done & (jl == 2)).any()
+    want_l, want_o = np.asarray(js1.terrain_level), np.asarray(js1.env_origin)
+    np.testing.assert_array_equal(ts1.terrain_level.numpy()[~drawn], want_l[~drawn])
+    np.testing.assert_allclose(ts1.env_origin.numpy()[~drawn], want_o[~drawn], atol=1e-6)
+    lv1, tp1 = ts1.terrain_level.numpy(), ts1.terrain_type.numpy()
+    assert (lv1[drawn] < 2).all()
+    np.testing.assert_allclose(ts1.env_origin.numpy(), origins[np.minimum(lv1, 1), tp1], atol=1e-6)
+
+    # the walked distance is read at the step-start pose: 10 ms of physics
+    # move the base by millimetres, far from the 4 m promotion distance
+    level, origin = tenv._terrain_curriculum(
+        ts, ts.phys.qpos, torch.zeros((n, 4)), torch.from_numpy(done),
+        torch.from_numpy(np.array(jtr.time_out)), torch.from_numpy(want_l.astype(np.int64)))
+    np.testing.assert_array_equal(level.numpy(), want_l)
+    np.testing.assert_allclose(origin.numpy(), want_o, atol=1e-6)

@@ -42,6 +42,9 @@ def test_scan_covers_the_port():
     assert "humanoid_gym_tpu_torch/physics/mega.py" in names
     for f in ("__init__.py", "primitives.py", "terrain.py"):
         assert f"humanoid_gym_tpu_torch/terrain/{f}" in names
+    for f in ("export/__init__.py", "export/policy_export.py", "envs/joint.py", "config/xbots.py",
+              "utils/scale_urdf.py"):
+        assert f"humanoid_gym_tpu_torch/{f}" in names
     assert len(names) > 15
 
 

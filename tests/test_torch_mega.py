@@ -181,6 +181,43 @@ def test_plain_mega_matches_jax_fallback(models):
     assert np.abs(got[4]).max() > 1e-3, "no contact impulse: the check would be vacuous"
 
 
+def test_plain_mega_with_s_constants_matches_jax_fallback():
+    """The plain mega step of the XBot-S model (its own constants: the
+    scaled masses, inertias, joint origins, efforts and contact points, kp
+    x s^4, kd x s^4.5) vs the JAX fallback `step` of the same model, per
+    env, one policy step from states at S's standing height, both solved to
+    convergence (200 APGD iterations, the DOF-order condition of
+    test_plain_mega_matches_jax_fallback) and held to its tolerances."""
+    from humanoid_gym_tpu.config.xbots import XBotSCfg as JaxSCfg
+
+    cfg = JaxSCfg()
+    jm = jax_model(cfg.asset.file, mesh_dir=cfg.asset.mesh_dir)
+    tm = torch_model(cfg.asset.file, mesh_dir=cfg.asset.mesh_dir)
+    np.testing.assert_allclose(tm.body_mass.numpy(), np.asarray(jm.body_mass), rtol=1e-6)
+    s = 1.2 / 1.65
+    kp, kd = KP * np.float32(s**4), KD * np.float32(s**4.5)
+    n, iters = 4, 200
+    args = _states(n, seed=0)
+    args[0][:, 2] *= s
+    tl = np.asarray(jm.dof_effort) * 0.85
+    step = MG.make_mega_step_batched(tm, 0.001, 10, torch.from_numpy(kp), torch.from_numpy(kd),
+                                     tm.dof_effort * 0.85, iterations=iters)
+    t = [torch.from_numpy(a) for a in args]
+    got = [x.numpy() for x in step(*t[:10], torch.zeros((n, 2)), t[10])]
+    jstep = jax.jit(JMK.make_mega_step_batched(jm, 0.001, 10, kp, kd, tl, iterations=iters))
+    tols = {"qpos": 2e-4, "qvel": 5e-3, "lam": 5e-3, "tau": 5e-2, "ff": 5e-3}
+    for e in range(n):
+        want = jstep(*[jnp.asarray(a[e]) for a in args[:10]], jnp.zeros(2), jnp.asarray(args[10][e]))
+        for k, name in enumerate(OUT_NAMES[:5]):
+            np.testing.assert_allclose(got[k][e], want[k], atol=tols[name], err_msg=name)
+        np.testing.assert_allclose(got[5][e][:10], want[5][:10], atol=2e-4, err_msg="fk14 pos")
+        np.testing.assert_allclose(got[5][e][10:], want[5][10:], atol=5e-3, err_msg="fk14 vel")
+    assert np.abs(got[4]).max() > 1e-3, "no contact impulse: the check would be vacuous"
+    consts_l = MG.pack_model_constants(torch_model(), KP, KD, torch_model().dof_effort * 0.85)
+    assert np.abs(step.consts - consts_l).max() > 1.0  # its own constants, not XBot-L's
+    assert step.consts_dev is None  # a CPU model keeps no device copy
+
+
 @pytest.mark.slow
 def test_plain_mega_matches_pallas_kernel_interpret(models):
     """Plain mega step vs the TPU mega kernel (interpret mode, under vmap)
@@ -453,3 +490,7 @@ def test_cpu_tensors_take_the_plain_path(models):
     assert (MG.mega_kernel_launch.launches, SV.fused_solve.launches) == before
     with pytest.raises(ValueError):
         MG.mega_kernel_launch(torch.zeros((2, MG.IN_ROWS)), None, 0.001, 10, 8, 1.0)
+    consts = MG.model_constants_tensor(MG.pack_model_constants(tm, KP, KD, tm.dof_effort), "cpu")
+    assert consts.dtype == torch.float32 and tuple(consts.shape) == (MG.CONST_COUNT,)
+    with pytest.raises(ValueError, match="CUDA"):
+        MG.mega_kernel_launch(torch.zeros((2, MG.IN_ROWS)), consts, 0.001, 10, 8, 1.0)

@@ -148,3 +148,75 @@ def test_train_iter_runs_on_cpu():
         assert np.isfinite(float(metrics[k])), k
     assert obs.shape == (n, 705) and torch.isfinite(obs).all()
     assert not torch.equal(before, net.actor.layers[0].weight)
+
+
+def test_estimator_head_trains():
+    """Port of tests/test_ppo.py:87: the estimator head exists, its
+    gradient flows, and its supervised loss on a fixed batch falls below
+    half its first value in 50 Adam steps."""
+    net = TN.ActorCritic(O, P, A, ACTOR, CRITIC, estimator_dim=3)
+    assert any(k.startswith("estimator.") for k in net.state_dict())
+    assert net.estimate(torch.zeros((2, O))).shape == (2, 3)
+    gen = torch.Generator().manual_seed(0)
+    obs = torch.randn((64, O), generator=gen)
+    target = obs[:, :3] * 0.5  # recoverable mapping
+    opt = torch.optim.Adam(net.estimator.parameters(), lr=1e-3)
+    losses = []
+    for _ in range(51):
+        loss = torch.mean(torch.square(net.estimate(obs) - target))
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    assert losses[-1] < 0.5 * losses[0]
+
+
+@pytest.fixture(scope="module")
+def est_nets():
+    """The JAX ActorCritic with an estimator head (init from PRNGKey(5))
+    and the port's net with the same weights."""
+    jnet = JN.ActorCritic(num_actions=A, estimator_dim=3, compute_dtype="float32")
+    params = jnet.init(jax.random.PRNGKey(5), jnp.zeros((1, O)), jnp.zeros((1, P)))
+    tnet = TN.ActorCritic(O, P, A, ACTOR, CRITIC, estimator_dim=3)
+    tnet.load_state_dict(actor_critic_from_flax(jax.tree.map(np.asarray, params)))
+    return jnet, params, tnet
+
+
+def test_estimator_loss_matches_jax(est_nets):
+    """Converted params and one batch: the estimate within 1e-5, and one
+    minibatch update with estimator_coef 1.0 gives the JAX package's
+    estimator_loss and total-loss metrics (relative 1e-4) and moves the
+    estimator's weights as JAX moves them (within 1e-4); with coef 0 the
+    loss term is off (metric 0) and the head gets no update."""
+    jnet, params, tnet = est_nets
+    rng = np.random.default_rng(7)
+    obs = rng.normal(size=(16, O)).astype(np.float32)
+    got = tnet.estimate(torch.from_numpy(obs)).detach().numpy()
+    want = jnet.apply(params, jnp.asarray(obs), method=JN.ActorCritic.estimate)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+    for coef in (1.0, 0.0):
+        cfg = dict(learning_rate=1e-3, num_steps_per_env=4, estimator_coef=coef)
+        jcfg, tcfg = JP.PPOConfig(**cfg), TP.PPOConfig(**cfg)
+        assert tcfg.estimator_slice == jcfg.estimator_slice == (199, 202)
+        jts = JP.init_train_state(jax.random.PRNGKey(0), jnet, O, P, 1e-3).replace(params=params)
+        net = TN.ActorCritic(O, P, A, ACTOR, CRITIC, estimator_dim=3)
+        net.load_state_dict(actor_critic_from_flax(jax.tree.map(np.asarray, params)))
+        tts = TP.init_train_state(net, 1e-3)
+        before = net.estimator.layers[0].weight.detach().clone()
+        mb = _batch(np.random.default_rng(8), 64)
+        jts, jm = jax.jit(JP.make_train_pieces(None, jnet, jcfg, 8)["minibatch_update"])(
+            jts, tuple(jnp.asarray(x) for x in mb))
+        tts, tm = TP.make_train_pieces(None, net, tcfg, 8)["minibatch_update"](
+            tts, tuple(torch.from_numpy(x) for x in mb))
+        for k in ("estimator_loss", "value_loss", "surrogate_loss", "grad_norm"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, err_msg=k)
+        want = actor_critic_from_flax(jax.tree.map(np.asarray, jts.params))
+        for name, p in tts.net.state_dict().items():
+            if name.startswith("estimator."):
+                assert np.abs(p.numpy() - want[name].numpy()).max() <= 1e-4, name
+        moved = float((net.estimator.layers[0].weight.detach() - before).abs().max())
+        if coef:
+            assert float(tm["estimator_loss"]) > 0.0 and moved > 1e-5
+        else:
+            assert float(tm["estimator_loss"]) == 0.0 and moved == 0.0

@@ -324,8 +324,17 @@ def test_ckpt_records_and_honors_compute_dtype(tmp_path, capsys):
     assert run_d.net.compute_dtype == "auto"
 
 
-def test_estimator_head_is_refused():
+def test_estimator_head_is_refused(tmp_path):
+    """The runner builds the estimator head that `policy.estimator_dim`
+    asks for (hidden dims from `estimator_hidden_dims`), and a runner
+    without one refuses a checkpoint that carries one: the strict
+    state-dict load names the estimator's keys."""
     tcfg = _train_cfg()
     tcfg.policy.estimator_dim = 3
-    with pytest.raises(ValueError, match="estimator"):
-        OnPolicyRunner(_env(n=2), tcfg, log_dir=None)
+    run_e = OnPolicyRunner(_env(n=2), tcfg, log_dir=None)
+    assert [lin.out_features for lin in run_e.net.estimator.layers] == [256, 128, 3]
+    path = str(tmp_path / "e.ckpt")
+    run_e.save(path)
+    run_plain = OnPolicyRunner(_env(n=2), _train_cfg(), log_dir=None)
+    with pytest.raises(RuntimeError, match="estimator"):
+        run_plain.load(path)

@@ -4,6 +4,8 @@ the mega kernel's IN2 rows (`terrain_patches`) and the kernel's patch
 lookup, at small sizes (2-4 x 2-4 subterrains, a 5 m border). Inputs are
 made with numpy from a seed and handed to both packages."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,9 +71,95 @@ def test_terrain_map_matches_jax(style, curriculum, froude):
 
 
 def test_deploy_style_raises():
+    """The deploy style refuses an MJCF without an hfield geom (the flat
+    XBot-L model) and a field smaller than a terrain patch."""
+    from humanoid_gym_tpu_torch import XBOT_MJCF
+
     cfg = _cfg(TorchTerrainCfg, "deploy", True)
-    with pytest.raises(ValueError, match="mujoco"):
+    cfg.deploy_mjcf = XBOT_MJCF
+    with pytest.raises(ValueError, match="hfield"):
         TT.TerrainMap.build(cfg, np.random.default_rng(0))
+    cfg = _cfg(TorchTerrainCfg, "deploy", True)
+    cfg.terrain_length = cfg.terrain_width = 120.0
+    cfg.num_rows = cfg.num_cols = 1
+    cfg.horizontal_scale = 1.0
+    cfg.terrain_proportions = [0.0]
+    with pytest.raises(ValueError, match="smaller than the terrain patch"):
+        TT.TerrainMap.build(cfg, np.random.default_rng(0))
+
+
+@pytest.mark.parametrize("mjcf", ["XBOT_TERRAIN_MJCF", "XBOT_S_TERRAIN_MJCF"])
+def test_deploy_field_matches_jax(mjcf):
+    """The deployment heightfield read from the MJCF and its PNG without
+    `mujoco` equals the JAX package's, which MuJoCo's loader reads (heights
+    to 1e-6 m, cell sizes exactly), on XBot-L's field and on XBot-S's
+    Froude-scaled one."""
+    import humanoid_gym_tpu as J
+    import humanoid_gym_tpu_torch as T
+
+    assert os.path.basename(getattr(T, mjcf)) == os.path.basename(getattr(J, mjcf))
+    h, cx, cy = TT._load_deploy_field(getattr(T, mjcf))
+    jh, jcx, jcy = JT._load_deploy_field(getattr(J, mjcf))
+    assert h.shape == jh.shape == (100, 100) and (cx, cy) == (jcx, jcy)
+    np.testing.assert_allclose(h, jh, atol=1e-6)
+    assert 0.2 < h.max() <= 0.35 + 1e-9 and h.min() == 0.0
+
+
+def _png(img, path):
+    """A grayscale PNG of `img` whose row r is written with filter r % 5."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    h, w = img.shape
+    x = img.astype(np.int64)
+    raw = b""
+    for r in range(h):
+        a = np.concatenate([[0], x[r, :-1]])
+        b = x[r - 1] if r else np.zeros(w, np.int64)
+        c = np.concatenate([[0], b[:-1]])
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = [np.zeros(w, np.int64), a, b, (a + b) // 2, paeth][r % 5]
+        raw += bytes([r % 5]) + ((x[r] - pred) % 256).astype(np.uint8).tobytes()
+    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def test_png_reader_undoes_every_row_filter(tmp_path):
+    """The shipped field's rows are all unfiltered; a 37 x 23 image written
+    with each of the five PNG row filters reads back exactly, and as PIL
+    reads it."""
+    from PIL import Image
+
+    img = np.random.default_rng(0).integers(0, 256, (37, 23)).astype(np.uint8)
+    _png(img, str(tmp_path / "f.png"))
+    got = TT._png_gray8(str(tmp_path / "f.png"))
+    np.testing.assert_array_equal(got, img)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(str(tmp_path / "f.png"))))
+
+
+def test_deploy_task_map_matches_jax():
+    """`humanoid_ppo_deploy`'s full map (20 x 20 subterrains of 5 x 8 m on
+    the rubble ladder, 80% windows of the deployment field): the grid and
+    the origins equal the JAX package's TerrainMap from default_rng(0)."""
+    from humanoid_gym_tpu import registry as jreg
+    from humanoid_gym_tpu_torch import registry as treg
+
+    jcfg = jreg.get_task("humanoid_ppo_deploy").make_env_cfg().terrain
+    tcfg = treg.get_task("humanoid_ppo_deploy").make_env_cfg().terrain
+    assert tcfg.style == "deploy" and (tcfg.num_rows, tcfg.num_cols) == (20, 20)
+    want = JT.TerrainMap.build(jcfg, np.random.default_rng(0))
+    got = TT.TerrainMap.build(tcfg, np.random.default_rng(0))
+    np.testing.assert_array_equal(got.height_field, want.height_field)
+    np.testing.assert_array_equal(got.env_origins, want.env_origins)
+    assert got.height_field.max() * got.vertical_scale > 0.3
 
 
 @pytest.fixture(scope="module")

@@ -70,7 +70,20 @@ script exits non-zero):
      survive and the median distance is at least half the ideal; (c)
      `xbotl_footing_demo` on `humanoid_ppo_rubble` through the terrain
      variant, reported;
- 13. one JSON line with a record per kernel, the card line, then the
+ 13. env-sharded training on the one card: `humanoid_ppo` at 4096 envs,
+     T=60, solver mega, as 2 ranks x 2048 envs over gloo, each started by
+     this script with the launcher's variables and going through
+     `registry.make_env(..., group=)` -> `OnPolicyRunner.learn` on the kernel
+     library of phase 2 (warm-up, 2 timed iterations): 60 mega launches per
+     rank per iteration, finite losses, parameters, Adam moments, learning
+     rate and logged metrics bit-equal across the ranks after every
+     iteration (compared through the group), one all-reduce per minibatch
+     (timed, with its bytes); the sharded compute_gae + update_phase of one
+     fixed 4096-env rollout within SHARDED_UPDATE_TOL of one process on it;
+     then 2 fresh ranks restore the final checkpoint's env shards exactly
+     and train on, beside 1 nccl rank at world size 1 (an all-reduce and a
+     broadcast on the card, one iteration);
+ 14. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
@@ -1161,9 +1174,9 @@ def _kernel_launches(fn) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def _profile_line(tag, prof, window_ms, what):
-    """Device time by kernel class, launch count and idle share of a
-    profiled window that took window_ms."""
+def _device_time(prof):
+    """(device us by kernel class, kernel launches, [(us, count, name)]) of
+    a profiled window."""
     import torch
 
     by_class = {"mega": 0.0, "dense_solve": 0.0, "matmul": 0.0, "other": 0.0}
@@ -1176,6 +1189,13 @@ def _profile_line(tag, prof, window_ms, what):
         by_class[_kernel_class(e.key)] += us
         launches += e.count
         top.append((us, e.count, e.key[:60]))
+    return by_class, launches, top
+
+
+def _profile_line(tag, prof, window_ms, what):
+    """Device time by kernel class, launch count and idle share of a
+    profiled window that took window_ms."""
+    by_class, launches, top = _device_time(prof)
     busy_ms = sum(by_class.values()) / 1e3
     if busy_ms == 0.0:
         _log(f"{tag}: device time not measured (the profiler saw no kernels)")
@@ -1393,6 +1413,320 @@ def _phase9_terrain_path(card):
     return launches
 
 
+# ---- phase 13: env-sharded training on two ranks of the one card ----
+
+RANKS = 2
+RANK_TIMED_ITERS = 2  # after one warm-up iteration; the final checkpoint is model_3.ckpt
+RANK_TIMEOUT_S = 420
+# the sharded update against one process: float32 nets at the recipe's
+# learning rate (1e-5), 8 Adam steps; the sums of 245,760 rows run in
+# another order on two ranks, and an element of the gradient near Adam's eps
+# turns its last bits into a fraction of a step, so a parameter may differ by
+# a fraction of the 1e-5 step (the CPU test at 64 rows: 5.9e-7 against JAX)
+SHARDED_UPDATE_TOL = 5e-6
+
+
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order (on the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_tensors(d):
+    """The leaves of a saved env state (nested dicts), in field order."""
+    for v in d.values():
+        yield from (_state_tensors(v) if isinstance(v, dict) else (v,))
+
+
+def _train_state_tensors(ts):
+    return [*ts.net.state_dict().values(), *ts.opt_mu.values(), *ts.opt_nu.values(), ts.lr]
+
+
+def _same_on_every_rank(text: str, group) -> bool:
+    """Whether every rank holds rank 0's `text`, decided through the group
+    (rank 0's sha256 of it broadcast, the mismatches all-reduced)."""
+    import hashlib
+
+    import torch
+
+    from humanoid_gym_tpu_torch.parallel import all_reduce_sum, broadcast_str
+
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    differs = torch.tensor(float(broadcast_str(digest, group) != digest), device=group.device)
+    (n,) = all_reduce_sum([differs], group)
+    return float(n) == 0.0
+
+
+def _phase13_rank(work: str, role: str) -> int:
+    """One rank of phase 13, started by `_phase13_ranks` with the launcher's
+    variables. Roles: "train" (2 gloo ranks: warm-up, 2 timed iterations,
+    the sharded update against one process), "resume" (2 gloo ranks: load
+    the final checkpoint's shards, one more iteration) and "nccl" (1 rank,
+    world size 1: one iteration). Writes its numbers to
+    <work>/<role>_rank<r>.json."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.parallel import all_reduce_sum, make_env_group
+    from humanoid_gym_tpu_torch.physics import cuda_build, mega as MG, solve as SV
+    from humanoid_gym_tpu_torch.physics.kinematics import use_full_f32_matmul
+    from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+    from humanoid_gym_tpu_torch.runner.on_policy_runner import _env_state_to_saved
+
+    use_full_f32_matmul()
+    group = make_env_group("nccl" if role == "nccl" else "gloo", device="cuda:0")
+    out = {"rank": group.rank, "world": group.world, "backend": group.backend}
+    try:
+        lib = cuda_build.kernel_library()
+        if lib.log:  # nvcc ran: the libraries of phase 2 were not found
+            raise AssertionError(f"rank {group.rank} built the kernels itself")
+        t0 = time.perf_counter()
+        env, cfg = registry.make_env("humanoid_ppo", num_envs=N_ENVS, cfg_overrides=_solver_mega,
+                                     device=group.device, seed=0, group=group)
+        tcfg = registry.get_task("humanoid_ppo").make_train_cfg()
+        if (env.num_envs, env.num_envs_global, tcfg.runner.num_steps_per_env,
+                cfg.commands.curriculum) != (N_ENVS // group.world, N_ENVS, T_STEPS, False):
+            raise AssertionError(f"rank {group.rank}: not {N_ENVS // group.world} of {N_ENVS} "
+                                 f"envs at T={T_STEPS}")
+        counters = (MG.mega_kernel_launch, SV.fused_solve, SV.fused_dense_solve, SV.apgd_solve_kernel)
+
+        def one_iteration(runner):
+            """learn(1) with the counters zeroed just before and read just after."""
+            for c in counters:
+                c.launches = 0
+            MG.mega_kernel_launch.terrain_launches = 0
+            n0 = group.collectives
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runner.learn(1)
+            torch.cuda.synchronize()
+            rec = {"wall_ms": (time.perf_counter() - t) * 1e3,
+                   "iter_ms": runner.last_scalars["Perf/iter_time"] * 1e3,
+                   "mega": MG.mega_kernel_launch.launches,
+                   "other_launches": MG.mega_kernel_launch.terrain_launches
+                   + sum(c.launches for c in counters[1:]),
+                   "collectives": group.collectives - n0,
+                   "scalars": {k: v for k, v in runner.last_scalars.items()
+                               if not k.startswith("Perf/")}}
+            for k in ("Loss/value_function", "Loss/surrogate", "Loss/entropy", "Loss/kl",
+                      "Train/mean_step_reward"):
+                if not np.isfinite(rec["scalars"][k]):
+                    raise AssertionError(f"rank {group.rank}: non-finite {k}")
+            if rec["mega"] != T_STEPS or rec["other_launches"]:
+                raise AssertionError(f"rank {group.rank}: {rec['mega']} mega launches "
+                                     f"(and {rec['other_launches']} others) in one iteration")
+            rec["train_state_equal"] = _same_on_every_rank(
+                _digest(_train_state_tensors(runner.train_state)), group)
+            rec["metrics_equal"] = _same_on_every_rank(
+                json.dumps(rec["scalars"], sort_keys=True), group)
+            if not (rec["train_state_equal"] and rec["metrics_equal"]):
+                raise AssertionError(f"rank {group.rank}: the ranks' train states or logged "
+                                     f"metrics differ: {rec}")
+            return rec
+
+        if role == "resume":
+            runner = OnPolicyRunner(env, tcfg, log_dir=None, seed=2)
+            runner.load(os.path.join(work, "run", f"model_{1 + RANK_TIMED_ITERS}.ckpt"))
+            out["resumed_at"] = runner.current_learning_iteration
+            out["env_digest"] = _digest([*_state_tensors(_env_state_to_saved(runner.env_state)),
+                                         runner.obs, runner.priv_obs])
+            out["train_digest"] = _digest(_train_state_tensors(runner.train_state))
+            out["iterations"] = [one_iteration(runner)]
+        elif role == "nccl":
+            x = torch.full((1024,), 2.0, device=group.device)
+            torch.distributed.all_reduce(x)
+            torch.distributed.broadcast(x, src=0)
+            torch.cuda.synchronize()
+            if float(x.sum()) != 2.0 * 1024:
+                raise AssertionError("the nccl all-reduce at world size 1 changed the values")
+            runner = OnPolicyRunner(env, tcfg, log_dir=None, seed=1)
+            out["iterations"] = [one_iteration(runner)]
+        else:
+            runner = OnPolicyRunner(env, tcfg, log_dir=os.path.join(work, "run"), seed=1)
+            out["env_build_s"] = time.perf_counter() - t0
+            t = time.perf_counter()
+            out["warmup"] = one_iteration(runner)
+            out["warmup_s"] = time.perf_counter() - t
+            torch.cuda.reset_peak_memory_stats()
+            out["iterations"] = [one_iteration(runner) for _ in range(RANK_TIMED_ITERS)]
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            out["env_digest"] = _digest([*_state_tensors(_env_state_to_saved(runner.env_state)),
+                                         runner.obs, runner.priv_obs])
+            out["train_digest"] = _digest(_train_state_tensors(runner.train_state))
+
+            # one minibatch's all-reduce: the gradients, the 5 loss sums and the row count
+            payload = [torch.ones_like(p) for p in runner.net.parameters()]
+            payload += [torch.ones(5, device=group.device), torch.ones((), device=group.device)]
+            b0 = group.reduced_bytes
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(20):
+                all_reduce_sum(payload, group)
+            torch.cuda.synchronize()
+            out["allreduce_ms"] = (time.perf_counter() - t) * 1e3 / 20
+            out["allreduce_bytes"] = (group.reduced_bytes - b0) // 20
+
+            # where the time goes: one iteration per rank unprofiled, one profiled
+            def train_iter():
+                r = runner
+                r.train_state, r.env_state, r.obs, r.priv_obs, _ = r._train_iter(
+                    r.train_state, r.env_state, r.obs, r.priv_obs, r.gen)
+                torch.cuda.synchronize()
+
+            t = time.perf_counter()
+            train_iter()
+            out["plain_iter_ms"] = (time.perf_counter() - t) * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                train_iter()
+            by_class, out["kernel_launches"], _ = _device_time(prof)
+            out["device_ms"] = {k: v / 1e3 for k, v in by_class.items()}
+
+            # the sharded update against one process on one fixed rollout
+            out.update(_sharded_update_check(group, cfg, tcfg))
+            if not out["sharded_equal"] or out.get("sharded_vs_single", 0.0) > SHARDED_UPDATE_TOL:
+                raise AssertionError(f"rank {group.rank}: sharded update: {out}")
+    finally:
+        with open(os.path.join(work, f"{role}_rank{group.rank}.json"), "w") as f:
+            json.dump(out, f)
+        group.close()
+    return 0
+
+
+def _sharded_update_check(group, cfg, tcfg):
+    """compute_gae + update_phase of one fixed 4096-env, T=60 rollout (made
+    from a seed on the card, the same on every rank): each rank on its 2048
+    envs, rank 0 also as one process on all of them, float32 nets from one
+    seed, one permutation seed. Returns the largest parameter difference,
+    whether the ranks' results are bit-equal, and the two update times."""
+    import torch
+
+    from humanoid_gym_tpu_torch.algo.networks import ActorCritic
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, Rollout, init_train_state, make_train_pieces
+
+    dev = group.device
+    g = torch.Generator(device=dev).manual_seed(11)
+    O, P, A = cfg.env.num_observations, cfg.env.num_privileged_obs, cfg.env.num_actions
+    f = lambda *s: torch.randn((T_STEPS, N_ENVS) + s, generator=g, device=dev)  # noqa: E731
+    full = Rollout(obs=f(O), priv_obs=f(P), actions=f(A), mu=0.3 * f(A), sigma=0.3 * f(A).abs() + 0.7,
+                   log_probs=f() - 15.0, values=f(), rewards=f(), dones=f() > 0.8)
+    last_priv = torch.randn((N_ENVS, P), generator=g, device=dev)
+    pcfg = PPOConfig.from_cfg(tcfg.algorithm)
+    pcfg.num_steps_per_env = T_STEPS
+    lo, n = group.rank * (N_ENVS // group.world), N_ENVS // group.world
+
+    def run(grp, roll, last):
+        net = ActorCritic(O, P, A, tuple(tcfg.policy.actor_hidden_dims),
+                          tuple(tcfg.policy.critic_hidden_dims), compute_dtype="float32",
+                          seed=3).to(dev)
+        initial = {k: v.clone() for k, v in net.state_dict().items()}
+        ts = init_train_state(net, pcfg.learning_rate)
+        pieces = make_train_pieces(None, net, pcfg, N_ENVS, grp)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        adv, ret = pieces["compute_gae"](ts, roll, last)
+        ts, _ = pieces["update_phase"](ts, roll, adv, ret,
+                                       torch.Generator(device=dev).manual_seed(5))
+        torch.cuda.synchronize()
+        return ts, (time.perf_counter() - t) * 1e3, initial
+
+    mine = Rollout(*(x[:, lo:lo + n] for x in full))
+    ts, ms, _ = run(group, mine, last_priv[lo:lo + n])
+    out = {"sharded_update_ms": ms,
+           "sharded_equal": _same_on_every_rank(_digest(_train_state_tensors(ts)), group)}
+    if group.rank == 0:
+        single, ms1, initial = run(None, full, last_priv)
+        a, b = ts.net.state_dict(), single.net.state_dict()
+        out["sharded_vs_single"] = max(float((a[k] - b[k]).abs().max()) for k in a)
+        out["params_moved"] = max(float((b[k] - p).abs().max()) for k, p in initial.items())
+        out["single_update_ms"] = ms1
+    return out
+
+
+def _phase13_ranks(card):
+    """Phase 13: `humanoid_ppo` at 4096 envs, T=60, solver mega, as 2 ranks
+    x 2048 envs sharing the card over gloo, each through registry.make_env
+    -> OnPolicyRunner.learn; then 2 fresh ranks resuming from the shards
+    beside 1 nccl rank at world size 1. Returns the launches per rank of
+    the timed iterations."""
+    from humanoid_gym_tpu_torch.parallel.launch import RankJob
+
+    argv = [sys.executable, os.path.abspath(__file__), "--phase13-rank"]
+    with tempfile.TemporaryDirectory(prefix="hgt_smoke_ranks_") as work:
+        t0 = time.perf_counter()
+        RankJob(argv + [work, "train"], RANKS).wait(RANK_TIMEOUT_S)
+        train_s = time.perf_counter() - t0
+        train = [json.load(open(os.path.join(work, f"train_rank{r}.json"))) for r in range(RANKS)]
+        shards = sorted(f for f in os.listdir(os.path.join(work, "run")) if "envshard" in f)
+        final = 1 + RANK_TIMED_ITERS
+        if shards != [f"model_{i}.ckpt.envshard{r}" for i in range(1, final + 1)
+                      for r in range(RANKS)]:
+            raise AssertionError(f"phase 13: env shards {shards}")
+        if len({r["train_digest"] for r in train}) != 1:
+            raise AssertionError("phase 13: the ranks' final train states differ")
+        t0 = time.perf_counter()
+        resume = RankJob(argv + [work, "resume"], RANKS)
+        nccl = RankJob(argv + [work, "nccl"], 1)
+        resume.wait(RANK_TIMEOUT_S)
+        nccl.wait(RANK_TIMEOUT_S)
+        second_s = time.perf_counter() - t0
+        res = [json.load(open(os.path.join(work, f"resume_rank{r}.json"))) for r in range(RANKS)]
+        one = json.load(open(os.path.join(work, "nccl_rank0.json")))
+    for r in range(RANKS):
+        if (res[r]["env_digest"], res[r]["train_digest"], res[r]["resumed_at"]) != (
+                train[r]["env_digest"], train[r]["train_digest"], final):
+            raise AssertionError(f"phase 13: rank {r} did not resume the saved state")
+    its = [t["iterations"] for t in train]
+    col = {it["collectives"] for t in its for it in t}
+
+    def ms(xs):
+        return ", ".join(f"{x:.1f}" for x in xs)
+
+    per_rank = "; ".join(
+        f"rank {r}: " + ", ".join(f"{it['wall_ms']:.1f} (dispatch {it['iter_ms']:.1f})"
+                                  for it in its[r]) for r in range(RANKS))
+    _log(f"phase 13 two ranks: humanoid_ppo {N_ENVS} envs as {RANKS} gloo ranks x "
+         f"{N_ENVS // RANKS} on one card, T={T_STEPS} solver mega, through registry.make_env -> "
+         f"OnPolicyRunner.learn | env built in {ms(t['env_build_s'] for t in train)} s, warm-up "
+         f"{ms(t['warmup_s'] for t in train)} s | iteration ms per rank (learn(1) with its "
+         f"checkpoint; dispatch to dispatch) {per_rank} | mega launches per rank per iteration "
+         f"{[it['mega'] for t in its for it in t]} | all-reduces per iteration {sorted(col)}, one "
+         f"per minibatch of {train[0]['allreduce_bytes']} bytes in "
+         f"{train[0]['allreduce_ms']:.3f} ms | train state, Adam moments, lr and logged metrics "
+         f"bit-equal across ranks after every iteration | value_loss "
+         f"{its[0][-1]['scalars']['Loss/value_function']:.4g} | peak mem "
+         f"{', '.join(f'{g:.2f}' for g in (t['peak_gib'] for t in train))} GiB | {train_s:.1f} s | "
+         f"{card}")
+    busy = [sum(t["device_ms"].values()) for t in train]
+    window = sum(t["plain_iter_ms"] for t in train) / RANKS
+    if min(busy) == 0.0:
+        _log("phase 13 profile: device time not measured (the profiler saw no kernels)")
+    else:
+        _log(f"phase 13 profile (one iteration per rank; unprofiled {ms(t['plain_iter_ms'] for t in train)}"
+             f" ms): device busy per rank {ms(busy)} ms ("
+             + "; ".join(", ".join(f"{k} {v:.1f}" for k, v in t["device_ms"].items()) for t in train)
+             + f"), together {sum(busy):.1f} ms of a {window:.1f} ms iteration (idle share "
+             f"{1.0 - sum(busy) / window:.3f}) over {[t['kernel_launches'] for t in train]} kernel "
+             f"launches | {card}")
+    _log(f"phase 13 sharded update vs one process: {N_ENVS} envs x T={T_STEPS}, float32, "
+         f"max |param difference| {train[0]['sharded_vs_single']:.3e} (tol {SHARDED_UPDATE_TOL:.0e}; "
+         f"the update moved a parameter by up to {train[0]['params_moved']:.3e}), ranks bit-equal | "
+         f"gae + update ms sharded {ms(t['sharded_update_ms'] for t in train)}, one process "
+         f"{train[0]['single_update_ms']:.1f} | {card}")
+    _log(f"phase 13 resume: {RANKS} fresh gloo ranks read model_{final}.ckpt.envshard0-"
+         f"{RANKS - 1}: env state, obs and train state equal the saved ones, iteration "
+         f"{final} ok ({res[0]['iterations'][0]['wall_ms']:.1f} ms); nccl at world size 1: "
+         f"all-reduce and broadcast on the card, one iteration of {N_ENVS} envs in "
+         f"{one['iterations'][0]['wall_ms']:.1f} ms with {one['iterations'][0]['mega']} mega "
+         f"launches | {second_s:.1f} s | {card}")
+    return [[it["mega"] for it in t] for t in its]
+
+
 def _ptxas_summary(log: str) -> str:
     """Per kernel: registers, stack frame and spills from `ptxas -v`."""
     import re
@@ -1443,6 +1777,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--phase13-rank"]:
+        return _phase13_rank(*sys.argv[2:4])
 
     import numpy as np
 
@@ -1546,18 +1882,22 @@ def main() -> int:
     # ---- phase 12: the repo's trained policies through the kernel ----
     _phase12_trained_policies(card, dev)
 
+    # ---- phase 13: env-sharded training, two ranks on the card ----
+    launches_ranks = _phase13_ranks(card)
+
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",
              source="humanoid_gym_tpu_torch/csrc/mega.cu",
              replaces="humanoid_gym_tpu/physics/mega_kernel.py:550",
-             launches=launches["mega"], joint_launches=launches_joint["mega"], library_ms=None,
+             launches=launches["mega"], joint_launches=launches_joint["mega"],
+             two_rank_launches=launches_ranks, library_ms=None,
              **records["mega"], **extra["mega"]),
         dict(name="hgt_solve_env (contact solve; runs inside hgt_mega_kernel, "
                   "timed through its stand-alone launch hgt_solve_kernel)",
              route="cuda", source="humanoid_gym_tpu_torch/csrc/solve.cuh",
              replaces="humanoid_gym_tpu/physics/pallas_solver.py:422",
              launches=launches["mega"], standalone_launches=launches["solve_standalone"],
-             library_ms=None, **records["solve"]),
+             two_rank_launches=launches_ranks, library_ms=None, **records["solve"]),
         dict(name="hgt_fused_dense_kernel (Cholesky + dense Delassus + APGD, solver fused_pallas)",
              route="cuda", source="humanoid_gym_tpu_torch/csrc/dense_solve.cu",
              replaces="humanoid_gym_tpu/physics/pallas_solver.py:740",

@@ -23,6 +23,9 @@ per-substep path (`apgd`, `pgs`, `apgd_pallas`, `fused_pallas`).
 - ``export/``  : the deployment artifacts of a trained actor (``policy.npz``,
   ``policy.bin``, ``policy_jit.pt``) and their loader.
 - ``runner/``  : the training loop with logging and checkpoints.
+- ``parallel/``: env-sharded training over several processes
+  (``torch.distributed``): the rank's group, its collectives, its env
+  block and seeds, and a spawner of ranks.
 - ``registry`` and ``utils/``: the task registry, the command line of
   ``scripts/train_torch.py`` and the URDF scaling that derives XBot-S.
 

@@ -17,18 +17,24 @@ Port of humanoid_gym_tpu/algo/ppo.py with the same numerical contract:
 
 `make_train_iter(env, net, cfg, num_envs)` returns
 train_iter(ts, env_state, obs, priv_obs, gen) ->
-(ts, env_state, obs, priv_obs, metrics), with random draws from the
-torch.Generator `gen` on the env's device. The loop over T steps is plain
-Python; every env step is one mega-kernel launch on the card.
+(ts, env_state, obs, priv_obs, metrics), with the action noise drawn from
+the torch.Generator `gen` on the env's device and the minibatch
+permutation from a generator of its own. The loop over T steps is plain
+Python; every env step is one mega-kernel launch on the card. Under env
+sharding (`group=`) the batch-global means are sums over the ranks
+(SURVEY.md §2.3); at world size 1 no collective runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..parallel.mesh import EnvGroup, all_reduce_sum
+from ..parallel.multihost import local_env_slice
 from ..physics.kinematics import use_full_f32_matmul
 from .networks import ActorCritic, normal_entropy, normal_log_prob
 
@@ -140,14 +146,62 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float):
     return adv, adv + values
 
 
-def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int) -> dict:
+def permutation_seed(seed: int, iteration: int) -> int:
+    """The seed of the minibatch permutation of train iteration `iteration`
+    in a run seeded `seed`: the same on every rank, and apart from the
+    stream of the action noise."""
+    return int(np.random.SeedSequence([seed, iteration, 1]).generate_state(1)[0])
+
+
+def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
+                      group: Optional[EnvGroup] = None, perm_seed: Optional[int] = None) -> dict:
     """The train iteration and its stages: train_iter = rollout_phase ->
     compute_gae -> update_phase (minibatch_update over make_loss_fn). Each
-    stage in the returned dict can be called, and timed, on its own."""
+    stage in the returned dict can be called, and timed, on its own.
+
+    `num_envs` is the global env count. Under a `group` of several ranks
+    the rollout holds this rank's envs (`env.global_env_ids()`; with no env,
+    the rank's contiguous block), and every mean over the global batch is a
+    sum over the ranks: the advantage statistics, each minibatch's
+    gradients, losses and KL (one all-reduce per minibatch), and the
+    metrics. The minibatch permutation is drawn over the global T x
+    num_envs batch from a generator seeded by `permutation_seed(perm_seed,
+    iteration)` (`perm_seed` defaults to the seed of train_iter's `gen`),
+    identically on every rank; each rank updates on the rows of each
+    minibatch whose env it holds, so the ranks together take the update of
+    one process over the whole batch."""
     use_full_f32_matmul()
     T = cfg.num_steps_per_env
     batch = T * num_envs
     mb_size = batch // cfg.num_mini_batches
+    n_mb = cfg.num_mini_batches
+    sharded = group is not None and group.world > 1
+    if sharded:
+        if env is not None:
+            ids = env.global_env_ids()
+        else:
+            start, count = local_env_slice(num_envs, group)
+            ids = torch.arange(start, start + count)
+        # global env -> this rank's env axis position, -1 where another
+        # rank holds the env
+        local_of_global = torch.full((num_envs,), -1, dtype=torch.long)
+        local_of_global[ids] = torch.arange(len(ids))
+        n_local = len(ids)
+
+    def minibatch_rows(perm: torch.Tensor):
+        """(rows, counts): this rank's flat rollout rows (t * n_local +
+        local env) of the minibatches of the global permutation `perm`, in
+        minibatch order, and how many fall in each minibatch. A global row
+        t * num_envs + e belongs to the rank that holds env e."""
+        used = perm[:n_mb * mb_size]
+        if not sharded:
+            return used, [mb_size] * n_mb
+        loc = local_of_global.to(perm.device)[used % num_envs]
+        keep = loc >= 0
+        rows = ((used // num_envs) * n_local + loc)[keep]
+        mb_of_row = torch.arange(used.numel(), device=perm.device) // mb_size
+        counts = torch.bincount(mb_of_row[keep], minlength=n_mb).tolist()
+        return rows, counts
 
     @torch.no_grad()
     def rollout_phase(ts: TrainState, env_state, obs, priv_obs, gen):
@@ -183,12 +237,22 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int) -> d
 
     @torch.no_grad()
     def compute_gae(ts: TrainState, roll: Rollout, last_priv_obs):
+        """GAE, then the advantages normalised by the global batch's mean
+        and population std, in two passes (the mean, then the squared
+        deviations from it), as jnp.std computes it."""
         last_value = ts.net.evaluate(last_priv_obs)
         advantages, returns = gae(roll.rewards, roll.values, roll.dones, last_value, cfg.gamma, cfg.lam)
-        adv_n = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        count = torch.full((), float(advantages.numel()), device=advantages.device)
+        total, count = all_reduce_sum([advantages.sum(), count], group)
+        mean = total / count
+        (sq,) = all_reduce_sum([torch.square(advantages - mean).sum()], group)
+        adv_n = (advantages - mean) / (torch.sqrt(sq / count) + 1e-8)
         return adv_n, returns
 
     def make_loss_fn(mb):
+        """loss_fn(net) -> (total, sums): the loss and its terms as sums
+        over the minibatch rows given (surrogate, value, entropy, KL,
+        estimator); the caller divides by the global row count."""
         obs, priv, act, old_logp, old_v, adv, ret, old_mu, old_sigma = mb
 
         def loss_fn(net: ActorCritic):
@@ -201,42 +265,50 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int) -> d
                     - 0.5,
                     dim=-1,
                 )
-                kl_mean = kl.mean().detach()
+                kl_sum = kl.sum().detach()
             else:
-                kl_mean = torch.zeros((), device=obs.device)
+                kl_sum = torch.zeros((), device=obs.device)
             logp = normal_log_prob(mean, std, act)
             ratio = torch.exp(torch.clamp(logp - old_logp, -20.0, 20.0))
             surr = -adv * ratio
             surr_clipped = -adv * torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param)
-            surrogate_loss = torch.mean(torch.maximum(surr, surr_clipped))
+            surrogate_loss = torch.sum(torch.maximum(surr, surr_clipped))
             if cfg.use_clipped_value_loss:
                 v_clipped = old_v + torch.clamp(value - old_v, -cfg.clip_param, cfg.clip_param)
-                value_loss = torch.mean(
+                value_loss = torch.sum(
                     torch.maximum(torch.square(value - ret), torch.square(v_clipped - ret))
                 )
             else:
-                value_loss = torch.mean(torch.square(ret - value))
-            entropy = normal_entropy(std, logp.shape)
-            total = surrogate_loss + cfg.value_loss_coef * value_loss - cfg.entropy_coef * entropy.mean()
+                value_loss = torch.sum(torch.square(ret - value))
+            entropy = normal_entropy(std, logp.shape).sum()
+            total = surrogate_loss + cfg.value_loss_coef * value_loss - cfg.entropy_coef * entropy
             if cfg.estimator_coef > 0.0 and net.estimator_dim > 0:
                 lo, hi = cfg.estimator_slice
-                est_loss = torch.mean(torch.square(net.estimate(obs) - priv[:, lo:hi].detach()))
+                est_loss = torch.square(net.estimate(obs) - priv[:, lo:hi].detach()).mean(-1).sum()
                 total = total + cfg.estimator_coef * est_loss
             else:
                 est_loss = torch.zeros((), device=obs.device)
-            aux = (surrogate_loss.detach(), value_loss.detach(), entropy.mean().detach(), kl_mean,
-                   est_loss.detach())
-            return total, aux
+            sums = torch.stack([surrogate_loss.detach(), value_loss.detach(), entropy.detach(),
+                                kl_sum, est_loss.detach()])
+            return total, sums
 
         return loss_fn
 
     def minibatch_update(ts: TrainState, mb) -> Tuple[TrainState, Dict]:
+        """One Adam step on minibatch `mb` (this rank's rows of it): the
+        gradients, loss sums and row counts of every rank summed by one
+        all-reduce, then divided by the global row count, so every rank
+        takes the step of the global mean with the global KL."""
         net = ts.net
-        total, (surr_l, val_l, ent, kl_mean, est_l) = make_loss_fn(mb)(net)
+        total, sums = make_loss_fn(mb)(net)
         names, params = zip(*net.named_parameters())
         # an estimator head that the loss does not use (coef 0) gets zero
         # gradients, as under jax.grad
-        grads = dict(zip(names, torch.autograd.grad(total, params, materialize_grads=True)))
+        grads = torch.autograd.grad(total, params, materialize_grads=True)
+        rows = torch.full((), float(mb[0].shape[0]), device=sums.device)
+        *grads, sums, rows = all_reduce_sum([*grads, sums, rows], group)
+        grads = {k: g / rows for k, g in zip(names, grads)}
+        surr_l, val_l, ent, kl_mean, est_l = (sums / rows).unbind()
         lr = ts.lr
         if cfg.schedule == "adaptive":
             lr = torch.where(
@@ -263,39 +335,49 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int) -> d
             "estimator_loss": est_l,
         }
 
-    def update_phase(ts: TrainState, roll: Rollout, adv, ret, gen):
+    def update_phase(ts: TrainState, roll: Rollout, adv, ret, perm_gen):
         """num_learning_epochs x num_mini_batches updates over one shared
-        permutation of the flattened batch; returns the mean metrics."""
-        flat = lambda x: x.reshape((batch,) + tuple(x.shape[2:]))  # noqa: E731
-        perm = torch.randperm(batch, generator=gen, device=adv.device)
-        data = [flat(x)[perm] for x in (
+        permutation of the global flattened batch, drawn from `perm_gen`;
+        returns the mean metrics."""
+        flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))  # noqa: E731
+        perm = torch.randperm(batch, generator=perm_gen, device=adv.device)
+        rows, counts = minibatch_rows(perm)
+        data = [torch.split(flat(x)[rows], counts) for x in (
             roll.obs, roll.priv_obs, roll.actions, roll.log_probs, roll.values, adv, ret,
             roll.mu, roll.sigma,
         )]
         metrics_acc = None
         for _ in range(cfg.num_learning_epochs):
-            for i in range(cfg.num_mini_batches):
-                mb = tuple(x[i * mb_size:(i + 1) * mb_size] for x in data)
-                ts, mets = minibatch_update(ts, mb)
+            for i in range(n_mb):
+                ts, mets = minibatch_update(ts, tuple(x[i] for x in data))
                 metrics_acc = mets if metrics_acc is None else {
                     k: metrics_acc[k] + v for k, v in mets.items()
                 }
-        n_updates = cfg.num_learning_epochs * cfg.num_mini_batches
+        n_updates = cfg.num_learning_epochs * n_mb
         return ts, {k: v / n_updates for k, v in metrics_acc.items()}
 
     def train_iter(ts: TrainState, env_state, obs, priv_obs, gen):
         env_state, obs, priv_obs, roll, infos = rollout_phase(ts, env_state, obs, priv_obs, gen)
         adv, ret = compute_gae(ts, roll, priv_obs)
-        ts, metrics = update_phase(ts, roll, adv, ret, gen)
+        perm_gen = torch.Generator(device=obs.device)
+        perm_gen.manual_seed(permutation_seed(
+            gen.initial_seed() if perm_seed is None else perm_seed, ts.iteration))
+        ts, metrics = update_phase(ts, roll, adv, ret, perm_gen)
         stack = lambda f: torch.stack([getattr(tr, f) for tr in infos])  # noqa: E731
+        (reward_sum, ep_term_sums, ep_reset_count, ep_len_sum, ep_reward_sum, nonfinite,
+         level_sum) = all_reduce_sum([
+             stack("reward").sum(), stack("ep_term_sums").sum(dim=(0, 1)),
+             stack("ep_reset_count").sum(), stack("ep_len_at_reset").sum(),
+             stack("ep_reward_at_reset").sum(), stack("nonfinite").sum(),
+             stack("terrain_level").sum()], group)
         metrics.update(
-            mean_step_reward=stack("reward").mean(),
-            ep_term_sums=stack("ep_term_sums").sum(dim=(0, 1)),
-            ep_reset_count=stack("ep_reset_count").sum(),
-            ep_len_sum=stack("ep_len_at_reset").sum(),
-            ep_reward_sum=stack("ep_reward_at_reset").sum(),
-            nonfinite_resets=stack("nonfinite").sum(),
-            mean_terrain_level=stack("terrain_level").mean(),
+            mean_step_reward=reward_sum / batch,
+            ep_term_sums=ep_term_sums,
+            ep_reset_count=ep_reset_count,
+            ep_len_sum=ep_len_sum,
+            ep_reward_sum=ep_reward_sum,
+            nonfinite_resets=nonfinite,
+            mean_terrain_level=level_sum / batch,
             lr=ts.lr,
             action_std_mean=ts.net.std.detach().abs().mean(),
         )
@@ -308,10 +390,12 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int) -> d
         "compute_gae": compute_gae,
         "update_phase": update_phase,
         "minibatch_update": minibatch_update,
+        "minibatch_rows": minibatch_rows,
     }
 
 
-def make_train_iter(env, net: ActorCritic, cfg: PPOConfig, num_envs: int) -> Callable:
+def make_train_iter(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
+                    group: Optional[EnvGroup] = None, perm_seed: Optional[int] = None) -> Callable:
     """train_iter(ts, env_state, obs, priv_obs, gen) ->
-    (ts, env_state, obs, priv_obs, metrics)."""
-    return make_train_pieces(env, net, cfg, num_envs)["train_iter"]
+    (ts, env_state, obs, priv_obs, metrics); see make_train_pieces."""
+    return make_train_pieces(env, net, cfg, num_envs, group, perm_seed)["train_iter"]

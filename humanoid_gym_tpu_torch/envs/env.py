@@ -13,6 +13,7 @@ Port of humanoid_gym_tpu/envs/env.py. One call of `step(state, actions)` keeps t
   -> masked auto-reset
   -> observations with frame stacking + noise
   -> last_* buffer rotation
+  -> command curriculum (one lin_vel_x range for the whole batch)
 
 Random draws come from one `torch.Generator` on the env's device (the JAX
 package splits a per-env key). Masked draws (command resample, push, reset)
@@ -32,7 +33,12 @@ the measured heights read the 3-tap-min observation height function; the
 physics resolves contacts on the bilinear surface with sloped frames; the
 terrain curriculum moves a resetting env's level by distance walked or by
 survival (`curriculum_mode`), with a random re-entry above the top level.
-Not ported: the command curriculum.
+
+Under env sharding (`parallel/`) an env holds one rank's block of the
+global batch: `env_offset` is its first global index and
+`num_envs_global` the global count, so the terrain types spread over the
+global index as the JAX package's `init_state(keys, idx)` spreads them, and
+the command curriculum's mean over resetting envs is summed over the ranks.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 
 from ..config.base import LeggedRobotCfg
+from ..parallel.mesh import EnvGroup, all_reduce_sum
 from ..physics import spatial as S
 from ..physics.kinematics import body_velocities, fk, use_full_f32_matmul
 from ..physics.model import RobotModel, build_model_from_urdf
@@ -94,13 +101,19 @@ class HumanoidEnv:
         terrain_height_fn=None,
         terrain_origins: Optional[np.ndarray] = None,
         terrain_map: Optional[TerrainMap] = None,
+        env_offset: int = 0,
+        num_envs_global: Optional[int] = None,
+        group: Optional[EnvGroup] = None,
     ):
-        if cfg.commands.curriculum:
-            raise ValueError("the PyTorch port has no command curriculum yet")
         use_full_f32_matmul()
         self.cfg = cfg
         self.device = torch.device(device)
         self.num_envs = num_envs or cfg.env.num_envs
+        # this env's block of the global env axis, and the group whose
+        # ranks hold the other blocks (None: one process holds them all)
+        self.env_offset = env_offset
+        self.num_envs_global = num_envs_global or self.num_envs
+        self.group = group
         model = model or build_model_from_urdf(
             cfg.asset.file,
             dof_order=list(cfg.init_state.default_joint_angles.keys()),
@@ -294,14 +307,15 @@ class HumanoidEnv:
             if dr.randomize_contact_slope else torch.zeros((n, 2), device=dev)
 
         # terrain placement: a level below max_init (any row without the
-        # curriculum), types spread evenly over the env index
+        # curriculum), types spread evenly over the global env index
         # (legged_robot.py:694)
         if self.custom_origins and self.terrain_origins is not None:
             tc = cfg.terrain
             max_init = tc.max_init_terrain_level if tc.curriculum else tc.num_rows - 1
             level = torch.randint(0, max_init + 1, (n,), generator=self.gen, device=dev,
                                   dtype=torch.int32)
-            ttype = (torch.arange(n, device=dev) * tc.num_cols // max(self.num_envs, 1)).to(torch.int32)
+            idx = torch.arange(self.env_offset, self.env_offset + n, device=dev)
+            ttype = (idx * tc.num_cols // max(self.num_envs_global, 1)).to(torch.int32)
             origin = self.terrain_origin(level, ttype)
         else:
             level = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -383,6 +397,36 @@ class HumanoidEnv:
         level = torch.where(done, new_level, level)
         origin = self.terrain_origin(level, state.terrain_type)
         return level, torch.where(done[:, None], origin, env_origin)
+
+    def _command_curriculum(self, vx_range, common_step, done, ep_term_sums):
+        """The lin_vel_x range after the command curriculum (reference
+        legged_robot.py:422-431; JAX package envs/env.py:897-936): every
+        range widens by +-0.5 (clipped to max_curriculum) when the mean
+        tracking_lin_vel episode reward over the envs resetting this step
+        exceeds 80% of its per-step maximum, at most once per
+        max_episode_length common steps. The count and the sum behind the
+        mean are summed over the ranks, so every rank widens on the same
+        step. As in the JAX package, this step's resetting envs drew their
+        commands from the range before the update (a one-resample lag)."""
+        cfg = self.cfg.commands
+        if not cfg.curriculum or "tracking_lin_vel" not in self.reward_names:
+            return vx_range
+        ti = self.reward_names.index("tracking_lin_vel")
+        n_reset, track_sum = all_reduce_sum(
+            [done.sum().to(torch.float32), ep_term_sums[:, ti].sum()], self.group)
+        # ep_term_sums = episode sums / episode_length_s at reset, so x dt
+        # gives sums / max_episode_length
+        mean_track = track_sum * self.dt / torch.clamp(n_reset, min=1.0)
+        check = (common_step[0] % self.max_episode_length) == 0
+        good = (n_reset > 0) & check & (mean_track > 0.8 * self.reward_scales[ti])
+        mc = cfg.max_curriculum
+        grown = torch.stack([torch.clamp(vx_range[:, 0] - 0.5, -mc, 0.0),
+                             torch.clamp(vx_range[:, 1] + 0.5, 0.0, mc)], dim=-1)
+        return torch.where(good, grown, vx_range)
+
+    def global_env_ids(self) -> torch.Tensor:
+        """The global env index of each of this env's envs, in order."""
+        return torch.arange(self.env_offset, self.env_offset + self.num_envs)
 
     # ------------------------------------------------------------------ #
 
@@ -660,7 +704,8 @@ class HumanoidEnv:
             projected_gravity=projected_gravity,
             episode_sums=episode_sums,
             episode_reward=episode_reward,
-            cmd_vx_range=state.cmd_vx_range,
+            cmd_vx_range=self._command_curriculum(state.cmd_vx_range, common_step, done,
+                                                  ep_term_sums),
             terrain_level=level,
             terrain_type=state.terrain_type,
             env_origin=env_origin,

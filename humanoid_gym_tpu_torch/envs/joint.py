@@ -7,16 +7,23 @@ boundaries, each slice is stepped by its own robot's env (its own model,
 gains, physics step and, on the card, its own mega-kernel launch with that
 model's constants), and the transitions are concatenated along the env
 axis. The joint state is the list of the sub-envs' EnvStates.
+
+Under env sharding each rank holds its block of every sub-env (1/world of
+each robot's envs), and the global env axis is the sub-envs' global
+batches concatenated in order, as the JAX runner's list state, each
+sub-env sharded over the env axis, lays it out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import EnvGroup
+from ..parallel.multihost import rank_seed
 from .env import HumanoidEnv, Transition
 
 
@@ -51,7 +58,15 @@ class JointEnv:
         self.max_episode_length = max(e.max_episode_length for e in envs)
         self.reward_names = e0.reward_names
         self.model = e0.model  # flagship model (for tooling that needs one)
+        self.group = e0.group
+        self.num_envs_global = sum(e.num_envs_global for e in envs)
         self._offsets = np.cumsum([0] + self.counts[:-1]).tolist()
+
+    def global_env_ids(self) -> torch.Tensor:
+        """The global env index of each env of the batch: sub-env i's
+        indices shifted by the global counts of the sub-envs before it."""
+        base = np.cumsum([0] + [e.num_envs_global for e in self.envs[:-1]]).tolist()
+        return torch.cat([b + e.global_env_ids() for b, e in zip(base, self.envs)])
 
     def init_state(self) -> list:
         """The joint state: each sub-env's initial state, in order."""
@@ -77,15 +92,17 @@ class JointEnv:
 
 
 def make_joint_xbot_env(num_envs_l: int, num_envs_s: int, cfg_overrides=None, device="cuda",
-                        seed: int = 0) -> JointEnv:
-    """XBot-L + XBot-S in one batch; `cfg_overrides` (a callable editing
-    each sub-env's config) reaches both robots' env builds. Each sub-env
-    draws from its own generator, seeded by `sub_env_seed(seed, index)`."""
+                        seed: int = 0, group: Optional[EnvGroup] = None) -> JointEnv:
+    """XBot-L + XBot-S in one batch of `num_envs_l` + `num_envs_s` global
+    envs; `cfg_overrides` (a callable editing each sub-env's config)
+    reaches both robots' env builds. Each sub-env draws from its own
+    generator, seeded by `sub_env_seed(rank_seed(seed, group), index)`; under
+    a group the world size must divide both counts."""
     from .. import registry
 
-    env_l, _ = registry.make_env("humanoid_ppo", num_envs=num_envs_l, cfg_overrides=cfg_overrides,
-                                 device=device, seed=sub_env_seed(seed, 0))
-    env_s, _ = registry.make_env("humanoid_s_ppo", num_envs=num_envs_s,
-                                 cfg_overrides=cfg_overrides, device=device,
-                                 seed=sub_env_seed(seed, 1))
-    return JointEnv([env_l, env_s], [num_envs_l, num_envs_s])
+    seed = rank_seed(seed, group)
+    env_l, _ = registry.make_env_block("humanoid_ppo", num_envs_l, cfg_overrides, device,
+                                       sub_env_seed(seed, 0), group)
+    env_s, _ = registry.make_env_block("humanoid_s_ppo", num_envs_s, cfg_overrides, device,
+                                       sub_env_seed(seed, 1), group)
+    return JointEnv([env_l, env_s], [env_l.num_envs, env_s.num_envs])

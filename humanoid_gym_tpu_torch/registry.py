@@ -10,6 +10,11 @@ MuJoCo deployment heightfield); the Froude-scaled `humanoid_s_ppo`; and the
 joint XBot-L + XBot-S batches `humanoid_joint_ppo` and
 `humanoid_joint_deploy` under one policy with the estimator head, whose
 envs come from their custom factory (`make_env_custom`).
+
+Under env sharding (`group=`) each rank builds its block of the global
+batch: `num_envs / world` envs at their global offset, drawing from a seed
+of their own (`parallel.multihost.rank_seed`), on the same terrain map as
+every other rank (built from the task's own seed, not the rank's).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 class TaskSpec(NamedTuple):
     make_env_cfg: Callable  # () -> LeggedRobotCfg
     make_train_cfg: Callable  # () -> PPOCfg
-    # (num_envs, cfg_overrides, device, seed) -> env
+    # (num_envs, cfg_overrides, device, seed, group) -> env
     make_env_custom: Optional[Callable] = None
 
 
@@ -42,21 +47,42 @@ def task_names():
 
 
 def make_env(name: str, num_envs: Optional[int] = None, cfg_overrides=None, device="cuda",
-             seed: int = 0):
+             seed: int = 0, group=None):
     """Build (env, env_cfg) for a registered task on `device` (default: the
     card). `cfg_overrides(cfg)` edits the config before the env is built
-    (for a joint task, each sub-env's config)."""
-    from .envs import make_env as _make
-
+    (for a joint task, each sub-env's config). `num_envs` is the global
+    count; under a `group` (`parallel.EnvGroup`) the env holds this rank's
+    block of it and draws from `rank_seed(seed, group)`."""
     spec = get_task(name)
+    if spec.make_env_custom is not None:
+        cfg = _task_cfg(spec, num_envs, cfg_overrides)
+        return spec.make_env_custom(cfg.env.num_envs, cfg_overrides, device, seed, group), cfg
+    from .parallel.multihost import rank_seed
+
+    return make_env_block(name, num_envs, cfg_overrides, device, rank_seed(seed, group), group)
+
+
+def _task_cfg(spec: TaskSpec, num_envs, cfg_overrides):
     cfg = spec.make_env_cfg()
     if cfg_overrides:
         cfg_overrides(cfg)
     if num_envs is not None:
         cfg.env.num_envs = num_envs
-    if spec.make_env_custom is not None:
-        return spec.make_env_custom(cfg.env.num_envs, cfg_overrides, device, seed), cfg
-    return _make(cfg, device=device, seed=seed), cfg
+    return cfg
+
+
+def make_env_block(name: str, num_envs: Optional[int], cfg_overrides, device, env_seed: int,
+                   group):
+    """(env, env_cfg) of a task without a custom factory: this rank's block
+    of `num_envs` global envs, its generator seeded by `env_seed` as given."""
+    from .envs import make_env as _make
+    from .parallel.multihost import local_env_slice
+
+    cfg = _task_cfg(get_task(name), num_envs, cfg_overrides)
+    start, count = local_env_slice(cfg.env.num_envs, group)
+    env = _make(cfg, num_envs=count, device=device, seed=env_seed, env_offset=start,
+                num_envs_global=cfg.env.num_envs, group=group)
+    return env, cfg
 
 
 def _register_builtin():
@@ -171,11 +197,12 @@ def _register_builtin():
     register("humanoid_s_ppo", XBotSCfg, XBotSCfgPPO)
 
     # joint XBot-L + XBot-S batch under one policy, half of the envs each
-    def joint_env(num_envs, cfg_overrides=None, device="cuda", seed=0):
+    def joint_env(num_envs, cfg_overrides=None, device="cuda", seed=0, group=None):
         from .envs.joint import make_joint_xbot_env
 
         half = num_envs // 2
-        return make_joint_xbot_env(num_envs - half, half, cfg_overrides, device=device, seed=seed)
+        return make_joint_xbot_env(num_envs - half, half, cfg_overrides, device=device, seed=seed,
+                                   group=group)
 
     def joint_ppo():
         cfg = XBotLCfgPPO()
@@ -209,7 +236,7 @@ def _register_builtin():
         cfg.terrain.froude_scale = 1.0
         cfg.terrain.deploy_mjcf = None
 
-    def joint_deploy_env(num_envs, cfg_overrides=None, device="cuda", seed=0):
+    def joint_deploy_env(num_envs, cfg_overrides=None, device="cuda", seed=0, group=None):
         from .envs.joint import make_joint_xbot_env
 
         def ov(cfg):
@@ -218,7 +245,8 @@ def _register_builtin():
                 cfg_overrides(cfg)
 
         half = num_envs // 2
-        return make_joint_xbot_env(num_envs - half, half, ov, device=device, seed=seed)
+        return make_joint_xbot_env(num_envs - half, half, ov, device=device, seed=seed,
+                                   group=group)
 
     def joint_deploy_cfg():
         cfg = XBotLCfg()

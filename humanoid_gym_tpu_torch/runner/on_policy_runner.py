@@ -1,9 +1,20 @@
-"""OnPolicyRunner: the training orchestration loop, for one device.
+"""OnPolicyRunner: the training orchestration loop, on one device or one
+rank of an env-sharded run.
 
 Port of humanoid_gym_tpu/runner/on_policy_runner.py: the same scalar names
 on TensorBoard and in metrics.jsonl, the same console line, a checkpoint
 every save_interval, resumable. The per-iteration work (rollout + GAE +
 update) is `algo.ppo.make_train_iter`; the runner adds no arithmetic.
+
+Under env sharding the env's group (`env.group`, from `registry.make_env(
+..., group=)`) makes this process one rank: the parameters are broadcast
+from rank 0 at start; the action noise draws from the rank's own seed, the
+minibatch permutation and the random episode lengths from the run's seed
+on every rank; TensorBoard, metrics.jsonl, the console and the model
+checkpoints are rank 0's, while every rank keeps rank 0's (broadcast)
+checkpoint directory. The final checkpoint's env state is one file per
+rank, `<path>.envshard<rank>`, which `load` reads back, raising on another
+world size or env count.
 
 Metrics stay on the device until they are logged. Logging is double
 buffered: iteration i+1 is enqueued before iteration i's metrics are read,
@@ -14,8 +25,7 @@ Checkpoints are `torch.save` files of tensors and plain Python values:
 the train state (net weights, Adam moments and count, adaptive learning
 rate, iteration), the resolved net compute dtype, and on the final
 checkpoint the env state with its observations (for a joint env, the list
-of its sub-envs' states). The multi-device and multi-process parts of the
-reference runner are not ported.
+of its sub-envs' states).
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ import torch
 from ..algo.networks import ActorCritic, dtype_name, resolve_compute_dtype
 from ..algo.ppo import PPOConfig, init_train_state, make_train_iter
 from ..envs.state import EnvState
+from ..parallel.mesh import replicate
+from ..parallel.multihost import broadcast_str, rank_seed, shard_path
 
 
 def _state_to_dict(obj) -> dict:
@@ -93,9 +105,11 @@ class OnPolicyRunner:
         self.log_dir = log_dir
         self.seed = train_cfg.seed if seed is None else seed
         self.device = env.device
+        self.group = env.group
+        self.is_main_process = self.group is None or self.group.is_main
 
         ec = env.cfg.env
-        self.num_envs = env.num_envs
+        self.num_envs = env.num_envs_global
         self.num_steps_per_env = train_cfg.runner.num_steps_per_env
         self.save_interval = train_cfg.runner.save_interval
 
@@ -109,20 +123,31 @@ class OnPolicyRunner:
             estimator_dim=getattr(train_cfg.policy, "estimator_dim", 0),
             estimator_hidden=tuple(getattr(train_cfg.policy, "estimator_hidden_dims", (256, 128))),
         ).to(self.device)
+        replicate(list(self.net.parameters()), self.group)
         algo_cfg = PPOConfig.from_cfg(train_cfg.algorithm)
         algo_cfg.num_steps_per_env = self.num_steps_per_env
         self.algo_cfg = algo_cfg
         self.train_state = init_train_state(self.net, algo_cfg.learning_rate)
 
-        # the runner's own draws (action noise, minibatch permutation,
-        # random episode lengths); the env draws from its own generator
+        # the action noise of this rank's envs; the minibatch permutation
+        # and the random episode lengths draw from the run's seed, the same
+        # on every rank, and the env from its own generator
         self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(self.seed)
+        self.gen.manual_seed(rank_seed(self.seed, self.group))
 
         # env state + first obs (reference on_policy_runner.py:91 env.reset())
         self.env_state, self.obs, self.priv_obs = env.reset_all()
-        self._train_iter = make_train_iter(env, self.net, algo_cfg, self.num_envs)
+        self._train_iter = make_train_iter(env, self.net, algo_cfg, self.num_envs, self.group,
+                                           perm_seed=self.seed)
 
+        # every rank keeps rank 0's checkpoint directory (each would name a
+        # timestamped one by its own clock); the log sinks are rank 0's
+        self._ckpt_dir = broadcast_str(log_dir, self.group) or None
+        if self._ckpt_dir:
+            os.makedirs(self._ckpt_dir, exist_ok=True)
+        if not self.is_main_process:
+            log_dir = self.log_dir = None
+        self.last_scalars = None
         self.writer = None
         self.wandb_run = None
         self._metrics_file = None
@@ -171,11 +196,14 @@ class OnPolicyRunner:
 
     def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = False):
         if init_at_random_ep_len:
-            # (reference on_policy_runner.py:103-106)
+            # (reference on_policy_runner.py:103-106): drawn for the global
+            # batch from the run's seed, each rank taking its envs' lengths
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.seed)
             ep_len = torch.randint(
-                0, self.env.max_episode_length, (self.num_envs,), generator=self.gen,
+                0, self.env.max_episode_length, (self.num_envs,), generator=gen,
                 device=self.device, dtype=torch.int32,
-            )
+            )[self.env.global_env_ids().to(self.device)]
             if isinstance(self.env_state, list):  # a joint env: one slice per sub-env
                 parts = torch.split(ep_len, [st.episode_length.shape[0] for st in self.env_state])
                 self.env_state = [st.replace(episode_length=p)
@@ -217,12 +245,12 @@ class OnPolicyRunner:
                 self.save(os.path.join(self.log_dir, f"model_{it}.ckpt"))
         if pending is not None:
             consume(*pending)
-        if self.log_dir:
+        if self._ckpt_dir:
             # the final checkpoint bundles the env state (command ranges, DR
             # draws, histories) with its observations, so a resumed run
-            # continues from the same envs
+            # continues from the same envs; every rank writes its shard
             self.save(
-                os.path.join(self.log_dir, f"model_{self.current_learning_iteration}.ckpt"),
+                os.path.join(self._ckpt_dir, f"model_{self.current_learning_iteration}.ckpt"),
                 include_env_state=True,
             )
         self.close()
@@ -270,6 +298,9 @@ class OnPolicyRunner:
         if n_resets > 0:
             for name, s in zip(self.env.reward_names, metrics["ep_term_sums"].tolist()):
                 scalars[f"Episode/rew_{name}"] = float(s) / n_resets
+        self.last_scalars = scalars
+        if not self.is_main_process:
+            return
         if self.writer:
             for k, v in scalars.items():
                 self.writer.add_scalar(k, v, it)
@@ -317,6 +348,25 @@ class OnPolicyRunner:
         self.net.set_compute_dtype(recorded)
 
     def save(self, path: str, include_env_state: bool = False):
+        """Rank 0 writes the model checkpoint `path`. With the env state:
+        at world size 1 it goes into `path`; under sharding every rank
+        writes its own `<path>.envshard<rank>` and the ranks then wait for
+        each other, so every shard is on disk when any rank returns."""
+        sharded = self.group is not None and self.group.world > 1
+        if include_env_state and sharded:
+            torch.save({
+                "env_state": _env_state_to_saved(self.env_state),
+                "obs": self.obs.detach().cpu(),
+                "priv_obs": self.priv_obs.detach().cpu(),
+                "world": self.group.world,
+            }, shard_path(path, self.group.rank))
+        if self.is_main_process:
+            self._save_model(path, include_env_state and not sharded,
+                             self.group.world if include_env_state and sharded else None)
+        if include_env_state and sharded:
+            self.group.barrier()
+
+    def _save_model(self, path: str, include_env_state: bool, env_shards):
         ts = self.train_state
         cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
         payload = {
@@ -331,6 +381,8 @@ class OnPolicyRunner:
             "iter": self.current_learning_iteration,
             "compute_dtype": self._resolved_dtype(),
         }
+        if env_shards:
+            payload["env_shards"] = env_shards
         if include_env_state:
             payload["env_state"] = _env_state_to_saved(self.env_state)
             # the obs that correspond to that state, so the first resumed
@@ -352,6 +404,18 @@ class OnPolicyRunner:
         ts.lr = saved["lr"].to(self.device)
         ts.iteration = int(saved["iteration"])
         self.current_learning_iteration = int(payload.get("iter", 0))
+        world = 1 if self.group is None else self.group.world
+        shards = payload.get("env_shards")
+        if shards is not None or (world > 1 and "env_state" in payload):
+            if shards != world:
+                raise ValueError(f"ckpt env state has {shards or 1} shard(s), "
+                                 f"the run has {world} rank(s)")
+            shard = torch.load(shard_path(path, self.group.rank), map_location="cpu",
+                               weights_only=True)
+            self.env_state = _env_state_from_saved(shard["env_state"], self.env_state)
+            self.obs = shard["obs"].to(self.device)
+            self.priv_obs = shard["priv_obs"].to(self.device)
+            return payload.get("infos")
         # bundled env state (final checkpoints): restored when the env count
         # matches, skipped otherwise (an eval runner of another size)
         es = payload.get("env_state")

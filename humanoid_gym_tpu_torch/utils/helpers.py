@@ -3,8 +3,10 @@
 The port's own copy of humanoid_gym_tpu/utils/helpers.py (pure Python, no
 array library): the same flag surface (--task/--resume/--experiment_name/
 --run_name/--load_run/--checkpoint/--headless/--num_envs/--seed/
---max_iterations/--log_root) plus --device, which defaults to the card.
-Checkpoint discovery (get_load_path) orders runs by mtime.
+--max_iterations/--log_root) plus --device, which defaults to the card,
+and --backend, the process group's backend when the script runs as one
+rank of several under `torchrun`. Checkpoint discovery (get_load_path)
+orders runs by mtime.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ def get_args(argv=None):
     p.add_argument("--log_root", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' (default) needs a card, 'cpu' runs the plain versions")
+    p.add_argument("--backend", type=str, default=None, choices=("nccl", "gloo"),
+                   help="process-group backend under torchrun (WORLD_SIZE set): nccl (default on "
+                        "the card, one card per rank) or gloo (CPU ranks, ranks sharing a card)")
     return p.parse_args(argv)
 
 

@@ -3,6 +3,13 @@
 Usage:
     python scripts/train_torch.py --task humanoid_ppo --num_envs 4096 \
         --max_iterations 3001 --run_name v1
+    torchrun --standalone --nproc_per_node=K scripts/train_torch.py --task humanoid_ppo \
+        --num_envs 16384 --backend nccl      # K ranks, num_envs / K envs each
+
+Under a launcher (WORLD_SIZE set) each process is one rank of an
+env-sharded run on `cuda:LOCAL_RANK` (or the CPU with `--device cpu` and
+`--backend gloo`); `--num_envs` is the global count and the world size must
+divide it. Without the launcher's variables it is a single process.
 
 Runs on the CUDA card unless `--device cpu` is given, and fails if there is
 no card. The contact solver is `mega` on the card and `apgd` on the CPU;
@@ -22,6 +29,24 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def train(args):
     import torch
 
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card found; pass --device cpu to run the plain versions")
+    group = None
+    if "WORLD_SIZE" in os.environ:
+        from humanoid_gym_tpu_torch.parallel import make_env_group
+
+        backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
+        group = make_env_group(backend, device=args.device)
+        device = group.device
+    try:
+        _train(args, device, group)
+    finally:
+        if group is not None:
+            group.close()
+
+
+def _train(args, device, group):
     from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.runner import OnPolicyRunner
     from humanoid_gym_tpu_torch.utils.helpers import (
@@ -30,10 +55,6 @@ def train(args):
         resolve_log_dir,
         update_cfg_from_args,
     )
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card found; pass --device cpu to run the plain versions")
 
     spec = registry.get_task(args.task)
     env_cfg = spec.make_env_cfg()
@@ -49,7 +70,8 @@ def train(args):
             load_run=train_cfg.runner.load_run,
             checkpoint=train_cfg.runner.checkpoint,
         )
-        print(f"Will resume from: {resume_path}")
+        if group is None or group.is_main:
+            print(f"Will resume from: {resume_path}")
 
     default_solver = "apgd" if device.type == "cpu" else "mega"
 
@@ -60,7 +82,7 @@ def train(args):
     overrides(env_cfg)  # so config.json records the solver that runs
     env, _ = registry.make_env(
         args.task, num_envs=env_cfg.env.num_envs, cfg_overrides=overrides, device=device,
-        seed=train_cfg.seed,
+        seed=train_cfg.seed, group=group,
     )
     runner = OnPolicyRunner(env, train_cfg, log_dir=log_dir)
     if runner.log_dir:

@@ -125,3 +125,21 @@ def test_ptxas_summary_names_both_instantiations(smoke):
     out = smoke._ptxas_summary(log)
     assert "hgt_mega_kernel<false>: Used 64 registers" in out and "112 bytes stack" in out
     assert "hgt_mega_kernel<true>: Used 64 registers" in out and "200 bytes stack" in out
+
+
+def test_phase13_is_wired_and_its_digests(smoke):
+    """Phase 13 runs after phase 12, its ranks re-enter the script through
+    `--phase13-rank`, and the B1 and B2 records carry its launches per rank;
+    the digests it compares between ranks read every tensor of a saved
+    state, in field order."""
+    import torch
+
+    src = open(SCRIPT).read()
+    assert "launches_ranks = _phase13_ranks(card)" in src
+    assert src.count("two_rank_launches=launches_ranks") == 2
+    assert 'sys.argv[1:2] == ["--phase13-rank"]' in src
+    saved = {"phys": {"qpos": torch.ones(2, 3)}, "commands": torch.zeros(2, 4)}
+    assert [tuple(t.shape) for t in smoke._state_tensors(saved)] == [(2, 3), (2, 4)]
+    one = smoke._digest(smoke._state_tensors(saved))
+    assert one == smoke._digest([torch.ones(2, 3), torch.zeros(2, 4)])
+    assert one != smoke._digest([torch.ones(2, 3), torch.ones(2, 4)])

@@ -60,6 +60,31 @@ def test_train_script_cpu_run(tmp_path):
     assert payload["iter"] == 2 and payload["env_state"]["phys"]["qpos"].shape == (8, 19)
 
 
+def test_train_script_two_ranks_on_cpu(tmp_path):
+    """The script as 2 ranks under the launcher's variables (RANK,
+    WORLD_SIZE, MASTER_ADDR / MASTER_PORT, as torchrun sets them) with
+    `--device cpu --backend gloo --num_envs 4`: one console line per
+    iteration (rank 0's alone), one run directory, the final checkpoint with
+    one env shard of 2 envs per rank."""
+    from humanoid_gym_tpu_torch.parallel.launch import RankJob
+
+    env = dict(os.environ, HGT_WANDB="0", OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    env.pop("HGT_SOLVER", None)
+    outs = RankJob([sys.executable, SCRIPT, "--task", "humanoid_ppo", "--num_envs", "4",
+                    "--max_iterations", "1", "--device", "cpu", "--backend", "gloo",
+                    "--run_name", "ranks", "--log_root", str(tmp_path)], 2, env).wait(600)
+    assert "it 0/1" in outs[0] and "it 0/1" not in outs[1]
+    runs = glob.glob(str(tmp_path / "*_ranks"))
+    assert len(runs) == 1
+    assert sorted(f for f in os.listdir(runs[0]) if f.startswith("model_")) == [
+        "model_0.ckpt", "model_1.ckpt", "model_1.ckpt.envshard0", "model_1.ckpt.envshard1"]
+    payload = torch.load(os.path.join(runs[0], "model_1.ckpt"), weights_only=True)
+    assert payload["env_shards"] == 2 and "env_state" not in payload
+    for r in range(2):
+        shard = torch.load(os.path.join(runs[0], f"model_1.ckpt.envshard{r}"), weights_only=True)
+        assert shard["world"] == 2 and shard["env_state"]["phys"]["qpos"].shape == (2, 19)
+
+
 TASKS = ["humanoid_joint_deploy", "humanoid_joint_ppo", "humanoid_ppo", "humanoid_ppo_deploy",
          "humanoid_ppo_robust", "humanoid_ppo_rubble", "humanoid_ppo_small", "humanoid_ppo_terrain",
          "humanoid_ppo_terrain_robust", "humanoid_s_ppo"]

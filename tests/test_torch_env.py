@@ -512,3 +512,176 @@ def test_terrain_level_past_the_top_row_matches_jax():
         torch.from_numpy(np.array(jtr.time_out)), torch.from_numpy(want_l.astype(np.int64)))
     np.testing.assert_array_equal(level.numpy(), want_l)
     np.testing.assert_allclose(origin.numpy(), want_o, atol=1e-6)
+
+
+# ------------------------------------------------------------------ command curriculum
+
+
+def _curriculum_cfg(cfg, n):
+    """The quiet config with the command curriculum on (max_curriculum
+    1.7), as tests/test_env.py:339 sets it up."""
+    _quiet(cfg, n, 8)
+    cfg.domain_rand.randomize_friction = False
+    cfg.domain_rand.randomize_base_mass = False
+    cfg.commands.curriculum = True
+    cfg.commands.max_curriculum = 1.7
+    cfg.sim.solver.solver_type = "apgd"
+    return cfg
+
+
+def _at_the_gate(js, env, track, ep_len, common_step, vx_range=None):
+    """JAX state `js` with env i's tracking_lin_vel episode sum at track[i] x
+    its per-step maximum x max_episode_length, the episode lengths and the
+    common step given (the step taken next is the gate's when common_step
+    = L - 1, and envs with ep_len = L time out in it)."""
+    ti = env.reward_names.index("tracking_lin_vel")
+    L = env.max_episode_length
+    es = np.zeros(js.episode_sums.shape, np.float32)
+    es[:, ti] = np.asarray(track, np.float32) * float(env.reward_scales[ti]) * L
+    n = es.shape[0]
+    kw = dict(episode_sums=jnp.asarray(es),
+              episode_length=jnp.asarray(np.asarray(ep_len, np.int32)),
+              common_step=jnp.full((n,), common_step, jnp.int32))
+    if vx_range is not None:
+        kw["cmd_vx_range"] = jnp.asarray(np.broadcast_to(np.float32(vx_range), (n, 2)))
+    return js.replace(**kw)
+
+
+def test_command_curriculum_matches_jax():
+    """Port of tests/test_env.py:339 against the JAX package from one
+    injected state (4 envs, every one timing out at the gate step unless
+    said otherwise): the range widens by +-0.5 when the mean tracking
+    reward over the resetting envs exceeds 80% of its maximum; it stays at
+    0 tracking, off the gate step, and when the mean is taken over the
+    resetting half only (0.85 there, 0.425 over all envs: it widens); it
+    clips at max_curriculum. Ranges equal to 1e-6, done flags exact."""
+    n = 4
+    jenv = jax_make_env(_curriculum_cfg(JaxCfg(), n))
+    tenv = torch_make_env(_curriculum_cfg(TorchCfg(), n), device="cpu", seed=0)
+    assert tenv.reward_names == jenv.reward_names
+    js0 = jax.jit(jenv.init_state)(jax.random.split(jax.random.PRNGKey(7), n), jnp.arange(n))
+    jstep = jax.jit(jenv.step)
+    L = jenv.max_episode_length
+    base = np.asarray(TorchCfg().commands.ranges.lin_vel_x, np.float32)
+    grown = np.array([max(base[0] - 0.5, -1.7), min(base[1] + 0.5, 1.7)], np.float32)
+    cases = [
+        ([0.95] * 4, [L] * 4, L - 1, None, grown),
+        ([0.0] * 4, [L] * 4, L - 1, None, base),
+        ([0.95] * 4, [L] * 4, L, None, base),  # off the gate step
+        ([0.85, 0.85, 0.0, 0.0], [L, L, 0, 0], L - 1, None, grown),
+        ([0.95] * 4, [L] * 4, L - 1, [-1.5, 1.5], np.array([-1.7, 1.7], np.float32)),
+    ]
+    zero = np.zeros((n, 12), np.float32)
+    for track, ep_len, common, vx_range, want in cases:
+        js = _at_the_gate(js0, jenv, track, ep_len, common, vx_range)
+        js1, jtr = jstep(js, jnp.asarray(zero))
+        ts1, ttr = tenv.step(env_state_from_jax(js), torch.from_numpy(zero))
+        np.testing.assert_array_equal(ttr.done.numpy(), np.asarray(jtr.done))
+        np.testing.assert_array_equal(np.asarray(jtr.done), np.asarray(ep_len) == L)
+        np.testing.assert_allclose(ts1.cmd_vx_range.numpy(), np.asarray(js1.cmd_vx_range),
+                                   atol=1e-6)
+        np.testing.assert_allclose(ts1.cmd_vx_range.numpy(), np.broadcast_to(want, (n, 2)),
+                                   atol=1e-6, err_msg=str((track, ep_len, common)))
+
+
+def test_command_curriculum_one_resample_lag():
+    """The envs resetting on the widening step draw their commands from
+    the range before it (the JAX package's one-resample lag, envs/env.py:
+    906-910); the next resets draw from the widened range. 64 envs."""
+    n = 64
+    tenv = torch_make_env(_curriculum_cfg(TorchCfg(), n), device="cpu", seed=3)
+    L = tenv.max_episode_length
+    ti = tenv.reward_names.index("tracking_lin_vel")
+    st = tenv.init_state()
+    es = torch.zeros_like(st.episode_sums)
+    es[:, ti] = 0.95 * tenv.reward_scales[ti] * L
+    st = st.replace(episode_sums=es, episode_length=torch.full((n,), L, dtype=torch.int32),
+                    common_step=torch.full((n,), L - 1, dtype=torch.int32))
+    zero = torch.zeros((n, 12))
+    st1, tr1 = tenv.step(st, zero)
+    assert bool(tr1.done.all())
+    np.testing.assert_allclose(st1.cmd_vx_range[0].numpy(), [-0.8, 1.1], atol=1e-6)
+    vx1 = st1.commands[:, 0]
+    assert bool(((vx1 >= -0.3) & (vx1 <= 0.6)).all())
+    st2, tr2 = tenv.step(st1.replace(episode_length=torch.full((n,), L, dtype=torch.int32)), zero)
+    assert bool(tr2.done.all())
+    np.testing.assert_allclose(st2.cmd_vx_range[0].numpy(), [-0.8, 1.1], atol=1e-6)
+    vx2 = st2.commands[:, 0]
+    assert bool(((vx2 >= -0.8) & (vx2 <= 1.1)).all())
+    assert bool(((vx2 < -0.3) | (vx2 > 0.6)).any())
+
+
+CURRICULUM_WORKER = r'''
+import os, sys
+sys.path.insert(0, os.environ["HGT_REPO"])
+import torch
+torch.set_num_threads(1)
+from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
+from humanoid_gym_tpu_torch.envs import make_env
+from humanoid_gym_tpu_torch.parallel import make_env_group
+from humanoid_gym_tpu_torch.runner.on_policy_runner import _env_state_from_saved
+work = sys.argv[1]
+group = make_env_group("gloo", device="cpu", init_method=f"file://{work}/rdv")
+inp = torch.load(f"{work}/in.pt", weights_only=True)
+cfg = XBotLCfg()
+cfg.noise.add_noise = False
+cfg.domain_rand.push_robots = False
+cfg.domain_rand.action_delay = 0.0
+cfg.domain_rand.action_noise = 0.0
+cfg.domain_rand.randomize_friction = False
+cfg.domain_rand.randomize_base_mass = False
+cfg.commands.curriculum = True
+cfg.commands.max_curriculum = 1.7
+cfg.sim.solver.solver_type = "apgd"
+cfg.sim.solver.solver_iterations = 8
+n = inp["n"]
+per = n // group.world
+lo = group.rank * per
+env = make_env(cfg, num_envs=per, device="cpu", seed=0, env_offset=lo, num_envs_global=n,
+               group=group)
+
+def cut(d):
+    return {k: cut(v) if isinstance(v, dict) else v[lo:lo + per] for k, v in d.items()}
+
+out = []
+for saved in inp["states"]:
+    st = _env_state_from_saved(cut(saved), env.init_state())
+    st, _ = env.step(st, torch.zeros((per, 12)))
+    out.append(st.cmd_vx_range)
+torch.save(out, f"{work}/out{group.rank}.pt")
+group.close()
+'''
+
+
+def test_command_curriculum_over_two_ranks_widens_with_one_process(tmp_path):
+    """The same 4-env states split over 2 gloo ranks (envs 0-1, 2-3): every
+    rank's range equals one process's on the same step. Rank 0's envs track
+    at 100% and rank 1's at 70% of the maximum (mean 85%: widens, though
+    rank 1 alone would not), then 90% and 60% (mean 75%: stays, though
+    rank 0 alone would widen)."""
+    import os
+    import sys
+
+    from humanoid_gym_tpu_torch.parallel.launch import RankJob
+    from humanoid_gym_tpu_torch.runner.on_policy_runner import _env_state_to_saved
+
+    n = 4
+    jenv = jax_make_env(_curriculum_cfg(JaxCfg(), n))
+    tenv = torch_make_env(_curriculum_cfg(TorchCfg(), n), device="cpu", seed=0)
+    js0 = jax.jit(jenv.init_state)(jax.random.split(jax.random.PRNGKey(7), n), jnp.arange(n))
+    L = jenv.max_episode_length
+    states = [env_state_from_jax(_at_the_gate(js0, jenv, track, [L] * n, L - 1))
+              for track in ([1.0, 1.0, 0.7, 0.7], [0.9, 0.9, 0.6, 0.6])]
+    one = [tenv.step(st, torch.zeros((n, 12)))[0].cmd_vx_range for st in states]
+    np.testing.assert_allclose(one[0].numpy(), np.broadcast_to([-0.8, 1.1], (n, 2)), atol=1e-6)
+    np.testing.assert_allclose(one[1].numpy(), np.broadcast_to([-0.3, 0.6], (n, 2)), atol=1e-6)
+
+    torch.save({"n": n, "states": [_env_state_to_saved(s) for s in states]}, tmp_path / "in.pt")
+    (tmp_path / "worker.py").write_text(CURRICULUM_WORKER)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    RankJob([sys.executable, str(tmp_path / "worker.py"), str(tmp_path)], 2,
+            dict(os.environ, HGT_REPO=root, OMP_NUM_THREADS="1")).wait(240)
+    for r in range(2):
+        got = torch.load(tmp_path / f"out{r}.pt", weights_only=True)
+        for case in range(2):
+            assert torch.equal(got[case], one[case][2 * r:2 * r + 2]), (r, case)

@@ -1,0 +1,481 @@
+"""Env-sharded training of the port over two CPU processes (gloo), against
+the JAX package and against one process.
+
+The ranks are spawned by `humanoid_gym_tpu_torch.parallel.launch.RankJob` and meet
+through a file rendezvous in the test's tmp_path (no TCP port, so parallel
+test workers never collide); they import no JAX. The JAX side runs in the
+test's own process with the JAX package's functions, on the whole batch
+that the ranks split by the membership rule of `make_train_pieces`: a row
+of the global T x N batch belongs to the rank that holds its env."""
+
+import dataclasses
+import glob
+import json
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from humanoid_gym_tpu.algo import networks as JN
+from humanoid_gym_tpu.algo import ppo as JP
+from humanoid_gym_tpu_torch import registry
+from humanoid_gym_tpu_torch.algo.convert import actor_critic_from_flax
+from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
+from humanoid_gym_tpu_torch.parallel import EnvGroup, local_env_slice, rank_seed, shard_path
+from humanoid_gym_tpu_torch.parallel.launch import RankJob
+from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+O, P, A = 705, 219, 12
+WORLD = 2
+
+# One rank's program. argv: case, working dir, tag. It joins the group
+# through a file in the working dir, runs the case and saves what the test
+# compares as <dir>/<tag>_rank<r>.pt.
+WORKER = r'''
+import dataclasses, os, sys
+sys.path.insert(0, os.environ["HGT_REPO"])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from humanoid_gym_tpu_torch.parallel import make_env_group
+case, work, tag = sys.argv[1], sys.argv[2], sys.argv[3]
+group = make_env_group("gloo", device="cpu", init_method=f"file://{work}/rdv_{tag}")
+r = group.rank
+out = {}
+
+if case == "update":
+    from humanoid_gym_tpu_torch.algo.networks import ActorCritic
+    from humanoid_gym_tpu_torch.algo import ppo as TP
+    inp = torch.load(f"{work}/update_in.pt", weights_only=False)  # written by the test
+    T, N = inp["T"], inp["N"]
+    lo, hi = r * N // group.world, (r + 1) * N // group.world
+
+    def fresh_net():
+        net = ActorCritic(705, 219, 12)
+        net.load_state_dict(inp["params"])
+        return net
+
+    def block(x):  # this rank's envs of a (T, N, ...) array
+        return torch.from_numpy(x[:, lo:hi].copy())
+
+    # (b) minibatch updates: one minibatch of the whole batch, permuted
+    cfg = TP.PPOConfig(learning_rate=inp["lr"], num_steps_per_env=T, num_mini_batches=1)
+    net = fresh_net()
+    ts = TP.init_train_state(net, inp["lr"])
+    pieces = TP.make_train_pieces(None, net, cfg, N, group)
+    out["mb_rows"], out["mb_metrics"] = [], []
+    for mb_np, perm in zip(inp["minibatches"], inp["perms"]):
+        rows, counts = pieces["minibatch_rows"](torch.from_numpy(perm))
+        mb = tuple(block(x).reshape((-1,) + x.shape[2:])[rows] for x in mb_np)
+        ts, mets = pieces["minibatch_update"](ts, mb)
+        out["mb_rows"].append(rows)
+        out["mb_metrics"].append({k: float(v) for k, v in mets.items()})
+    out["mb_params"] = {k: v.clone() for k, v in net.state_dict().items()}
+    out["mb_lr"] = float(ts.lr)
+    out["mb_opt"] = torch.cat([v.reshape(-1) for d in (ts.opt_mu, ts.opt_nu) for v in d.values()])
+
+    # (c) GAE and the global advantage normalisation, and the update phase
+    # (2 epochs x 2 minibatches over one permutation) sharded; rank 0 also
+    # runs it as one process on the whole rollout
+    cfg = TP.PPOConfig(learning_rate=inp["lr"], num_steps_per_env=T, num_mini_batches=2)
+    names = ("obs", "priv_obs", "actions", "mu", "sigma", "log_probs", "values", "rewards", "dones")
+
+    def phases(g, cut):
+        net = fresh_net()
+        ts = TP.init_train_state(net, inp["lr"])
+        pc = TP.make_train_pieces(None, net, cfg, N, g)
+        roll = TP.Rollout(**{k: cut(inp["rollout"][k]) for k in names})
+        adv, ret = pc["compute_gae"](ts, roll, cut(inp["last_priv"][None])[0])
+        gen = torch.Generator().manual_seed(inp["perm_seed"])
+        ts, mets = pc["update_phase"](ts, roll, adv, ret, gen)
+        return adv, ret, {k: v.clone() for k, v in net.state_dict().items()}, mets
+
+    out["adv"], out["ret"], out["upd_params"], mets = phases(group, block)
+    out["upd_metrics"] = {k: float(v) for k, v in mets.items()}
+    if r == 0:
+        _, _, out["single_params"], mets = phases(None, torch.from_numpy)
+        out["single_metrics"] = {k: float(v) for k, v in mets.items()}
+
+elif case in ("train", "resume"):
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
+    from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+    from humanoid_gym_tpu_torch.runner.on_policy_runner import _env_state_to_saved
+
+    def ov(c):
+        c.sim.solver.solver_type = "apgd"
+
+    tcfg = XBotLCfgPPO()
+    tcfg.runner.num_steps_per_env = 2
+    tcfg.runner.save_interval = 100
+    tcfg.algorithm.num_mini_batches = 2
+    tcfg.algorithm.num_learning_epochs = 1
+    env, _ = registry.make_env("humanoid_ppo", num_envs=8, cfg_overrides=ov, device="cpu", seed=0,
+                               group=group)
+    if case == "train":
+        runner = OnPolicyRunner(env, tcfg, log_dir=f"{work}/run_{tag}_rank{r}", seed=5)
+        out["ckpt_dir"] = runner._ckpt_dir
+        runner.learn(2, init_at_random_ep_len=True)
+        out["scalars"] = runner.last_scalars
+    else:
+        runner = OnPolicyRunner(env, tcfg, log_dir=None, seed=123)
+        runner.load(sys.argv[4])
+        out["iter"] = runner.current_learning_iteration
+    out["env_state"] = _env_state_to_saved(runner.env_state)
+    out["obs"], out["priv_obs"] = runner.obs.clone(), runner.priv_obs.clone()
+    ts = runner.train_state
+    out["params"] = {k: v.clone() for k, v in runner.net.state_dict().items()}
+    out["opt"] = torch.cat([v.reshape(-1) for d in (ts.opt_mu, ts.opt_nu) for v in d.values()])
+    out["lr"], out["opt_count"] = float(ts.lr), ts.opt_count
+    if case == "resume":
+        runner.learn(1)
+        out["after_iter"] = runner.current_learning_iteration
+        out["after_scalars"] = runner.last_scalars
+        # the same world size with another env count refuses the shards
+        small, _ = registry.make_env("humanoid_ppo", num_envs=4, cfg_overrides=ov, device="cpu",
+                                     seed=0, group=group)
+        try:
+            OnPolicyRunner(small, tcfg, log_dir=None, seed=1).load(sys.argv[4])
+        except ValueError as e:
+            out["count_mismatch"] = str(e)
+
+torch.save(out, f"{work}/{tag}_rank{r}.pt")
+group.close()
+'''
+
+
+def _spawn(tmp_path, case, tag, *extra):
+    """Run WORKER's `case` on WORLD gloo ranks; each rank's saved dict."""
+    script = tmp_path / "worker.py"
+    if not script.exists():
+        script.write_text(WORKER)
+    env = dict(os.environ, HGT_REPO=ROOT, OMP_NUM_THREADS="1")
+    RankJob([sys.executable, str(script), case, str(tmp_path), tag, *extra], WORLD, env).wait(240)
+    return [torch.load(tmp_path / f"{tag}_rank{r}.pt", weights_only=False) for r in range(WORLD)]
+
+
+def test_local_env_slice_and_rank_seeds():
+    """(start, count) of each rank's block; a world size that does not
+    divide the env count raises; rank seeds are the seed itself at world
+    size 1 and distinct per rank otherwise."""
+    groups = [EnvGroup(rank=r, world=4, device=torch.device("cpu"), backend="gloo")
+              for r in range(4)]
+    assert [local_env_slice(4096, g) for g in groups] == [(0, 1024), (1024, 1024),
+                                                         (2048, 1024), (3072, 1024)]
+    assert local_env_slice(8, None) == (0, 8)
+    with pytest.raises(ValueError, match="not a multiple"):
+        local_env_slice(10, groups[1])
+    one = EnvGroup(rank=0, world=1, device=torch.device("cpu"), backend="gloo")
+    assert rank_seed(5, None) == rank_seed(5, one) == 5
+    seeds = [rank_seed(5, g) for g in groups]
+    assert len(set(seeds)) == 4 and 5 not in seeds
+    assert shard_path("run/model_3.ckpt", 1) == "run/model_3.ckpt.envshard1"
+
+
+def test_joint_env_rank_blocks_and_minibatch_rows():
+    """The joint XBot-L + XBot-S batch of 8 global envs (4 + 4) on rank 1 of
+    2: a block of each robot (global envs 2-3 of the L half and 6-7 of the
+    S half), each sub-env's generator seeded by sub_env_seed(rank_seed(seed,
+    group), index); the minibatch membership rule takes exactly the rows of
+    those envs, at their local positions."""
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, make_train_pieces
+    from humanoid_gym_tpu_torch.envs.joint import sub_env_seed
+
+    g = EnvGroup(rank=1, world=2, device=torch.device("cpu"), backend="gloo")
+    env, _ = registry.make_env("humanoid_joint_ppo", num_envs=8, device="cpu", seed=3, group=g,
+                               cfg_overrides=lambda c: setattr(c.sim.solver, "solver_type",
+                                                               "apgd"))
+    assert env.counts == [2, 2] and env.num_envs == 4 and env.num_envs_global == 8
+    assert [(e.env_offset, e.num_envs_global) for e in env.envs] == [(2, 4), (2, 4)]
+    assert env.global_env_ids().tolist() == [2, 3, 6, 7]
+    assert [e.gen.initial_seed() for e in env.envs] == [sub_env_seed(rank_seed(3, g), i)
+                                                        for i in range(2)]
+    T = 3
+    pieces = make_train_pieces(env, None, PPOConfig(num_steps_per_env=T, num_mini_batches=2), 8, g)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(T * 8))
+    rows, counts = pieces["minibatch_rows"](perm)
+    local = {2: 0, 3: 1, 6: 2, 7: 3}
+    want = [(int(x) // 8) * 4 + local[int(x) % 8] for x in perm if int(x) % 8 in local]
+    assert rows.tolist() == want and sum(counts) == len(want) == T * 4
+    assert counts == [sum(int(x) % 8 in local for x in perm[:12]),
+                      sum(int(x) % 8 in local for x in perm[12:])]
+
+
+@pytest.fixture(scope="module")
+def jax_nets():
+    jnet = JN.ActorCritic(num_actions=A, compute_dtype="float32")
+    params = jnet.init(jax.random.PRNGKey(0), jnp.zeros((1, O)), jnp.zeros((1, P)))
+    params["params"]["std"] = jnp.linspace(0.6, 1.4, A)
+    return jnet, params
+
+
+def _rollout(rng, T, n):
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    return dict(obs=f(T, n, O), priv_obs=f(T, n, P), actions=f(T, n, A), mu=f(T, n, A) * 0.3,
+                sigma=np.abs(f(T, n, A)) * 0.3 + 0.7, log_probs=f(T, n) - 15.0, values=f(T, n),
+                rewards=f(T, n), dones=rng.uniform(size=(T, n)) < 0.2)
+
+
+@pytest.fixture(scope="module")
+def update_run(tmp_path_factory, jax_nets):
+    """The ranks' results of the `update` case and its inputs: T = 8 steps of
+    N = 8 envs (4 per rank), the converted weights, two minibatches of the
+    whole batch (each under its own permutation) and one rollout."""
+    jnet, params = jax_nets
+    tmp = tmp_path_factory.mktemp("update")
+    rng = np.random.default_rng(11)
+    T, N = 8, 8
+    mbs, perms = [], []
+    for _ in range(2):
+        r = _rollout(rng, T, N)
+        mbs.append([r[k] for k in ("obs", "priv_obs", "actions", "log_probs", "values")]
+                   + [rng.normal(size=(T, N)).astype(np.float32) for _ in range(2)]
+                   + [r["mu"], r["sigma"]])
+        perms.append(rng.permutation(T * N))
+    inp = dict(T=T, N=N, lr=1e-5, perm_seed=3, minibatches=mbs, perms=perms,
+               rollout=_rollout(rng, T, N), last_priv=rng.normal(size=(N, P)).astype(np.float32),
+               params=actor_critic_from_flax(jax.tree.map(np.asarray, params)))
+    torch.save(inp, tmp / "update_in.pt")
+    return _spawn(tmp, "update", "update"), inp
+
+
+def test_sharded_minibatch_update_matches_jax(update_run, jax_nets):
+    """Two minibatch updates, each minibatch split over the ranks by the
+    membership rule (rows of envs 0-3 on rank 0, 4-7 on rank 1), against
+    the JAX package's `minibatch_update` on the whole minibatch. At the
+    recipe's learning rate (1e-5, so the two steps move a parameter by up
+    to 2e-5): every parameter within 1e-5 of JAX's (measured: 5.9e-7 at
+    most, where a gradient element is near Adam's eps) and 99% of each
+    tensor's updates within 1e-8 (measured: 99.8% or more), the
+    losses, KL and gradient norm within relative 1e-4, the learning rate to
+    1e-6; the two ranks' parameters and Adam moments bit-equal."""
+    outs, inp = update_run
+    jnet, params = jax_nets
+    T, N = inp["T"], inp["N"]
+    jcfg = JP.PPOConfig(learning_rate=inp["lr"], num_steps_per_env=T, num_mini_batches=1)
+    jts = JP.init_train_state(jax.random.PRNGKey(0), jnet, O, P, inp["lr"]).replace(params=params)
+    jupd = jax.jit(JP.make_train_pieces(None, jnet, jcfg, N)["minibatch_update"])
+    for i, (mb, perm) in enumerate(zip(inp["minibatches"], inp["perms"])):
+        # each rank took exactly its envs' rows of the permuted batch
+        mine = [np.flatnonzero((perm % N) // (N // WORLD) == r) for r in range(WORLD)]
+        assert sorted(np.concatenate(mine).tolist()) == list(range(T * N))
+        for r in range(WORLD):
+            g = perm[mine[r]]
+            want = (g // N) * (N // WORLD) + (g % N - r * (N // WORLD))
+            np.testing.assert_array_equal(outs[r]["mb_rows"][i].numpy(), want)
+        jts, jm = jupd(jts, tuple(jnp.asarray(x.reshape((T * N,) + x.shape[2:])[perm]) for x in mb))
+        for k in ("value_loss", "surrogate_loss", "entropy", "kl", "grad_norm"):
+            for r in range(WORLD):
+                np.testing.assert_allclose(outs[r]["mb_metrics"][i][k], float(jm[k]), rtol=1e-4,
+                                           err_msg=k)
+    np.testing.assert_allclose(outs[0]["mb_lr"], float(jts.lr), rtol=1e-6)
+    want = actor_critic_from_flax(jax.tree.map(np.asarray, jts.params))
+    for name, p in outs[0]["mb_params"].items():
+        diff = np.abs(p.numpy() - want[name].numpy())
+        assert diff.max() <= 1e-5, (name, diff.max())
+        moved = np.abs((p - inp["params"][name]).numpy() - (want[name] - inp["params"][name]).numpy())
+        assert np.mean(moved <= 1e-8) >= 0.99, (name, np.mean(moved <= 1e-8))
+        assert torch.equal(p, outs[1]["mb_params"][name]), name
+    assert torch.equal(outs[0]["mb_opt"], outs[1]["mb_opt"])
+
+
+def test_sharded_gae_normalisation_matches_jax(update_run, jax_nets):
+    """GAE with the global advantage mean and population std, each rank on
+    its envs, against the JAX package's `compute_gae` on the whole rollout:
+    within 1e-5 (advantages) and 1e-5 relative (returns)."""
+    outs, inp = update_run
+    jnet, params = jax_nets
+    T, N = inp["T"], inp["N"]
+    jcfg = JP.PPOConfig(num_steps_per_env=T)
+    jts = JP.init_train_state(jax.random.PRNGKey(0), jnet, O, P, 1e-5).replace(params=params)
+    roll = inp["rollout"]
+    jroll = JP.Rollout(vec=None, log_probs=None, values=jnp.asarray(roll["values"]),
+                       rewards=jnp.asarray(roll["rewards"]), dones=jnp.asarray(roll["dones"]))
+    jadv, jret = JP.make_train_pieces(None, jnet, jcfg, N)["compute_gae"](
+        jts, jroll, jnp.asarray(inp["last_priv"]))
+    adv = torch.cat([o["adv"] for o in outs], dim=1).numpy()
+    ret = torch.cat([o["ret"] for o in outs], dim=1).numpy()
+    np.testing.assert_allclose(adv, np.asarray(jadv), atol=1e-5)
+    np.testing.assert_allclose(ret, np.asarray(jret), rtol=1e-5, atol=1e-6)
+    assert abs(adv.mean()) < 1e-6 and abs(adv.std() - 1.0) < 1e-5
+
+
+def test_sharded_update_phase_equals_one_process(update_run):
+    """compute_gae + update_phase (2 epochs x 2 minibatches over one global
+    permutation) on two ranks against one process on the whole rollout from
+    the same weights and permutation seed: parameters within 1e-6 (the sums
+    run in another order), metrics within relative 1e-5, both ranks
+    bit-equal."""
+    outs, _ = update_run
+    for name, p in outs[0]["upd_params"].items():
+        single = outs[0]["single_params"][name]
+        assert float((p - single).abs().max()) <= 1e-6, name
+        assert torch.equal(p, outs[1]["upd_params"][name]), name
+    for k, v in outs[0]["single_metrics"].items():
+        for r in range(WORLD):
+            np.testing.assert_allclose(outs[r]["upd_metrics"][k], v, rtol=1e-5, atol=1e-9,
+                                       err_msg=k)
+
+
+def _small_terrain_ov(c):
+    c.terrain.num_rows, c.terrain.num_cols, c.terrain.border_size = 2, 3, 5.0
+    c.terrain.max_init_terrain_level = 1
+    c.sim.solver.solver_type = "apgd"
+
+
+def test_rank_terrain_placement_follows_the_global_index():
+    """Rank 1 of 2 holds envs 6-11 of 12: their terrain types are the JAX
+    package's `init_state(keys, arange(6, 12))` types (env * num_cols //
+    12 over the global index and count), its origins those of JAX's levels
+    and types through the port's lookup, and its own levels stand on their
+    subterrains' origins; the map is the same as rank 0's."""
+    from humanoid_gym_tpu import registry as jreg
+
+    n, start = 12, 6
+    jenv, _ = jreg.make_env("humanoid_ppo_terrain", num_envs=n, cfg_overrides=_small_terrain_ov)
+    groups = [EnvGroup(rank=r, world=2, device=torch.device("cpu"), backend="gloo")
+              for r in range(2)]
+    envs = [registry.make_env("humanoid_ppo_terrain", num_envs=n, cfg_overrides=_small_terrain_ov,
+                              device="cpu", seed=1, group=g)[0] for g in groups]
+    tenv = envs[1]
+    assert (tenv.num_envs, tenv.env_offset, tenv.num_envs_global) == (6, start, n)
+    assert tenv.global_env_ids().tolist() == list(range(start, n))
+    np.testing.assert_array_equal(tenv.terrain_map.height_field, envs[0].terrain_map.height_field)
+    js = jax.jit(jenv.init_state)(jax.random.split(jax.random.PRNGKey(0), n)[start:],
+                                  jnp.arange(start, n))
+    st = tenv.init_state()
+    np.testing.assert_array_equal(st.terrain_type.numpy(), np.asarray(js.terrain_type))
+    assert st.terrain_type.tolist() == [1, 1, 2, 2, 2, 2]
+    got = tenv.terrain_origin(torch.from_numpy(np.array(js.terrain_level)),
+                              torch.from_numpy(np.array(js.terrain_type)))
+    np.testing.assert_allclose(got.numpy(), js.env_origin, atol=1e-6)
+    origins = tenv.terrain_map.env_origins.astype(np.float32)
+    np.testing.assert_allclose(st.env_origin.numpy(),
+                               origins[st.terrain_level.numpy(), st.terrain_type.numpy()], atol=1e-6)
+    # the two ranks draw from their own seeds
+    assert not torch.equal(envs[0].init_state().phys.friction, st.phys.friction)
+
+
+def _global(scalars):
+    """The logged scalars that the ranks share (not the host's timings)."""
+    return {k: v for k, v in scalars.items() if not k.startswith("Perf/")}
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Two 2-rank runs of the same seed (2 iterations each, random episode
+    lengths, final checkpoint with env shards), then a fresh pair resuming
+    the first run's final checkpoint."""
+    tmp = tmp_path_factory.mktemp("train")
+    a = _spawn(tmp, "train", "a")
+    b = _spawn(tmp, "train", "b")
+    ckpt = os.path.join(a[0]["ckpt_dir"], "model_2.ckpt")
+    resumed = _spawn(tmp, "resume", "resume", ckpt)
+    return tmp, a, b, resumed, ckpt
+
+
+def test_two_rank_run_saves_shards_and_resumes(trained):
+    """Counterpart of tests/test_multihost.py:187 at the sizes of
+    tests/test_torch_runner.py (8 envs, T = 2): both ranks keep rank 0's
+    run directory and hold bit-equal parameters, Adam moments and learning
+    rate, and log the same global metrics; only rank 0 writes
+    metrics.jsonl and the model checkpoint, every rank its env shard; a
+    fresh pair of ranks restores each rank's env state and observations
+    exactly, the train state and the iteration, and trains on; ranks of
+    another env count, and a single process, refuse the sharded
+    checkpoint."""
+    tmp, a, _, resumed, ckpt = trained
+    assert a[0]["ckpt_dir"] == a[1]["ckpt_dir"] == str(tmp / "run_a_rank0")
+    assert not os.path.exists(tmp / "run_a_rank1")
+    for k, v in a[0]["params"].items():
+        assert torch.equal(v, a[1]["params"][k]), k
+    assert torch.equal(a[0]["opt"], a[1]["opt"]) and a[0]["lr"] == a[1]["lr"]
+    assert _global(a[0]["scalars"]) == _global(a[1]["scalars"])
+    assert a[0]["opt_count"] == 2 * 2
+    lines = [json.loads(ln) for ln in open(tmp / "run_a_rank0" / "metrics.jsonl")]
+    assert [ln["iter"] for ln in lines] == [0, 1]
+    assert lines[-1]["Loss/value_function"] == a[0]["scalars"]["Loss/value_function"]
+    assert sorted(os.path.basename(p) for p in glob.glob(str(tmp / "run_a_rank0" / "model_*"))) == [
+        "model_0.ckpt", "model_2.ckpt", "model_2.ckpt.envshard0", "model_2.ckpt.envshard1"]
+    # the ranks' envs differ (own seeds), and each resumed rank has its own back
+    assert not torch.equal(a[0]["env_state"]["phys"]["qpos"], a[1]["env_state"]["phys"]["qpos"])
+    for r in range(WORLD):
+        saved, got = a[r]["env_state"], resumed[r]["env_state"]
+
+        def same(x, y, path=""):
+            if isinstance(x, dict):
+                for k in x:
+                    same(x[k], y[k], f"{path}.{k}")
+            else:
+                assert torch.equal(x, y), f"rank {r}: {path}"
+
+        same(saved, got)
+        assert torch.equal(a[r]["obs"], resumed[r]["obs"])
+        assert torch.equal(a[r]["priv_obs"], resumed[r]["priv_obs"])
+        assert resumed[r]["iter"] == 2 and resumed[r]["after_iter"] == 3
+        for k, v in a[r]["params"].items():
+            assert torch.equal(v, resumed[r]["params"][k]), k
+        assert torch.equal(a[r]["opt"], resumed[r]["opt"]) and resumed[r]["lr"] == a[r]["lr"]
+    assert _global(resumed[0]["after_scalars"]) == _global(resumed[1]["after_scalars"])
+    assert all("!= num_envs 2" in resumed[r]["count_mismatch"] for r in range(WORLD))
+    assert all(np.isfinite(v) for v in resumed[0]["after_scalars"].values())
+
+    # one process (world size 1) refuses the two-shard checkpoint
+    env, _ = registry.make_env("humanoid_ppo", num_envs=8, device="cpu",
+                               cfg_overrides=lambda c: setattr(c.sim.solver, "solver_type", "apgd"))
+    tcfg = XBotLCfgPPO()
+    with pytest.raises(ValueError, match="2 shard"):
+        OnPolicyRunner(env, tcfg, log_dir=None).load(ckpt)
+    assert os.path.exists(shard_path(ckpt, 1))
+
+
+def test_same_seed_two_rank_runs_are_bit_equal(trained):
+    """A 2-rank run repeated with one seed gives, per rank, bit-equal env
+    states, observations, parameters, Adam moments and logged metrics."""
+    _, a, b, _, _ = trained
+    for r in range(WORLD):
+        for k, v in a[r]["params"].items():
+            assert torch.equal(v, b[r]["params"][k]), (r, k)
+        assert torch.equal(a[r]["opt"], b[r]["opt"])
+        assert torch.equal(a[r]["env_state"]["phys"]["qpos"], b[r]["env_state"]["phys"]["qpos"])
+        assert torch.equal(a[r]["env_state"]["commands"], b[r]["env_state"]["commands"])
+        assert torch.equal(a[r]["obs"], b[r]["obs"])
+        assert _global(a[r]["scalars"]) == _global(b[r]["scalars"])
+
+
+def test_same_seed_runs_are_bit_equal_at_world_size_one():
+    """Counterpart of tests/test_determinism.py:27: two single-process runs
+    of the port with one seed (env, net, random episode lengths, 2
+    iterations) end in bit-equal env states, observations and parameters;
+    another seed ends elsewhere."""
+    def run(seed):
+        env, _ = registry.make_env("humanoid_ppo", num_envs=4, device="cpu", seed=seed,
+                                   cfg_overrides=lambda c: setattr(c.sim.solver, "solver_type",
+                                                                   "apgd"))
+        tcfg = XBotLCfgPPO()
+        tcfg.runner.num_steps_per_env = 2
+        tcfg.algorithm.num_mini_batches = 2
+        tcfg.algorithm.num_learning_epochs = 1
+        runner = OnPolicyRunner(env, tcfg, log_dir=None, seed=seed)
+        runner.learn(2, init_at_random_ep_len=True)
+        return runner
+
+    r1, r2, r3 = run(7), run(7), run(8)
+    for f in dataclasses.fields(r1.env_state):
+        x, y = getattr(r1.env_state, f.name), getattr(r2.env_state, f.name)
+        if dataclasses.is_dataclass(x):
+            for g in dataclasses.fields(x):
+                assert torch.equal(getattr(x, g.name), getattr(y, g.name)), g.name
+        else:
+            assert torch.equal(x, y), f.name
+    assert torch.equal(r1.obs, r2.obs) and torch.equal(r1.priv_obs, r2.priv_obs)
+    for (k, p), (_, q) in zip(r1.net.state_dict().items(), r2.net.state_dict().items()):
+        assert torch.equal(p, q), k
+    assert not torch.equal(r1.env_state.phys.qpos, r3.env_state.phys.qpos)

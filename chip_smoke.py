@@ -12,8 +12,10 @@ script exits non-zero):
      and 1 envs, on operands built from real XBot-L states;
   4. the mega kernel (one policy step of physics) against its plain
      version at 4096 envs over 1 and 5 policy steps and at 37 and 1 envs
-     over one; one launch timed as it runs, with no APGD iterations and
-     with one substep, for the split loop / rest of a substep / fixed cost;
+     over one, and its end-of-step FK rows after the 5 steps against the
+     port's fk / body_velocities at the state it returned; one launch timed
+     as it runs, with no APGD iterations and with one substep, for the
+     split loop / rest of a substep / fixed cost;
   4t. the terrain variant of the mega kernel against its plain version on
      the full-size map of `humanoid_ppo_terrain_robust` (2100 x 2100 nodes),
      envs placed by the port's `init_state`, standing on it after LAND_STEPS
@@ -24,6 +26,9 @@ script exits non-zero):
   5. the main path: XBot-L PPO training (4096 envs, T=60, solver mega)
      through `make_train_iter`, one warm-up iteration and 3 timed ones,
      with the kernels' launch counters zeroed just before the timed run;
+  5c. OnPolicyRunner.learn(2) at 4096 envs (humanoid_ppo, solver mega)
+     with HGT_PROFILE_DIR set: one Chrome trace of the second iteration,
+     which names hgt_mega_kernel 60 times;
   6. the APGD kernel (solver apgd_pallas) against its plain version on the
      operands `resolve_contacts` builds: 4096 envs at 8 and 50 iterations;
      37 envs, 1 env and 4096 + 37 (more than one round of the kernel's
@@ -83,7 +88,20 @@ script exits non-zero):
      then 2 fresh ranks restore the final checkpoint's env shards exactly
      and train on, beside 1 nccl rank at world size 1 (an all-reduce and a
      broadcast on the card, one iteration);
- 14. one JSON line with a record per kernel, the card line, then the
+ 14. play on the card: `play(get_args([...]))` of scripts/play_torch.py
+     (HGT_PLAY_VIDEO=0) on a humanoid_ppo checkpoint whose actor is the
+     walk demo's, 1 env, 1200 policy steps at vx 0.5: the counts zeroed
+     just before the rollout and read just after show 1200 mega launches
+     and no plain mega step; the exported policy.npz equals the shipped
+     demo's arrays; the trace is finite, the robot never falls and its mean
+     base_vel_x is at least PLAY_MIN_VX; then the first 20 noise-free steps
+     of `play_rollout` on the card against the same rollout on the CPU
+     (PLAY_TOLS), with the card's host synchronisations counted;
+ 15. the learning-curve band on the card: the seeded 16-env run of
+     tests/test_learning_regression.py (seed 5, T=60, 12 iterations through
+     `make_train_iter`) with solver mega, held to that test's bands
+     unchanged (humanoid_gym_tpu_torch/utils/learning_band.py);
+ 16. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
@@ -101,10 +119,21 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and float32
-# rate outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+# the kernels' operation counts and bounds (H100 SXM peaks): the port's
+# census, importable only from a checkout of the repo (main() refuses to
+# run outside one)
+if os.path.isdir(os.path.join(HERE, "humanoid_gym_tpu_torch")):
+    sys.path.insert(0, HERE)
+    from humanoid_gym_tpu_torch.utils.roofline import (  # noqa: E402
+        apgd_ops,
+        fused_dense_ops,
+        mega_ops,
+        mega_ops_executed,
+        mega_terrain_ops,
+        solve_ops,
+        solve_ops_executed,
+    )
+    from humanoid_gym_tpu_torch.utils.roofline import bound_ms as _bound_ms  # noqa: E402
 
 N_ENVS = 4096
 T_STEPS = 60
@@ -161,144 +190,6 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def _maxerr(a, b) -> float:
     return float((a - b).abs().max().item())
-
-
-# ---- operation counts of the kernels' loop nests (per env), for the
-# bound. Each multiply, add, divide, square root and comparison-select in
-# the loops counts as one float32 operation. ----
-
-def _lz(i, k):
-    return k < 6 and 6 <= i < 12
-
-
-def solve_ops(iterations: int) -> int:
-    """Operations of hgt_solve_env for one env (csrc/solve.cuh)."""
-    nv, nr = 18, 60
-    ops = 0
-    for k in range(nv):  # Cholesky
-        ops += 2
-        rows = [i for i in range(k + 1, nv) if not _lz(i, k)]
-        ops += len(rows)
-        for j in range(k + 1, nv):
-            if _lz(j, k):
-                continue
-            ops += 2 * sum(1 for i in range(j, nv) if not _lz(i, k))
-    tri = sum(1 + 2 * sum(1 for i in range(k + 1, nv) if not _lz(i, k)) for k in range(nv))
-    ops += 2 * tri + nv  # v_free: forward + backward substitution + add
-    ops += nr * (2 * nv + 2)  # r = sign * J v_free - target
-    ops += sum(nr + 2 * nr * sum(1 for i in range(k + 1, nv) if not _lz(i, k)) for k in range(nv))
-    ops += nv * nr  # sign fold
-    pairs = sum(1 for v in range(nv) for w in range(v, nv) if not _lz(w, v))
-    ops += pairs * (2 * nr + 3) + nv  # Gram row sums + max
-    ops += nr * (2 * nv + 1) + 4  # CFM regularizer and step
-    proj = 16 * 20 + 12
-    ops += nr + proj  # warm start fold + projection
-    per_iter = nv * 2 * nr + nr * (2 * nv + 3) + 2 * nr + proj + 3 * nr + 12 + 3 * nr
-    ops += iterations * per_iter
-    ops += nv * 2 * nr + tri + nv + nr  # dv = L^-T (B lam), qvel_new, unfold
-    return ops
-
-
-def mega_ops(decimation: int, iterations: int) -> int:
-    """Operations of one mega-kernel launch for one env (csrc/mega.cu):
-    per substep PD (12 x 8), FK + velocity/bias recursion (12 bodies x
-    ~190), body stage (13 x ~190), subtree sums (12 x 16), h (12 x 14),
-    mass matrix (21 base + 12 x 6 base couplings + 42 chain pairs, ~40
-    each), contact rows (16 x ~60), limit rows (12 x 8), rhs (12 x 10),
-    the solve, integration and impulse sums (~150); plus the final FK
-    pass (12 x ~110)."""
-    sub = (12 * 8 + 12 * 190 + 13 * 190 + 12 * 16 + 12 * 14
-           + (21 + 72 + 42) * 40 + 16 * 60 + 12 * 8 + 12 * 10 + 150
-           + solve_ops(iterations))
-    return decimation * sub + 12 * 110
-
-
-def solve_ops_executed(iterations: int) -> int:
-    """Float32 operations one warp executes in hgt_solve_env (csrc/solve.cuh),
-    every lane counted whether or not its result is used: 32 x the float
-    instructions of the loop nests (a multiply-add counts 2)."""
-    nv, pairs = 18, 117  # strictly-lower structurally non-zero entries
-    w = 0
-    w += nv * 4 + 2 * pairs                      # Cholesky: max, sqrt, 1/d, scale; updates
-    w += 3 * nv * 3                              # three substitutions: scale + multiply-add
-    w += 2 * nv * 2 + 4                          # u = J v_free for two columns, r
-    w += 2 * nv + 2 * 2 * pairs                  # B = L^-1 J^T for two columns
-    w += 2 * nv * 3 + 3                          # sign fold, diag(B^T B), regularizer
-    w += 8 * (nv * 3 + 20 + 1) + nv + 3          # Gram batches, row sums, step
-    proj = 20 + 1                                # a cone and a clamp per lane
-    w += 2 + proj                                # warm start
-    per_iter = nv * 3 + 20 + 2 * nv * 2 + 6 + 4 + proj + 4 + 5 + 12 + 4
-    w += iterations * per_iter
-    w += nv * 3 + 20 + nv * 3 + 3                # B lam, substitution, outputs
-    return 32 * w
-
-
-def mega_ops_executed(decimation: int, iterations: int) -> int:
-    """Float32 operations one warp executes in one launch of hgt_mega_kernel
-    (csrc/mega.cu), every lane counted: per substep PD (8), joint rotations
-    (4 rounds x 30), the 7 chain steps (6 + 30 each), the body stage (190),
-    screws (9), subtree sums (7), the mass matrix (5 rounds x 45), rhs (30),
-    two constraint columns (2 x 90), the solve, integration (60); plus the
-    final chain (4 x 30 + 7 x 20)."""
-    sub = (8 + 4 * 30 + 7 * 36 + 190 + 9 + 7 + 5 * 45 + 30 + 2 * 90 + 60)
-    return decimation * (32 * sub + solve_ops_executed(iterations)) + 32 * (4 * 30 + 7 * 20)
-
-
-def mega_terrain_ops(decimation: int, iterations: int) -> int:
-    """Operations of one launch of the terrain variant for one env
-    (csrc/mega.cu hgt_mega_kernel<true>): the flat launch's, plus per
-    substep and contact point the patch lookup (~30), t2 (4) and phi (3),
-    and per row the base-rotation entries (X x d, 9) and the six joint
-    entries projected on d (5 each); per launch the 16 frames (12 each) and
-    the rotated impulse sums (6 x 8 x 5)."""
-    per_point = 30 + 4 + 3 + 3 * (9 + 6 * 5)
-    return mega_ops(decimation, iterations) + decimation * 16 * per_point + 16 * 12 + 6 * 8 * 5
-
-
-PROJ_OPS = 16 * 20 + 12  # 16 cone projections + 12 clamps
-
-
-def apgd_loop_ops(iterations: int, nrow: int = 60) -> int:
-    """Operations of hgt_warp_apgd for one env (csrc/apgd.cuh): the warm
-    start's projection, then per iteration the dense matvec, the trial
-    point, its projection, the restart test and the momentum step."""
-    per_iter = 2 * nrow * nrow + nrow + 2 * nrow + PROJ_OPS + nrow + 2 * nrow + 12 + 2 * nrow
-    return PROJ_OPS + iterations * per_iter
-
-
-def apgd_ops(iterations: int, nrow: int = 60) -> int:
-    """Operations of hgt_apgd_kernel for one env (csrc/dense_solve.cu): sign
-    folding of A, r and the warm start, the loop, the unfolding."""
-    return 2 * nrow * nrow + 2 * nrow + nrow + apgd_loop_ops(iterations, nrow) + nrow
-
-
-def fused_dense_ops(iterations: int, nv: int = 18, nrow: int = 60, executed: bool = False) -> int:
-    """Operations the function of hgt_fused_dense_kernel needs for one env.
-    The Delassus matrix A = B^T B and the Gram matrix B B^T are symmetric,
-    so the function needs one triangle of each (diagonal included); the
-    kernel builds A in full (each lane its two whole rows) and the Gram
-    matrix by its 171 pairs, and `executed=True` counts that."""
-    delassus_entries = nrow * nrow if executed else nrow * (nrow + 1) // 2
-    gram_entries = nv * (nv + 1) // 2
-    ops = 0
-    for k in range(nv):  # Cholesky: root, column scale, trailing update
-        ops += 2 + (nv - 1 - k) + 2 * sum(i - k for i in range(k + 1, nv))
-    tri = sum(1 + 2 * (nv - 1 - k) for k in range(nv))
-    ops += 2 * tri + nv  # v_free
-    ops += nrow * (2 * nv + 2)  # r = sign * J v_free - target
-    ops += nrow * tri + nv * nrow  # B = L^-1 J^T, sign fold
-    ops += 2 * nv * nrow + 3 + nrow  # trace, regularizer, diagonal
-    ops += delassus_entries * 2 * nv  # dense Delassus
-    ops += gram_entries * (2 * nrow + 1) + nv + 3  # Gram row sums, max, step
-    ops += nrow + apgd_loop_ops(iterations, nrow)  # warm-start fold + loop
-    ops += nv * 2 * nrow + tri + nv + nrow  # dv, qvel_new, unfold
-    return ops
-
-
-def _bound_ms(nbytes: float, ops: float):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---- inputs ----
@@ -486,6 +377,29 @@ def _mega_errors(ok, op):
     }
 
 
+# the kernel's OUT_FK rows against the engine's fk / body_velocities
+# (tests/test_mega_kernel.py:251)
+FK_ROWS_TOL = 2e-4
+
+
+def _fk_rows_error(model, out):
+    """Max |OUT_FK rows - the same quantities from fk / body_velocities| at
+    the state a mega launch returned (feet p and knee xy base-relative,
+    feet v_origin world-frame)."""
+    import torch
+
+    from humanoid_gym_tpu_torch.physics.kinematics import body_velocities, fk
+
+    qpos, qvel, fk14 = out[0], out[1], out[5]
+    k = fk(model, qpos)
+    bv = body_velocities(model, qpos, qvel, k)
+    f, kn = list(model.feet_body_idx), list(model.knee_body_idx)
+    p = k.p - qpos[:, None, :3]
+    want = torch.cat([p[:, f, 0], p[:, f, 1], p[:, f, 2], p[:, kn, 0], p[:, kn, 1],
+                      bv.v_origin[:, f, 0], bv.v_origin[:, f, 1]], dim=1)
+    return _maxerr(fk14, want)
+
+
 def _phase4_mega(c, records):
     """Phase 4: the mega kernel against its plain version (4096 envs over 1
     and 5 policy steps, 37 and 1 envs over one), its time, and the time of
@@ -515,6 +429,13 @@ def _phase4_mega(c, records):
         if bad or not finite:
             raise AssertionError(f"mega kernel disagrees with its plain version at {n} envs: {bad}")
         worst = max(worst, max(errs.values()))
+        if (n, n_steps) == (N_ENVS, 5):
+            e_fk = _fk_rows_error(c.model, ok)
+            _log(f"phase 4 mega FK rows: {n} envs after {n_steps} steps, the kernel's end-of-step "
+                 f"OUT_FK rows against fk / body_velocities at its qpos, qvel | max err {e_fk:.3e} "
+                 f"(tol {FK_ROWS_TOL:.0e}, tests/test_mega_kernel.py:251)")
+            if not e_fk <= FK_ROWS_TOL:
+                raise AssertionError(f"the kernel's OUT_FK rows differ from fk by {e_fk}")
     packed = MG.pack_inputs(st1.qpos, st1.qvel, st1.friction, st1.base_mass_scale,
                             st1.contact_stiffness, st1.contact_offset, st1.kp_scale,
                             st1.kd_scale, st1.contact_compliance, st1.contact_lam, tgt1)
@@ -1121,6 +1042,249 @@ def _phase7_fused_dense(c, st1, tgt1, ops_in, records):
              + (f" (tol {tol:.0e})" if tol else " (reported, not held)"))
         if tol is not None and not e23 <= tol:
             raise AssertionError(f"dense and factor-form solves disagree at convergence: {e23}")
+
+
+# ---- phase 14: play on the card ----
+
+PLAY_STEPS = 1200
+PLAY_MIN_VX = 0.25  # mean base_vel_x at the 0.5 m/s command
+# the first 20 noise-free play steps on the card (the kernel) against the
+# same rollout on the CPU (the plain mega step): phase 4 holds 5 steps of
+# the kernel to the JAX package's tolerances (qpos 5e-4, qvel 1e-2, tau
+# 5e-2) on perturbed states, where it measured ~5e-4 in qvel; 20 steps are
+# four times as many, and each step's difference carries into the next, so
+# this check allows four times those tolerances: joint positions and the
+# joint targets (rad) 2e-3, joint and base velocities 4e-2, torque 0.2 N m
+PLAY_CMP_STEPS = 20
+PLAY_TOLS = {"dof_pos_target": 2e-3, "dof_pos": 2e-3, "dof_vel": 4e-2, "base_vel_x": 4e-2,
+             "base_vel_y": 4e-2, "base_vel_z": 4e-2, "base_vel_yaw": 4e-2, "dof_torque": 0.2}
+
+
+def _env_state_to(state, dev):
+    """An EnvState (nested dataclasses of tensors) on another device."""
+    import dataclasses
+
+    return type(state)(**{
+        f.name: (_env_state_to(getattr(state, f.name), dev)
+                 if dataclasses.is_dataclass(getattr(state, f.name))
+                 else getattr(state, f.name).to(dev))
+        for f in dataclasses.fields(state)})
+
+
+def _demo_actor(dev):
+    """The walk demo's actor as a float32 policy obs -> action on dev."""
+    import torch
+
+    from humanoid_gym_tpu_torch import HGT_ROOT_DIR
+    from humanoid_gym_tpu_torch.algo.convert import actor_critic_from_npz
+    from humanoid_gym_tpu_torch.algo.networks import ActorCritic
+
+    net = ActorCritic(705, 219, 12, compute_dtype="float32", seed=0).to(dev)
+    actor_critic_from_npz(net, os.path.join(HGT_ROOT_DIR, "resources", "policies",
+                                            "xbotl_walk_demo.npz"))
+
+    def policy(obs):
+        with torch.no_grad():
+            return net.act(obs)[0]
+
+    return policy
+
+
+def _play_card_vs_cpu(dev, PT):
+    """The first PLAY_CMP_STEPS steps of `play_rollout` with noise off, on
+    the card and on the CPU from one state (the CPU env's reset), with the
+    walk demo's float32 actor on both; the card's run counts its host
+    synchronisations (CUDA sync debug mode). Returns (max error per trace,
+    a Counter of the synchronisations by source line, falls on the
+    card)."""
+    import warnings
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
+    from humanoid_gym_tpu_torch.envs import make_env
+
+    def cfg():
+        c = XBotLCfg()
+        PT.play_overrides(c)
+        c.noise.add_noise = False
+        c.sim.solver.solver_type = "mega"
+        return c
+
+    cpu = torch.device("cpu")
+    cenv, genv = make_env(cfg(), device=cpu, seed=0), make_env(cfg(), device=dev, seed=0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # one env's tiny tensors: more threads only add overhead
+    try:
+        state, obs, _ = cenv.reset_all()
+        _, _, want, _ = PT.play_rollout(cenv, _demo_actor(cpu), state, obs, PLAY_CMP_STEPS)
+    finally:
+        torch.set_num_threads(threads)
+    gstate, gobs, gpol = _env_state_to(state, dev), obs.to(dev), _demo_actor(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, _, got, falls = PT.play_rollout(genv, gpol, gstate, gobs, PLAY_CMP_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    where = Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message))
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in PLAY_TOLS}
+    return errs, where, falls
+
+
+def _phase14_play(card, dev):
+    """Phase 14: `play(get_args([...]))` of scripts/play_torch.py on the
+    card (HGT_PLAY_VIDEO=0) for a humanoid_ppo checkpoint whose actor is the
+    walk demo's: the mega kernel launched once per policy step of the
+    rollout and no plain mega step, the exported policy.npz equal to the
+    demo's arrays, a finite trace, no fall, the demo walking at the 0.5
+    command; then the first 20 noise-free steps against the CPU. Returns
+    the rollout's kernel launches."""
+    import numpy as np
+
+    import scripts.play_torch as PT
+    from humanoid_gym_tpu_torch import HGT_ROOT_DIR, registry
+    from humanoid_gym_tpu_torch.algo.convert import actor_critic_from_npz
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+    from humanoid_gym_tpu_torch.utils.helpers import get_args
+
+    demo = os.path.join(HGT_ROOT_DIR, "resources", "policies", "xbotl_walk_demo.npz")
+    counts = {}
+    real_rollout, real_plain = PT.play_rollout, MG.mega_step_plain
+
+    def plain_counted(*a, **k):
+        counts["plain"] += 1
+        return real_plain(*a, **k)
+
+    def rollout_counted(*a, **k):
+        MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+        counts["plain"] = 0
+        out = real_rollout(*a, **k)
+        counts.update(flat=MG.mega_kernel_launch.launches,
+                      terrain=MG.mega_kernel_launch.terrain_launches)
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        env, _ = registry.make_env("humanoid_ppo", num_envs=1, cfg_overrides=_solver_mega,
+                                   device=dev, seed=0)
+        runner = OnPolicyRunner(env, registry.get_task("humanoid_ppo").make_train_cfg(),
+                                log_dir=None)
+        actor_critic_from_npz(runner.net, demo)
+        os.makedirs(os.path.join(root, "run0"))
+        runner.save(os.path.join(root, "run0", "model_1.ckpt"))
+        os.environ["HGT_PLAY_VIDEO"] = "0"
+        PT.play_rollout, MG.mega_step_plain = rollout_counted, plain_counted
+        t0 = time.perf_counter()
+        try:
+            res = PT.play(get_args(["--task", "humanoid_ppo", "--log_root", root]))
+        finally:
+            PT.play_rollout, MG.mega_step_plain = real_rollout, real_plain
+        play_s = time.perf_counter() - t0
+        exported = np.load(os.path.join(root, "exported", "policies", "policy.npz"))
+        shipped = np.load(demo)
+        same = exported.files == shipped.files and all(
+            np.array_equal(exported[k], shipped[k]) for k in shipped.files)
+        trace = dict(np.load(res["trace"]))
+    finite = all(bool(np.isfinite(v).all()) for v in trace.values())
+    mean_vx = float(trace["base_vel_x"].mean())
+    errs, where, falls20 = _play_card_vs_cpu(dev, PT)
+    syncs = sum(where.values())
+    _log(f"phase 14 play: scripts/play_torch.py play() on the card, humanoid_ppo, 1 env, "
+         f"{PLAY_STEPS} steps at vx 0.5 | rollout {res['rollout_s']:.2f} s "
+         f"({res['rollout_s'] / PLAY_STEPS * 1e3:.2f} ms a step), play() {play_s:.1f} s | mega "
+         f"launches {counts['flat']} (terrain {counts['terrain']}, plain steps {counts['plain']}) | "
+         f"export equal to the shipped demo {same} | trace keys {len(trace)}, finite {finite}, "
+         f"falls {res['falls']}, mean base_vel_x {mean_vx:.4f} m/s (gate >= {PLAY_MIN_VX}), mean "
+         f"reward {float(trace['reward'].mean()):.4f} | dashboard {res['dashboard']}, video "
+         f"{res['video']} | {card}")
+    _log(f"phase 14 play, card vs CPU: {PLAY_CMP_STEPS} noise-free steps from one state, the "
+         f"kernel against the plain mega step | " + " ".join(
+             f"{k} {v:.3e}/{PLAY_TOLS[k]:.0e}" for k, v in errs.items())
+         + f" | host synchronisations on the card {syncs} ({syncs / PLAY_CMP_STEPS:.2f} a step; "
+         f"by source {dict(where.most_common(6))}) | falls {falls20}")
+    if counts != {"flat": PLAY_STEPS, "terrain": 0, "plain": 0}:
+        raise AssertionError(f"phase 14: launches in the play rollout {counts}")
+    if not (same and finite and res["falls"] == 0 and mean_vx >= PLAY_MIN_VX):
+        raise AssertionError(f"phase 14: export equal {same}, finite {finite}, falls "
+                             f"{res['falls']}, mean base_vel_x {mean_vx}")
+    bad = {k: v for k, v in errs.items() if not v <= PLAY_TOLS[k]}
+    if bad or falls20:
+        raise AssertionError(f"phase 14: the card's play rollout differs from the CPU's: {bad}")
+    return counts["flat"]
+
+
+# ---- phase 15: the learning-curve band on the card ----
+
+def _phase15_learning_band(card, dev):
+    """Phase 15: the seeded 16-env run of tests/test_learning_regression.py
+    (seed 5, T=60, 12 iterations through make_train_iter) with solver mega
+    on the card, held to that test's bands unchanged. Returns the mega
+    launches of the run."""
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.utils.learning_band import band_misses, learning_curve
+
+    MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+    t0 = time.perf_counter()
+    c = learning_curve(device=dev, solver="mega", seed=5, n=16, T=60, iters=12)
+    seconds = time.perf_counter() - t0
+    launches = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
+    misses = band_misses(c)
+    _log(f"phase 15 learning band: XBot-L 16 envs, seed 5, T=60, 12 iterations, solver mega, "
+         f"{seconds:.1f} s | mega launches {launches[0]} (terrain {launches[1]}) | late step reward "
+         f"{c['late_rew']:.4f} [0.006, 0.030], late episode length {c['late_len']:.1f} [100, 280], "
+         f"tracking_lin_vel {c['terms']['tracking_lin_vel']:.4f} (>= 0.016), feet_contact_number "
+         f"{c['terms']['feet_contact_number']:.4f} (>= 0.020), value loss "
+         f"{c['vloss'][0]:.4f} -> {c['vloss'][-1]:.4f}, non-finite resets {c['nonfinite']} | "
+         f"misses {misses} | {card}")
+    if launches != (1 + 12 * 60, 0):  # the reset step, then one launch per policy step
+        raise AssertionError(f"phase 15: mega launches (flat, terrain) {launches}")
+    if misses:
+        raise AssertionError(f"phase 15: the port's learning curve misses {misses}")
+    return launches[0]
+
+
+# ---- phase 5c: the runner's HGT_PROFILE_DIR trace ----
+
+def _phase5c_profile_dir(card, dev):
+    """Phase 5c: OnPolicyRunner.learn(2) at 4096 envs (humanoid_ppo, solver
+    mega) with HGT_PROFILE_DIR set: one Chrome trace of the second
+    iteration, naming the mega kernel once per policy step."""
+    import json as _json
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+
+    with tempfile.TemporaryDirectory() as prof_dir:
+        env, _ = registry.make_env("humanoid_ppo", num_envs=N_ENVS, cfg_overrides=_solver_mega,
+                                   device=dev, seed=1)
+        runner = OnPolicyRunner(env, registry.get_task("humanoid_ppo").make_train_cfg(),
+                                log_dir=None)
+        os.environ["HGT_PROFILE_DIR"] = prof_dir
+        t0 = time.perf_counter()
+        try:
+            runner.learn(2)
+        finally:
+            del os.environ["HGT_PROFILE_DIR"]
+        seconds = time.perf_counter() - t0
+        files = sorted(os.listdir(prof_dir))
+        if files != ["trace_iter1.json"]:
+            raise AssertionError(f"phase 5c: files in HGT_PROFILE_DIR {files}")
+        path = os.path.join(prof_dir, files[0])
+        size = os.path.getsize(path)
+        events = _json.load(open(path))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    mega = [e for e in kernels if "hgt_mega_kernel" in e.get("name", "")]
+    _log(f"phase 5c HGT_PROFILE_DIR: learn(2) at {N_ENVS} envs in {seconds:.1f} s wrote {files[0]} "
+         f"({size / 2**20:.1f} MiB, {len(events)} events, {len(kernels)} kernels) | hgt_mega_kernel "
+         f"{len(mega)} times (= {T_STEPS}) | {card}")
+    if len(mega) != T_STEPS:
+        raise AssertionError(f"phase 5c: the trace names hgt_mega_kernel {len(mega)} times")
 
 
 def _kernel_class(name: str) -> str:
@@ -1863,6 +2027,8 @@ def main() -> int:
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
 
     _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_ms)
+    del env, net, ts, state, obs, priv
+    _phase5c_profile_dir(card, dev)
 
     _phase6_apgd(c, st1, tgt0, records)
     _phase7_fused_dense(c, st1, tgt0, ops_in, records)
@@ -1885,19 +2051,27 @@ def main() -> int:
     # ---- phase 13: env-sharded training, two ranks on the card ----
     launches_ranks = _phase13_ranks(card)
 
+    # ---- phase 14: play on the card ----
+    launches_play = _phase14_play(card, dev)
+
+    # ---- phase 15: the learning-curve band on the card ----
+    launches_band = _phase15_learning_band(card, dev)
+
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",
              source="humanoid_gym_tpu_torch/csrc/mega.cu",
              replaces="humanoid_gym_tpu/physics/mega_kernel.py:550",
              launches=launches["mega"], joint_launches=launches_joint["mega"],
-             two_rank_launches=launches_ranks, library_ms=None,
+             two_rank_launches=launches_ranks, play_launches=launches_play,
+             band_launches=launches_band, library_ms=None,
              **records["mega"], **extra["mega"]),
         dict(name="hgt_solve_env (contact solve; runs inside hgt_mega_kernel, "
                   "timed through its stand-alone launch hgt_solve_kernel)",
              route="cuda", source="humanoid_gym_tpu_torch/csrc/solve.cuh",
              replaces="humanoid_gym_tpu/physics/pallas_solver.py:422",
              launches=launches["mega"], standalone_launches=launches["solve_standalone"],
-             two_rank_launches=launches_ranks, library_ms=None, **records["solve"]),
+             two_rank_launches=launches_ranks, play_launches=launches_play,
+             band_launches=launches_band, library_ms=None, **records["solve"]),
         dict(name="hgt_fused_dense_kernel (Cholesky + dense Delassus + APGD, solver fused_pallas)",
              route="cuda", source="humanoid_gym_tpu_torch/csrc/dense_solve.cu",
              replaces="humanoid_gym_tpu/physics/pallas_solver.py:740",

@@ -9,6 +9,8 @@ artifacts in the same formats, so that the JAX package's tools
 - `policy_jit.pt`: a TorchScript `nn.Sequential` of Linear / ELU layers,
   the layout of the reference's deployment loader.
 `NumpyPolicy` is the framework-free actor: obs -> deterministic action mean.
+`export_checkpoint` writes the same artifacts from a port checkpoint
+(`model_N.ckpt`) without building a net.
 """
 
 from __future__ import annotations
@@ -47,8 +49,26 @@ def _actor_layers(net) -> List[Tuple[np.ndarray, np.ndarray]]:
 def export_policy(net, path: str, torchscript: bool = True) -> List[str]:
     """Write <path>/policy.npz, policy.bin and (with `torchscript`)
     policy_jit.pt for the actor of `net`; returns the written paths."""
+    return _write_artifacts(_actor_layers(net), path, torchscript)
+
+
+def export_checkpoint(ckpt_path: str, path: str, torchscript: bool = False) -> List[str]:
+    """The artifacts of the actor saved in a port checkpoint (the runner's
+    `torch.save` file: `train_state.net` holds `actor.layers.<i>.weight`
+    (out, in) and `.bias`); returns the written paths."""
+    payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    sd = payload["train_state"]["net"]
+    n = len({k.split(".")[2] for k in sd if k.startswith("actor.layers.")})
+    if n == 0:
+        raise ValueError(f"{ckpt_path}: no actor layers in the checkpoint's net")
+    layers = [(np.ascontiguousarray(sd[f"actor.layers.{i}.weight"].float().numpy().T),
+               np.ascontiguousarray(sd[f"actor.layers.{i}.bias"].float().numpy()))
+              for i in range(n)]
+    return _write_artifacts(layers, path, torchscript)
+
+
+def _write_artifacts(layers, path: str, torchscript: bool) -> List[str]:
     os.makedirs(path, exist_ok=True)
-    layers = _actor_layers(net)
     npz = {}
     for i, (W, b) in enumerate(layers):
         npz[f"W{i}"] = W

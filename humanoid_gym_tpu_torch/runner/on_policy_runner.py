@@ -21,6 +21,13 @@ buffered: iteration i+1 is enqueued before iteration i's metrics are read,
 and on the card the read waits on an event recorded after a non-blocking
 copy into pinned memory, so it never waits for the newer iteration.
 
+With HGT_PROFILE_DIR set, the second iteration of `learn` (the first
+builds and warms up) runs under `torch.profiler` and ends in a
+synchronisation inside the trace; the profiler writes a Chrome trace
+(`trace_iter<N>.json`, `trace_iter<N>_rank<r>.json` under sharding) into
+that directory and the runner prints where. Without the variable nothing
+of `learn` changes.
+
 Checkpoints are `torch.save` files of tensors and plain Python values:
 the train state (net weights, Adam moments and count, adaptive learning
 rate, iteration), the resolved net compute dtype, and on the final
@@ -45,6 +52,15 @@ from ..algo.ppo import PPOConfig, init_train_state, make_train_iter
 from ..envs.state import EnvState
 from ..parallel.mesh import replicate
 from ..parallel.multihost import broadcast_str, rank_seed, shard_path
+
+
+def _atomic_save(obj, path: str) -> None:
+    """torch.save into `<path>.tmp`, then rename: a reader that lists
+    `model_*.ckpt` while training runs (the eval scripts' watch modes)
+    never opens a half-written checkpoint."""
+    tmp = f"{path}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
 
 
 def _state_to_dict(obj) -> dict:
@@ -215,6 +231,7 @@ class OnPolicyRunner:
         tot_iter = start_iter + num_learning_iterations
         steps_per_iter = self.num_steps_per_env * self.num_envs
 
+        profile_dir = os.environ.get("HGT_PROFILE_DIR")
         pending = None  # (it, seconds since the previous dispatch, metrics, event)
         t_prev = time.time()
 
@@ -231,9 +248,12 @@ class OnPolicyRunner:
             self._log(p_it, tot_iter, metrics, fps, p_dt, n_resets)
 
         for it in range(start_iter, tot_iter):
+            prof = self._start_profile() if profile_dir and it == start_iter + 1 else None
             self.train_state, self.env_state, self.obs, self.priv_obs, metrics = self._train_iter(
                 self.train_state, self.env_state, self.obs, self.priv_obs, self.gen
             )
+            if prof is not None:
+                self._write_profile(prof, profile_dir, it)
             fetch = self._start_fetch(metrics)
             if pending is not None:
                 consume(*pending)
@@ -254,6 +274,28 @@ class OnPolicyRunner:
                 include_env_state=True,
             )
         self.close()
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _write_profile(self, prof, profile_dir: str, it: int):
+        """Wait for the profiled iteration's device work, stop the profiler
+        and write its Chrome trace into profile_dir."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        rank = f"_rank{self.group.rank}" if self.group is not None and self.group.world > 1 else ""
+        path = os.path.join(profile_dir, f"trace_iter{it}{rank}.json")
+        prof.export_chrome_trace(path)
+        print(f"[profiler] trace written to {path}", flush=True)
 
     def close(self):
         """Flush and release the log sinks."""
@@ -389,7 +431,7 @@ class OnPolicyRunner:
             # rollout step is exactly on-policy
             payload["obs"] = self.obs.detach().cpu()
             payload["priv_obs"] = self.priv_obs.detach().cpu()
-        torch.save(payload, path)
+        _atomic_save(payload, path)
 
     def load(self, path: str, load_optimizer: bool = True):
         payload = torch.load(path, map_location="cpu", weights_only=True)

@@ -143,3 +143,50 @@ def test_phase13_is_wired_and_its_digests(smoke):
     one = smoke._digest(smoke._state_tensors(saved))
     assert one == smoke._digest([torch.ones(2, 3), torch.zeros(2, 4)])
     assert one != smoke._digest([torch.ones(2, 3), torch.ones(2, 4)])
+
+
+def test_phases_14_15_and_5c_are_wired(smoke):
+    """Phase 5c runs after phase 5b, phases 14 and 15 after phase 13; the B1
+    and B2 records carry their launches; phase 14's card-vs-CPU tolerances
+    are four times phase 4's (20 steps against 5), and phase 15 reads the
+    bands of tests/test_learning_regression.py through the package."""
+    src = open(SCRIPT).read()
+    order = [src.index(s) for s in (
+        "_where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_ms)",
+        "    _phase5c_profile_dir(card, dev)", "launches_ranks = _phase13_ranks(card)",
+        "launches_play = _phase14_play(card, dev)",
+        "launches_band = _phase15_learning_band(card, dev)", 'print(json.dumps({"kernels"')]
+    assert order == sorted(order)
+    assert src.count("play_launches=launches_play") == 2
+    assert src.count("band_launches=launches_band") == 2
+    tols = smoke._mega_tols(0.001)
+    scale = smoke.PLAY_CMP_STEPS / 5
+    assert smoke.PLAY_TOLS["dof_pos"] == pytest.approx(scale * tols["qpos"])
+    assert smoke.PLAY_TOLS["dof_vel"] == pytest.approx(scale * tols["qvel"])
+    assert smoke.PLAY_TOLS["dof_torque"] == pytest.approx(scale * tols["tau"])
+    assert smoke.PLAY_STEPS == 1200 and smoke.FK_ROWS_TOL == 2e-4
+    assert "from humanoid_gym_tpu_torch.utils.learning_band import band_misses" in src
+
+
+def test_fk_rows_error_reads_the_out_fk_layout(smoke):
+    """The phase-4 FK check on the CPU: the plain mega step's rows agree
+    with fk / body_velocities, and a row off by 1e-3 shows as 1e-3."""
+    import numpy as np
+    import torch
+
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.physics.model import build_xbot_model
+
+    model = build_xbot_model()
+    kp = torch.tensor([200, 200, 350, 350, 15, 15] * 2, dtype=torch.float32)
+    step = MG.make_mega_step_batched(model, 0.001, 10, kp, torch.full((12,), 10.0),
+                                     model.dof_effort * 0.85, iterations=8)
+    st, tgt = smoke._states(model, 3, seed=0, device="cpu")
+    out = step(st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
+               st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance,
+               st.contact_lam, st.slope_bias, tgt)
+    assert smoke._fk_rows_error(model, out) < 1e-5
+    bumped = list(out)
+    bumped[5] = out[5].clone()
+    bumped[5][1, 7] += 1e-3
+    assert np.isclose(smoke._fk_rows_error(model, bumped), 1e-3, atol=2e-5)

@@ -234,6 +234,26 @@ def test_env_step_substep_solver_matches_jax(solver):
     assert float(ts.phys.fk_out.abs().max()) == 0.0
 
 
+def test_nonfinite_env_auto_resets():
+    """The port of tests/test_env.py:270: a numerically exploded env flags
+    done, gets a finite reward and finite observations, comes back with a
+    finite state, and leaves the healthy env alone."""
+    cfg = _quiet(TorchCfg(), 2, 8)
+    cfg.domain_rand.randomize_friction = False
+    cfg.domain_rand.randomize_base_mass = False
+    env = torch_make_env(cfg, device="cpu", seed=5)
+    state, _ = env.step(env.init_state(), torch.zeros((2, 12)))
+    qvel = state.phys.qvel.clone()
+    qvel[0, 3] = float("nan")
+    state, tr = env.step(state.replace(phys=state.phys.replace(qvel=qvel)), torch.zeros((2, 12)))
+    assert bool(tr.done[0])
+    assert int(tr.nonfinite[0]) == 1 and int(tr.nonfinite[1]) == 0
+    assert bool(torch.isfinite(tr.reward[0]))
+    assert bool(torch.isfinite(tr.obs).all()) and bool(torch.isfinite(tr.privileged_obs).all())
+    assert bool(torch.isfinite(state.phys.qpos[0]).all())
+    assert not bool(tr.done[1])
+
+
 # ------------------------------------------------------------------ terrain
 
 

@@ -45,6 +45,13 @@ def test_scan_covers_the_port():
     for f in ("export/__init__.py", "export/policy_export.py", "envs/joint.py", "config/xbots.py",
               "utils/scale_urdf.py"):
         assert f"humanoid_gym_tpu_torch/{f}" in names
+    for f in ("export/sim2sim.py", "export/video.py", "export/live_viewer.py",
+              "export/native_eval.py", "physics/mjcf_export.py", "utils/play_logger.py",
+              "utils/calculate_gait.py", "utils/roofline.py"):
+        assert f"humanoid_gym_tpu_torch/{f}" in names
+    for f in ("play", "sim2sim", "view", "eval_hfield", "robustness_curve", "gen_xbots_mjcf",
+              "plot_curves"):
+        assert f"scripts/{f}_torch.py" in names
     assert len(names) > 15
 
 

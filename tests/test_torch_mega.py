@@ -494,3 +494,29 @@ def test_cpu_tensors_take_the_plain_path(models):
     assert consts.dtype == torch.float32 and tuple(consts.shape) == (MG.CONST_COUNT,)
     with pytest.raises(ValueError, match="CUDA"):
         MG.mega_kernel_launch(torch.zeros((2, MG.IN_ROWS)), consts, 0.001, 10, 8, 1.0)
+
+
+def test_mega_fk_out_matches_fk(models):
+    """The port of tests/test_mega_kernel.py:251: the plain mega step's
+    end-of-step OUT_FK rows (feet p and knee xy base-relative; feet
+    v_origin in the world frame) equal `fk` / `body_velocities` at the
+    state it returns, which they replace in the env (atol 2e-4, 4 envs, 3
+    policy steps, 24 iterations). The kernel's rows are held to the same
+    functions on the card (chip_smoke.py phase 4)."""
+    from humanoid_gym_tpu_torch.physics.kinematics import body_velocities, fk
+
+    _, tm = models
+    n = 4
+    args = _states(n, seed=3)
+    args[-1] = np.random.default_rng(4).uniform(-0.2, 0.2, (n, 12)).astype(np.float32)
+    for _ in range(3):
+        qpos, qvel, lam, _, _, fk14 = _torch_step(tm, tm.dof_effort * 0.85, 24, args)
+        args = [qpos, qvel, *args[2:9], lam, args[10]]
+    qp, qv = torch.from_numpy(qpos), torch.from_numpy(qvel)
+    k = fk(tm, qp)
+    bv = body_velocities(tm, qp, qv, k)
+    f, kn = list(tm.feet_body_idx), list(tm.knee_body_idx)
+    p_rel = k.p - qp[:, None, :3]
+    want = torch.cat([p_rel[:, f, 0], p_rel[:, f, 1], p_rel[:, f, 2], p_rel[:, kn, 0],
+                      p_rel[:, kn, 1], bv.v_origin[:, f, 0], bv.v_origin[:, f, 1]], dim=1)
+    np.testing.assert_allclose(fk14, want.numpy(), atol=2e-4)

@@ -338,3 +338,26 @@ def test_estimator_head_is_refused(tmp_path):
     run_plain = OnPolicyRunner(_env(n=2), _train_cfg(), log_dir=None)
     with pytest.raises(RuntimeError, match="estimator"):
         run_plain.load(path)
+
+
+def test_profile_dir_traces_the_second_iteration(tmp_path, monkeypatch, capsys):
+    """HGT_PROFILE_DIR (the JAX runner's on_policy_runner.py:209-243): learn(2)
+    writes one Chrome trace, of its second iteration, into the directory and
+    prints where; the run trains exactly as it does without the variable."""
+    tcfg = _train_cfg()
+    prof_dir = tmp_path / "prof"
+    nets = {}
+    for name in ("plain", "profiled"):
+        if name == "profiled":
+            monkeypatch.setenv("HGT_PROFILE_DIR", str(prof_dir))
+        else:
+            monkeypatch.delenv("HGT_PROFILE_DIR", raising=False)
+        runner = OnPolicyRunner(_env(n=4), tcfg, log_dir=None, seed=1)
+        runner.learn(2)
+        nets[name] = runner.net.state_dict()
+    assert os.listdir(prof_dir) == ["trace_iter1.json"]
+    events = json.load(open(prof_dir / "trace_iter1.json"))["traceEvents"]
+    assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    assert f"[profiler] trace written to {prof_dir / 'trace_iter1.json'}" in capsys.readouterr().out
+    for k, v in nets["plain"].items():
+        assert torch.equal(v, nets["profiled"][k]), k

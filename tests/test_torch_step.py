@@ -238,3 +238,67 @@ def test_terrain_frames_differ_from_flat(models, terrain_maps):
                                  terrain_height_fn=make_contact_height_fn(tmap))
     a, b = sloped(tst, torch.from_numpy(tgt)), level(tst, torch.from_numpy(tgt))
     assert float((a.qvel - b.qvel).abs().max()) > 1e-2
+
+
+# --------------------------------------------- goldens of the JAX package
+# (tests/test_contact_solvers.py:270, 310), on the port's engine alone
+
+
+def test_contact_compliance_softens(models):
+    """CFM compliance: positive compliance reduces contact impulses and lets
+    the robot settle lower (soft contact); both still carry it."""
+    _, tm = models
+    step = TS.make_physics_step(tm, 0.001, 10, KP, KD, tm.dof_effort * 0.85,
+                                solver_iterations=24, solver="apgd")
+    st0 = TS.default_state(tm, 1, [0.0, 0.0, 0.93], [1.0, 0, 0, 0])
+
+    def settle(comp):
+        s = st0.replace(contact_compliance=torch.full((1,), comp))
+        for _ in range(40):
+            s = step(s, torch.zeros((1, 12)))
+        return s
+
+    rigid, soft = settle(0.0), settle(0.5)
+    fz_r = float(rigid.contact_forces[0, :, 2].sum())
+    fz_s = float(soft.contact_forces[0, :, 2].sum())
+    assert fz_r > 300.0 and fz_s > 200.0
+    pen_r, pen_s = float(rigid.qpos[0, 2]), float(soft.qpos[0, 2])
+    assert pen_s < pen_r  # compliant envs settle measurably lower
+    assert pen_r - pen_s > 1e-4
+
+
+def test_warm_start_accuracy(models):
+    """The APGD warm start (contact_lam, carried across substeps and policy
+    steps) beats the cold start: at equal iterations the warm solve is
+    strictly more accurate against a converged (200-iteration) solve, and
+    warm@8 and warm@4 beat cold@16 (the basis of the 8-iteration default)."""
+    _, tm = models
+    tl = tm.dof_effort * 0.85
+
+    def mk(iters):
+        return TS.make_physics_step(tm, 0.001, 10, KP, KD, tl, solver_iterations=iters,
+                                    solver="apgd")
+
+    rng = np.random.default_rng(0)
+    n = 8
+    s = TS.default_state(tm, n, [0.0, 0.0, 0.95], [1.0, 0, 0, 0])
+    qpos = s.qpos.clone()
+    qpos[:, 7:] = torch.as_tensor(rng.uniform(-0.1, 0.1, (n, 12)), dtype=torch.float32)
+    s = s.replace(qpos=qpos)
+    # settle into a dynamic contact-rich state with a converged solver
+    ref = mk(200)
+    for i in range(20):
+        s = ref(s, float(0.3 * np.sin(0.05 * i)) * torch.ones((n, 12)))
+    tgt = float(0.3 * np.sin(0.05 * 20)) * torch.ones((n, 12))
+    gold = ref(s, tgt)
+
+    s_cold = s.replace(contact_lam=torch.zeros_like(s.contact_lam))
+
+    def err(out):
+        return float((out.qvel - gold.qvel).abs().max())
+
+    warm4, warm8 = err(mk(4)(s, tgt)), err(mk(8)(s, tgt))
+    cold8, cold16 = err(mk(8)(s_cold, tgt)), err(mk(16)(s_cold, tgt))
+    assert warm8 < cold8, (warm8, cold8)
+    assert warm8 < cold16, (warm8, cold16)
+    assert warm4 < cold16, (warm4, cold16)

@@ -101,7 +101,28 @@ script exits non-zero):
      tests/test_learning_regression.py (seed 5, T=60, 12 iterations through
      `make_train_iter`) with solver mega, held to that test's bands
      unchanged (humanoid_gym_tpu_torch/utils/learning_band.py);
- 16. one JSON line with a record per kernel, the card line, then the
+ 16. the stage profile of the training iteration on the card:
+     `scripts/learn_profile_torch.py` at 4096 envs, T=60 (flat
+     humanoid_ppo, solver mega), all eight stages (full, rollout, gae,
+     permute, update1, fwd, fwdbwd, adam), each as host wall time and
+     profiler device time: 60 mega launches per full and per rollout call,
+     every time finite and positive, device time at most wall time, and
+     full's device time within 0.8-1.25 of phase 5b's profiled iteration;
+ 17. the 16,384-env joint footprint: `scripts/config4_dryrun_torch.py`
+     (humanoid_joint_deploy, 8192 XBot-L + 8192 XBot-S envs on the deploy
+     field, T=60, one rank, its own process): 120 terrain launches (each
+     robot's B1t a policy step) and no flat one in the timed iteration, a
+     finite value loss, a peak below the card's memory; the measured peak
+     beside the JAX formula's projection;
+ 18. the SASS census of B1 and B1t (`physics/sass_census.py`): the
+     -lineinfo cubin's instruction count equal to the loaded library's for
+     both instances, at least 95% of instructions on a line of mega.cu /
+     solve.cuh / apgd.cuh; the top opcodes and lines;
+ 19. the roofline CLI (`scripts/roofline_torch.py`) at phase 5's measured
+     iteration time, its total equal to `iteration_flops`; the example
+     (`examples/minimal_train_loop_torch.py`) at 8 envs on the card, 3
+     finite iterations through the kernel;
+ 20. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
@@ -154,16 +175,6 @@ def _solver_mega(cfg):
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def _card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if res.returncode != 0 or not res.stdout.strip():
-        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
 
 
 def _time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1249,6 +1260,159 @@ def _phase15_learning_band(card, dev):
     return launches[0]
 
 
+# ---- phases 16-19: the measurement tools on the card ----
+
+# timed calls per stage after the warm-up (the stage times' median)
+LP_REPS = 3
+CONFIG4_ENVS = 16384
+CONFIG4_TIMEOUT_S = 600
+MIN_ATTRIBUTED = 0.95
+# phase 16's profiled `full` iteration against phase 5b's profiled
+# iteration: the same train_iter at the same width, so the device-busy
+# times agree within this ratio unless a window lost events
+BUSY_RATIO = (0.8, 1.25)
+
+
+def _phase16_learn_profile(card, dev, busy5_ms):
+    """Phase 16: scripts/learn_profile_torch.py at 4096 envs, T=60, every
+    stage: 60 mega launches per full and rollout call, finite positive
+    times, device time at most wall time, and full's device time within
+    BUSY_RATIO of phase 5b's profiled iteration (busy5_ms). Returns the
+    summary."""
+    import math
+
+    from scripts import learn_profile_torch as LP
+
+    t0 = time.perf_counter()
+    s = LP.profile_stages(envs=N_ENVS, reps=LP_REPS, horizon=T_STEPS, device=dev)
+    seconds = time.perf_counter() - t0
+    wall, dms = s["stages_ms"], s["device_ms"]
+    upd = s["n_updates"] * wall["update1"]
+    parts = wall["rollout"] + wall["gae"] + wall["permute"] + upd
+    _log(f"phase 16 learn profile: scripts/learn_profile_torch.py, XBot-L {N_ENVS} envs T={T_STEPS} "
+         f"solver {s['solver']}, {LP_REPS} reps, {seconds:.1f} s | stage wall / device ms (share): "
+         + ", ".join(f"{k} {wall[k]:.3f} / {dms[k]:.3f} ({dms[k] / wall[k]:.3f})" for k in LP.STAGES)
+         + f" | rollout + gae + permute + {s['n_updates']} x update1 = {parts:.1f} ms against full "
+         f"{wall['full']:.1f} ms ({parts / wall['full']:.3f}) | mega launches {s['mega_launches']} | "
+         f"full's device ms against phase 5b's {busy5_ms} ms: "
+         + (f"{dms['full'] / busy5_ms:.3f}" if busy5_ms else "no phase 5b number")
+         + f" | {card}")
+    bad = [k for k in LP.STAGES if k not in wall or not (
+        math.isfinite(wall[k]) and math.isfinite(dms[k]) and 0 < dms[k] <= wall[k])]
+    launches = s["mega_launches"]
+    if bad or any(n != T_STEPS for k in ("full", "rollout") for n in launches[k]):
+        raise AssertionError(f"phase 16: stages {bad} out of bounds or launches {launches}")
+    if not busy5_ms or not BUSY_RATIO[0] <= dms["full"] / busy5_ms <= BUSY_RATIO[1]:
+        raise AssertionError(f"phase 16: full's device time {dms['full']} ms against phase 5b's "
+                             f"{busy5_ms} ms is outside {BUSY_RATIO}")
+    return s
+
+
+def _phase17_config4(card):
+    """Phase 17: scripts/config4_dryrun_torch.py at 16,384 envs, T=60, one
+    rank, in its own process (so its memory counts alone): 120 terrain
+    launches and no flat one in the timed iteration, a finite value loss, a
+    peak below the card's memory. Returns the script's record."""
+    import math
+
+    import torch
+
+    torch.cuda.empty_cache()  # this process's cached blocks, so the dry run has the card
+    with tempfile.TemporaryDirectory(prefix="hgt_smoke_") as tmp:
+        out = os.path.join(tmp, "config4.json")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.join(HERE, "scripts", "config4_dryrun_torch.py"),
+                              "--envs", str(CONFIG4_ENVS), "--horizon", str(T_STEPS), "--out", out],
+                             capture_output=True, text=True, timeout=CONFIG4_TIMEOUT_S, cwd=HERE)
+        seconds = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"phase 17: config4_dryrun_torch.py exited {run.returncode}:\n"
+                                 f"{run.stdout[-3000:]}\n{run.stderr[-6000:]}")
+        with open(out) as f:
+            r = json.load(f)
+    gib = 2**30
+    peak, proj, total = r["measured_T60_peak_bytes"], r["projection_T60_per_device_bytes"], \
+        r["card_total_memory_bytes"]
+    _log(f"phase 17 config4: scripts/config4_dryrun_torch.py {r['task']} {r['envs']} envs "
+         f"({r['mesh']}) T={r['horizon']} solver {r['solver']}, {seconds:.1f} s in all | set-up "
+         f"{r['setup_s']:.1f} s, warm-up {r['warmup_s']:.1f} s, iteration {r['iter_s']:.2f} s | "
+         f"launches {r['mega_launches']} | value_loss {r['value_loss']:.4g} | measured peak "
+         f"{peak / gib:.2f} GiB against the JAX formula's projection {proj / gib:.2f} GiB "
+         f"({peak / proj:.3f}x) of {total / gib:.2f} GiB | live after set-up "
+         f"{r['per_rank_live_bytes_after_setup']['0'] / gib:.2f} GiB, after the iteration "
+         f"{r['per_rank_live_bytes_after_iter']['0'] / gib:.2f} GiB | env state "
+         f"{r['env_state_bytes_per_env']:.1f} B an env ({r['env_state_bytes_total'] / gib:.3f} GiB), "
+         f"rollout at T {r['rollout_bytes_total_at_T'] / gib:.3f} GiB, peak "
+         f"{peak / r['envs']:.0f} B an env | host peak RSS {r['host_peak_rss_bytes'] / gib:.2f} GiB"
+         f" | {r['device']}")
+    if (r["mega_launches"] != {"flat": 0, "terrain": 2 * T_STEPS} or not math.isfinite(r["value_loss"])
+            or not (peak and peak < total)):
+        raise AssertionError(f"phase 17: launches {r['mega_launches']}, value_loss {r['value_loss']}, "
+                             f"peak {peak} of {total}")
+    return r
+
+
+def _phase18_sass_census(card):
+    """Phase 18: the SASS census of B1 and B1t: the -lineinfo cubin's count
+    equal to the loaded library's for both instances, at least
+    MIN_ATTRIBUTED of the instructions on a line of the kernel's sources."""
+    from humanoid_gym_tpu_torch.physics.sass_census import mega_census
+    from humanoid_gym_tpu_torch.utils.roofline import mega_ops_executed, mega_terrain_ops_executed
+
+    t0 = time.perf_counter()
+    both = mega_census(opcodes=12, lines=20)
+    seconds = time.perf_counter() - t0
+    for key, dyn in (("flat", mega_ops_executed(1, 8)), ("terrain", mega_terrain_ops_executed(1, 8))):
+        c = both[key]
+        _log(f"phase 18 SASS census {key} ({c['function']}), {seconds:.1f} s: {c['instructions']} "
+             f"instructions with -lineinfo, {c['production_instructions']} in the loaded library | "
+             f"{c['attributed_share'] * 100:.2f}% on a line of mega.cu / solve.cuh / apgd.cuh | per "
+             f"file {c['per_file']}, innermost {c['per_innermost_file']} | top opcodes "
+             + ", ".join(f"{k} {v}" for k, v in c["top_opcodes"]) + " | top lines "
+             + ", ".join(f"{k} {v}" for k, v in c["top_lines"])
+             + f" | static count, a loop body once; dynamic by hand for one substep: {dyn:,} f32 "
+             f"operations a warp ({dyn // 32:,} warp instructions) | {card}")
+        if c["instructions"] != c["production_instructions"] or c["attributed_share"] < MIN_ATTRIBUTED:
+            raise AssertionError(f"phase 18 ({key}): {c['instructions']} against "
+                                 f"{c['production_instructions']}, attributed {c['attributed_share']}")
+    return both
+
+
+def _phase19_roofline_and_example(card, dev, iter_ms):
+    """Phase 19: the roofline CLI at phase 5's measured iteration time (its
+    total equal to iteration_flops), then the example at 8 envs on the
+    card (3 finite iterations, one mega launch a policy step)."""
+    import math
+
+    import examples.minimal_train_loop_torch as EX
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.utils.roofline import iteration_flops
+    from scripts import roofline_torch as RL
+
+    c = RL.main(["--envs", str(N_ENVS), "--iter-ms", repr(iter_ms)])
+    sh = c["shares"]
+    _log(f"phase 19 roofline: scripts/roofline_torch.py --iter-ms {iter_ms:.1f} (phase 5's mean) | "
+         f"total {c['total_flops']:,} FLOP (iteration_flops {iteration_flops(N_ENVS):,}), bytes "
+         f"{c['total_bytes']:,} | shares of the data sheet's peaks: FLOPs / bf16 "
+         f"{sh['flops_share_of_bf16_peak']:.6f}, physics / f32 {sh['physics_share_of_f32_peak']:.6f}, "
+         f"bytes / HBM {sh['bytes_share_of_hbm_peak']:.6f}, physics issued "
+         f"{sh['physics_issued_ops_per_s'] / 1e12:.4f} T f32 ops/s | {card}")
+    if c["total_flops"] != iteration_flops(N_ENVS):
+        raise AssertionError(f"phase 19: the CLI's total {c['total_flops']} != iteration_flops")
+    MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+    t0 = time.perf_counter()
+    history, action = EX.main(num_envs=8, iterations=3, horizon=8, device=dev)
+    seconds = time.perf_counter() - t0
+    launches = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
+    finite = all(math.isfinite(v) for h in history for v in h.values()) and bool(
+        action.isfinite().all())
+    _log(f"phase 19 example: examples/minimal_train_loop_torch.py, 8 envs, horizon 8, 3 iterations "
+         f"in {seconds:.1f} s | {history} | mega launches {launches} | finite {finite} | {card}")
+    if len(history) != 3 or not finite or launches != (1 + 3 * 8, 0):
+        raise AssertionError(f"phase 19: example history {history}, launches {launches}")
+    return c
+
+
 # ---- phase 5c: the runner's HGT_PROFILE_DIR trace ----
 
 def _phase5c_profile_dir(card, dev):
@@ -1300,7 +1464,9 @@ def _kernel_class(name: str) -> str:
 def _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_iter_ms):
     """Phase 5b, after the main path's counters were read: one iteration
     stage by stage on CUDA events, then one under torch.profiler for the
-    device time by kernel class and the device's idle share."""
+    device time by kernel class and the device's idle share. Returns the
+    profiled iteration's device-busy ms (None if the profiler saw no
+    kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1323,7 +1489,7 @@ def _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_iter_ms
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pieces["train_iter"](ts, state, obs, priv, gen)
         torch.cuda.synchronize()
-    _profile_line("phase 5b profile", prof, mean_iter_ms, "iteration")
+    return _profile_line("phase 5b profile", prof, mean_iter_ms, "iteration")
 
 
 def _kernel_launches(fn) -> int:
@@ -1358,17 +1524,19 @@ def _device_time(prof):
 
 def _profile_line(tag, prof, window_ms, what):
     """Device time by kernel class, launch count and idle share of a
-    profiled window that took window_ms."""
+    profiled window that took window_ms. Returns the device-busy ms (None
+    if the profiler saw no kernel)."""
     by_class, launches, top = _device_time(prof)
     busy_ms = sum(by_class.values()) / 1e3
     if busy_ms == 0.0:
         _log(f"{tag}: device time not measured (the profiler saw no kernels)")
-        return
+        return None
     top.sort(reverse=True)
     _log(f"{tag}: device busy {busy_ms:.1f} ms of a {window_ms:.1f} ms {what} "
          f"(idle share {1.0 - busy_ms / window_ms:.3f}) over {launches} kernel launches | "
          + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in by_class.items())
          + " | top: " + "; ".join(f"{n} x{c} {u / 1e3:.1f} ms" for u, c, n in top[:5]))
+    return busy_ms
 
 
 def _substep_path(solver, timed_iters, resume, card):
@@ -1918,9 +2086,10 @@ def _phase12_card_and_build() -> str:
 
     from humanoid_gym_tpu_torch.physics import cuda_build
     from humanoid_gym_tpu_torch.physics.kinematics import use_full_f32_matmul
+    from humanoid_gym_tpu_torch.utils.platform import card_line
 
     use_full_f32_matmul()
-    card = _card_line()
+    card = card_line(torch.device("cuda", 0))
     _log(f"phase 1 card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     lib = cuda_build.kernel_library()
     _log(f"phase 2 build: {lib.build_seconds:.1f} s -> "
@@ -2026,7 +2195,7 @@ def main() -> int:
          f"{float(last['mean_step_reward']):.4g} | peak mem "
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
 
-    _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_ms)
+    busy5_ms = _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_ms)
     del env, net, ts, state, obs, priv
     _phase5c_profile_dir(card, dev)
 
@@ -2056,6 +2225,12 @@ def main() -> int:
 
     # ---- phase 15: the learning-curve band on the card ----
     launches_band = _phase15_learning_band(card, dev)
+
+    # ---- phases 16-19: the measurement tools on the card ----
+    _phase16_learn_profile(card, dev, busy5_ms)
+    _phase17_config4(card)
+    _phase18_sass_census(card)
+    _phase19_roofline_and_example(card, dev, mean_ms)
 
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",

@@ -114,6 +114,23 @@ class ActorCritic(nn.Module):
         return self.estimator(obs)
 
 
+def actor_critic_from_cfg(env_cfg, policy_cfg, seed: int = 0, compute_dtype=None) -> ActorCritic:
+    """The recipe's ActorCritic: the widths of `env_cfg` (a config's `.env`)
+    and the nets of `policy_cfg` (a train config's `.policy`): hidden dims,
+    noise std, compute dtype (unless `compute_dtype` is given) and the
+    estimator head. On the CPU; the caller moves it."""
+    return ActorCritic(
+        env_cfg.num_observations, env_cfg.num_privileged_obs, env_cfg.num_actions,
+        actor_hidden=tuple(policy_cfg.actor_hidden_dims),
+        critic_hidden=tuple(policy_cfg.critic_hidden_dims),
+        init_noise_std=policy_cfg.init_noise_std,
+        compute_dtype=compute_dtype or getattr(policy_cfg, "compute_dtype", "auto"),
+        seed=seed,
+        estimator_dim=getattr(policy_cfg, "estimator_dim", 0),
+        estimator_hidden=tuple(getattr(policy_cfg, "estimator_hidden_dims", (256, 128))),
+    )
+
+
 def normal_log_prob(mean, std, x):
     """Diagonal Gaussian log-density, summed over the action axis."""
     var = torch.square(std)

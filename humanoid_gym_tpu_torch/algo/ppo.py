@@ -156,8 +156,12 @@ def permutation_seed(seed: int, iteration: int) -> int:
 def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                       group: Optional[EnvGroup] = None, perm_seed: Optional[int] = None) -> dict:
     """The train iteration and its stages: train_iter = rollout_phase ->
-    compute_gae -> update_phase (minibatch_update over make_loss_fn). Each
-    stage in the returned dict can be called, and timed, on its own.
+    compute_gae -> update_phase (minibatch_update over the loss). Each
+    stage in the returned dict can be called, and timed, on its own, as
+    can the pieces of an update: `permute_batch` (the minibatches of one
+    permutation), `make_loss_fn(mb)` (the mean-form loss of one minibatch,
+    as the JAX package's), `actor_apply(net, obs)` and
+    `critic_apply(net, priv_obs)`.
 
     `num_envs` is the global env count. Under a `group` of several ranks
     the rollout holds this rank's envs (`env.global_env_ids()`; with no env,
@@ -249,15 +253,23 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         adv_n = (advantages - mean) / (torch.sqrt(sq / count) + 1e-8)
         return adv_n, returns
 
-    def make_loss_fn(mb):
+    def actor_apply(net: ActorCritic, obs):
+        """(mean, std) of the policy at obs."""
+        return net.act(obs)
+
+    def critic_apply(net: ActorCritic, priv_obs):
+        """The state value at priv_obs."""
+        return net.evaluate(priv_obs)
+
+    def make_sum_loss_fn(mb):
         """loss_fn(net) -> (total, sums): the loss and its terms as sums
         over the minibatch rows given (surrogate, value, entropy, KL,
         estimator); the caller divides by the global row count."""
         obs, priv, act, old_logp, old_v, adv, ret, old_mu, old_sigma = mb
 
         def loss_fn(net: ActorCritic):
-            mean, std = net.act(obs)
-            value = net.evaluate(priv)
+            mean, std = actor_apply(net, obs)
+            value = critic_apply(net, priv)
             if cfg.schedule == "adaptive":
                 kl = torch.sum(
                     torch.log(std / old_sigma + 1e-5)
@@ -294,13 +306,27 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
 
         return loss_fn
 
+    def make_loss_fn(mb):
+        """loss_fn(net) -> (total, (surrogate, value, entropy, estimator,
+        KL)): the JAX package's loss of minibatch `mb`, each term the mean
+        over its rows (the sum form divided by the row count)."""
+        sum_loss = make_sum_loss_fn(mb)
+        rows = mb[0].shape[0]
+
+        def loss_fn(net: ActorCritic):
+            total, sums = sum_loss(net)
+            surr, value, ent, kl, est = (sums / rows).unbind()
+            return total / rows, (surr, value, ent, est, kl)
+
+        return loss_fn
+
     def minibatch_update(ts: TrainState, mb) -> Tuple[TrainState, Dict]:
         """One Adam step on minibatch `mb` (this rank's rows of it): the
         gradients, loss sums and row counts of every rank summed by one
         all-reduce, then divided by the global row count, so every rank
         takes the step of the global mean with the global KL."""
         net = ts.net
-        total, sums = make_loss_fn(mb)(net)
+        total, sums = make_sum_loss_fn(mb)(net)
         names, params = zip(*net.named_parameters())
         # an estimator head that the loss does not use (coef 0) gets zero
         # gradients, as under jax.grad
@@ -335,10 +361,11 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
             "estimator_loss": est_l,
         }
 
-    def update_phase(ts: TrainState, roll: Rollout, adv, ret, perm_gen):
-        """num_learning_epochs x num_mini_batches updates over one shared
-        permutation of the global flattened batch, drawn from `perm_gen`;
-        returns the mean metrics."""
+    def permute_batch(roll: Rollout, adv, ret, perm_gen):
+        """The minibatches of one update phase: a permutation of the global
+        flattened batch drawn from `perm_gen`, this rank's rows of it
+        gathered from the rollout, as num_mini_batches tuples (obs, priv,
+        actions, log_probs, values, adv, ret, mu, sigma)."""
         flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))  # noqa: E731
         perm = torch.randperm(batch, generator=perm_gen, device=adv.device)
         rows, counts = minibatch_rows(perm)
@@ -346,10 +373,17 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
             roll.obs, roll.priv_obs, roll.actions, roll.log_probs, roll.values, adv, ret,
             roll.mu, roll.sigma,
         )]
+        return [tuple(x[i] for x in data) for i in range(n_mb)]
+
+    def update_phase(ts: TrainState, roll: Rollout, adv, ret, perm_gen):
+        """num_learning_epochs x num_mini_batches updates over one shared
+        permutation of the global flattened batch, drawn from `perm_gen`;
+        returns the mean metrics."""
+        mbs = permute_batch(roll, adv, ret, perm_gen)
         metrics_acc = None
         for _ in range(cfg.num_learning_epochs):
-            for i in range(n_mb):
-                ts, mets = minibatch_update(ts, tuple(x[i] for x in data))
+            for mb in mbs:
+                ts, mets = minibatch_update(ts, mb)
                 metrics_acc = mets if metrics_acc is None else {
                     k: metrics_acc[k] + v for k, v in mets.items()
                 }
@@ -389,8 +423,12 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         "rollout_phase": rollout_phase,
         "compute_gae": compute_gae,
         "update_phase": update_phase,
+        "permute_batch": permute_batch,
         "minibatch_update": minibatch_update,
         "minibatch_rows": minibatch_rows,
+        "make_loss_fn": make_loss_fn,
+        "actor_apply": actor_apply,
+        "critic_apply": critic_apply,
     }
 
 

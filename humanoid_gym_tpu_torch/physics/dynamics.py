@@ -6,7 +6,10 @@ axis:
   M(q) qacc + h(q, v) = S tau + J_c^T f_c
 
 - M = sum_b J_b^T I_b J_b over COM-frame world-axis Jacobians.
-- h by explicit velocity / bias-acceleration propagation down the tree.
+- h by explicit velocity / bias-acceleration propagation down the tree
+  (`bias_forces_explicit`, the hot path), or by forward-mode AD of the
+  body-velocity function (`bias_forces`, the JAX package's derivation,
+  which the tests hold the explicit form against).
 - Joint damping (URDF + PD kd) is implicit: Mtilde = M + dt * diag(D).
 """
 
@@ -16,9 +19,17 @@ from typing import NamedTuple
 
 import torch
 
-from .kinematics import FK, ancestor_mask, body_jacobians, fk
+from . import spatial as S
+from .kinematics import FK, ancestor_mask, body_jacobians, body_velocities, fk
 from .linalg import chol_unrolled, solve_spd_chol
 from .model import RobotModel
+
+
+def qpos_derivative(qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
+    """Time derivative (N, nq) of qpos given qvel (N, nv): the base
+    quaternion's by 0.5 * omega (x) q."""
+    dquat = S.quat_derivative(qpos[:, 3:7], qvel[:, 3:6])
+    return torch.cat([qvel[:, 0:3], dquat, qvel[:, 6:]], dim=-1)
 
 
 def world_inertias(model: RobotModel, k: FK, mass_scale: torch.Tensor):
@@ -36,6 +47,30 @@ def mass_matrix(model: RobotModel, k: FK, mask: torch.Tensor, mass_scale: torch.
     M_lin = torch.einsum("nb,nbiv,nbiw->nvw", m, J_lin, J_lin)
     arm = torch.cat([torch.zeros(6, device=m.device, dtype=m.dtype), model.dof_armature])
     return M_rot + M_lin + torch.diag(arm)
+
+
+def bias_forces(
+    model: RobotModel,
+    qpos: torch.Tensor,
+    qvel: torch.Tensor,
+    k: FK,
+    mask: torch.Tensor,
+    mass_scale: torch.Tensor,
+) -> torch.Tensor:
+    """h(q,v) = C(q,v) v + g(q), (N, nv), by AD: the bias accelerations
+    (qacc = 0) are the directional derivative of the body velocities along
+    qdot (`torch.func.jvp`), plus the gyroscopic torque omega x I omega."""
+    qdot = qpos_derivative(qpos, qvel)
+    bv, bacc = torch.func.jvp(lambda qp: body_velocities(model, qp, qvel), (qpos,), (qdot,))
+    I_w, m = world_inertias(model, k, mass_scale)
+    f_ang = torch.einsum("nbij,nbj->nbi", I_w, bacc.omega) + torch.linalg.cross(
+        bv.omega, torch.einsum("nbij,nbj->nbi", I_w, bv.omega), dim=-1
+    )
+    f_lin = m[:, :, None] * (bacc.v_com - model.gravity)
+    J_ang, J_lin = body_jacobians(model, k, mask)
+    return torch.einsum("nbiv,nbi->nv", J_ang, f_ang) + torch.einsum(
+        "nbiv,nbi->nv", J_lin, f_lin
+    )
 
 
 def bias_forces_explicit(

@@ -36,10 +36,9 @@ def _cubin(src_dir: str, out: str) -> subprocess.Popen:
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def flat_kernel_sass(cubin: str) -> list[str]:
-    """The flat mega kernel's instructions, addresses and encodings stripped."""
-    dump = subprocess.run([os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass", cubin],
-                          capture_output=True, text=True, check=True).stdout
+def sass_functions(dump: str) -> dict[str, list[str]]:
+    """Each function of `cuobjdump -sass` output: its instructions,
+    addresses and encodings stripped."""
     funcs, name = {}, None
     for ln in dump.splitlines():
         m = re.match(r"\s*Function : (\S+)", ln)
@@ -50,10 +49,30 @@ def flat_kernel_sass(cubin: str) -> list[str]:
             ins = re.sub(r"/\*[^*]*\*/", "", ln).strip()
             if ins and not ins.startswith(".") and ins != "{" and ins != "}":
                 funcs[name].append(ins)
-    flat = [f for f in funcs if "hgt_mega_kernel" in f and "ILb1E" not in f]
-    if len(flat) != 1:
-        raise RuntimeError(f"expected one flat hgt_mega_kernel, found {flat}")
-    return funcs[flat[0]]
+    return funcs
+
+
+def mega_kernel_name(names, terrain: bool = False) -> str:
+    """The one function of `names` that is the flat (`hgt_mega_kernel<false>`,
+    or a plain `hgt_mega_kernel`) or the terrain (`<true>`: `ILb1E` in the
+    mangled name) mega kernel."""
+    found = [f for f in names if "hgt_mega_kernel" in f and ("ILb1E" in f) == terrain]
+    if len(found) != 1:
+        kind = "terrain" if terrain else "flat"
+        raise RuntimeError(f"expected one {kind} hgt_mega_kernel, found {found}")
+    return found[0]
+
+
+def cuobjdump_sass(binary: str) -> str:
+    """`cuobjdump -sass` of a cubin or of a shared library holding one."""
+    return subprocess.run([os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass", binary],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def flat_kernel_sass(cubin: str) -> list[str]:
+    """The flat mega kernel's instructions, addresses and encodings stripped."""
+    funcs = sass_functions(cuobjdump_sass(cubin))
+    return funcs[mega_kernel_name(funcs)]
 
 
 def main() -> int:

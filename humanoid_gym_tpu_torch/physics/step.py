@@ -280,6 +280,10 @@ def make_physics_step(
     return step
 
 
+# an alias, as the JAX package has one
+physics_step = make_physics_step
+
+
 def _make_frames_at(model: RobotModel, grad_fn):
     """frames_at(qpos, slope_bias) -> (N, K, 3, 3): the sloped contact
     frames at the contact points' positions, the surface gradient there

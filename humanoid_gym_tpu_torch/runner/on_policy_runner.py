@@ -47,7 +47,7 @@ from typing import Optional
 
 import torch
 
-from ..algo.networks import ActorCritic, dtype_name, resolve_compute_dtype
+from ..algo.networks import actor_critic_from_cfg, dtype_name, resolve_compute_dtype
 from ..algo.ppo import PPOConfig, init_train_state, make_train_iter
 from ..envs.state import EnvState
 from ..parallel.mesh import replicate
@@ -124,21 +124,11 @@ class OnPolicyRunner:
         self.group = env.group
         self.is_main_process = self.group is None or self.group.is_main
 
-        ec = env.cfg.env
         self.num_envs = env.num_envs_global
         self.num_steps_per_env = train_cfg.runner.num_steps_per_env
         self.save_interval = train_cfg.runner.save_interval
 
-        self.net = ActorCritic(
-            ec.num_observations, ec.num_privileged_obs, ec.num_actions,
-            actor_hidden=tuple(train_cfg.policy.actor_hidden_dims),
-            critic_hidden=tuple(train_cfg.policy.critic_hidden_dims),
-            init_noise_std=train_cfg.policy.init_noise_std,
-            compute_dtype=getattr(train_cfg.policy, "compute_dtype", "auto"),
-            seed=self.seed,
-            estimator_dim=getattr(train_cfg.policy, "estimator_dim", 0),
-            estimator_hidden=tuple(getattr(train_cfg.policy, "estimator_hidden_dims", (256, 128))),
-        ).to(self.device)
+        self.net = actor_critic_from_cfg(env.cfg.env, train_cfg.policy, seed=self.seed).to(self.device)
         replicate(list(self.net.parameters()), self.group)
         algo_cfg = PPOConfig.from_cfg(train_cfg.algorithm)
         algo_cfg.num_steps_per_env = self.num_steps_per_env

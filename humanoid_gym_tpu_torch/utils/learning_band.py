@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..algo.networks import ActorCritic
+from ..algo.networks import actor_critic_from_cfg
 from ..algo.ppo import PPOConfig, init_train_state, make_train_iter
 from ..config.xbotl import XBotLCfg, XBotLCfgPPO
 from ..envs import make_env
@@ -34,9 +34,7 @@ def learning_curve(device="cpu", solver="apgd", seed=5, n=16, T=60, iters=12) ->
     cfg.sim.solver.solver_type = solver
     tcfg = XBotLCfgPPO()
     env = make_env(cfg, device=device, seed=seed)
-    net = ActorCritic(cfg.env.num_observations, cfg.env.num_privileged_obs, cfg.env.num_actions,
-                      actor_hidden=tuple(tcfg.policy.actor_hidden_dims),
-                      critic_hidden=tuple(tcfg.policy.critic_hidden_dims), seed=seed).to(device)
+    net = actor_critic_from_cfg(cfg.env, tcfg.policy, seed=seed).to(device)
     acfg = PPOConfig.from_cfg(tcfg.algorithm)
     acfg.num_steps_per_env = T
     ts = init_train_state(net, acfg.learning_rate)

@@ -15,6 +15,11 @@ loop nests by hand (the kernels are `csrc/*.cu`, with no jaxpr to walk).
 - `net_flops`, `iteration_flops`: the actor / critic matmul FLOPs and the
   whole flat-task training iteration (physics + nets + GAE), the census a
   GPU benchmark divides by.
+- `physics_flops_per_step`, `physics_issue_per_step`, `hbm_bytes`: one
+  policy step of physics for a batch of envs (the function's operations,
+  and what the warps issue, every lane counted: the axis the issue-bound
+  mega kernel's run time tracks) and the major device-memory flows of one
+  iteration, as `scripts/roofline_torch.py` prints them.
 
 Peaks: NVIDIA H100 SXM 80 GB, public data sheet: 3.35 TB/s HBM3, 67
 TFLOP/s float32 outside the tensor cores, 989 TFLOP/s dense bf16 on the
@@ -22,6 +27,8 @@ tensor cores. A card run below its 700 W maximum reaches less.
 """
 
 from __future__ import annotations
+
+from ..physics.mega import IN2_ROWS, IN_ROWS, N_POINTS, OUT_ROWS
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -116,6 +123,18 @@ def mega_terrain_ops(decimation: int, iterations: int) -> int:
     return mega_ops(decimation, iterations) + decimation * 16 * per_point + 16 * 12 + 6 * 8 * 5
 
 
+def mega_terrain_ops_executed(decimation: int, iterations: int) -> int:
+    """Float32 operations one warp executes in one launch of the terrain
+    variant, every lane counted: the flat launch's, plus per substep the
+    two constraint columns each lane builds (rows lane and lane + 32; the
+    warp issues the contact-row code for both) with the ground lookup, t2
+    and phi (30 + 4 + 3) and the row direction's base-rotation (9) and joint
+    entries (6 x 5); per launch the frames (12) and the rotated impulse
+    sums (8 points x 8)."""
+    per_row = 30 + 4 + 3 + 9 + 6 * 5
+    return mega_ops_executed(decimation, iterations) + 32 * (decimation * 2 * per_row + 12 + 8 * 8)
+
+
 PROJ_OPS = 16 * 20 + 12  # 16 cone projections + 12 clamps
 
 
@@ -193,3 +212,44 @@ def iteration_flops(envs, T=60, epochs=2):
     roll_nn, learn_nn = net_flops(envs, T, epochs)
     gae = envs * T * 10
     return phys + roll_nn + learn_nn + gae
+
+
+def physics_flops_per_step(envs, terrain=False, decimation=10, iterations=8):
+    """Operations of ONE policy step of physics for `envs` envs: one mega
+    launch (`mega_ops`, or `mega_terrain_ops` on a heightfield) per env."""
+    ops = mega_terrain_ops if terrain else mega_ops
+    return envs * ops(decimation, iterations)
+
+
+def physics_issue_per_step(envs, terrain=False, decimation=10, iterations=8):
+    """Float32 operations the warps issue in ONE policy step of physics, every
+    lane counted whether or not its result is used (`mega_ops_executed`, or
+    `mega_terrain_ops_executed`, per env: one warp an env). This, and not
+    the function's operations, is what the issue-bound kernel's run time
+    tracks."""
+    ops = mega_terrain_ops_executed if terrain else mega_ops_executed
+    return envs * ops(decimation, iterations)
+
+
+def hbm_bytes(envs, T=60, terrain=False):
+    """Major per-iteration device-memory flows (bytes), both directions
+    counted. The rollout's three flows are the JAX package's: the storage
+    written once, the permutation's gathers (read + write) and two epochs
+    of minibatch reads of its rows (obs 705 + privileged 219 + 3 x 12
+    actions, means, stds + 4 scalars, float32). The kernel's flow is what
+    the mega launches' inputs and outputs hold: (IN_ROWS + OUT_ROWS) floats
+    an env, + IN2_ROWS on a heightfield, T launches. On a heightfield
+    `make_terrain_patches` also reads each point's 3 x 3 taps from the grid
+    and writes the IN2 rows once a policy step."""
+    batch = envs * T
+    row = (705 + 219 + 12 * 3 + 4) * 4
+    kernel_floats = IN_ROWS + OUT_ROWS + (IN2_ROWS if terrain else 0)
+    flows = {
+        "rollout storage write": batch * row,
+        "perm gathers (read+write)": 2 * batch * row,
+        "learn minibatch reads (2 epochs)": 2 * batch * row,
+        f"kernel in/out rows ({T} launches)": batch * kernel_floats * 4,
+    }
+    if terrain:
+        flows["terrain patches (taps read, IN2 rows written)"] = batch * (9 * N_POINTS + IN2_ROWS) * 4
+    return flows

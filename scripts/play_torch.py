@@ -132,15 +132,13 @@ def play(args, n_steps: int = PLAY_STEPS):
     and video paths (None where not written)."""
     import torch
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card found; pass --device cpu to run the plain versions")
-
     from humanoid_gym_tpu_torch import XBOT_MJCF, registry
     from humanoid_gym_tpu_torch.export import export_policy, load_policy
     from humanoid_gym_tpu_torch.runner import OnPolicyRunner
     from humanoid_gym_tpu_torch.utils.helpers import get_load_path
+    from humanoid_gym_tpu_torch.utils.platform import resolve_device
 
+    device = resolve_device(args.device)
     spec = registry.get_task(args.task)
     train_cfg = spec.make_train_cfg()
     solver = os.environ.get("HGT_SOLVER", "apgd" if device.type == "cpu" else "mega")

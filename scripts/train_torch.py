@@ -27,11 +27,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def train(args):
-    import torch
+    from humanoid_gym_tpu_torch.utils.platform import resolve_device
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card found; pass --device cpu to run the plain versions")
+    device = resolve_device(args.device)
     group = None
     if "WORLD_SIZE" in os.environ:
         from humanoid_gym_tpu_torch.parallel import make_env_group

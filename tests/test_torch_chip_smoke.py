@@ -168,6 +168,35 @@ def test_phases_14_15_and_5c_are_wired(smoke):
     assert "from humanoid_gym_tpu_torch.utils.learning_band import band_misses" in src
 
 
+def test_phases_16_to_19_are_wired(smoke):
+    """Phases 16-19 run after phase 15 and before the kernels line, each
+    through the tool a user would run: learn_profile_torch in the process,
+    config4_dryrun_torch in its own process at 16,384 envs and T=60, the
+    SASS census of both mega instances, the roofline CLI at phase 5's
+    measured iteration time and the example at 8 envs. Their gates are the
+    contract's: 60 launches per full / rollout call, 120 terrain launches,
+    equal instruction counts and 95% of them on a kernel line; full's
+    device time is held against phase 5b's profiled iteration."""
+    src = open(SCRIPT).read()
+    order = [src.index(s) for s in (
+        "launches_band = _phase15_learning_band(card, dev)",
+        "    _phase16_learn_profile(card, dev, busy5_ms)", "    _phase17_config4(card)",
+        "    _phase18_sass_census(card)", "    _phase19_roofline_and_example(card, dev, mean_ms)",
+        'print(json.dumps({"kernels"')]
+    assert order == sorted(order)
+    assert "LP.profile_stages(envs=N_ENVS, reps=LP_REPS, horizon=T_STEPS, device=dev)" in src
+    assert "busy5_ms = _where_the_time_goes(" in src and smoke.BUSY_RATIO == (0.8, 1.25)
+    assert 'BUSY_RATIO[0] <= dms["full"] / busy5_ms <= BUSY_RATIO[1]' in src
+    assert '"config4_dryrun_torch.py"' in src and smoke.CONFIG4_ENVS == 16384
+    assert '{"flat": 0, "terrain": 2 * T_STEPS}' in src
+    assert "mega_census(opcodes=12, lines=20)" in src and smoke.MIN_ATTRIBUTED == 0.95
+    assert 'RL.main(["--envs", str(N_ENVS), "--iter-ms", repr(iter_ms)])' in src
+    assert "EX.main(num_envs=8, iterations=3, horizon=8, device=dev)" in src
+    assert src.count('route="cuda"') == 5  # the kernels line is unchanged
+    for n in (16, 17, 18, 19, 20):
+        assert f"\n {n}. " in smoke.__doc__
+
+
 def test_fk_rows_error_reads_the_out_fk_layout(smoke):
     """The phase-4 FK check on the CPU: the plain mega step's rows agree
     with fk / body_velocities, and a row off by 1e-3 shows as 1e-3."""
@@ -190,3 +219,25 @@ def test_fk_rows_error_reads_the_out_fk_layout(smoke):
     bumped[5] = out[5].clone()
     bumped[5][1, 7] += 1e-3
     assert np.isclose(smoke._fk_rows_error(model, bumped), 1e-3, atol=2e-5)
+
+
+def test_profile_line_returns_the_busy_time(smoke):
+    """Phase 5b's device-busy ms, which phase 16 holds full's device time
+    against, is the sum of the profiled window's CUDA events; None when the
+    window holds no CUDA event."""
+    import types
+
+    import torch
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def prof(*events):
+        evs = [types.SimpleNamespace(device_type=d, key=k, count=n, self_device_time_total=us)
+               for d, k, n, us in events]
+        return types.SimpleNamespace(key_averages=lambda: evs)
+
+    busy = smoke._profile_line("t", prof((cuda, "hgt_mega_kernel<false>", 60, 32000.0),
+                                         (cuda, "elementwise_kernel", 900, 1500.0),
+                                         (cpu, "aten::add", 900, 0.0)), 900.0, "iteration")
+    assert busy == pytest.approx(33.5)
+    assert smoke._profile_line("t", prof((cpu, "aten::add", 3, 0.0)), 10.0, "iteration") is None

@@ -1,5 +1,5 @@
-"""The PyTorch port, its scripts (scripts/*_torch.py) and chip_smoke.py import no JAX, no flax,
-no optax and nothing of the JAX package. The scan reads each source's import statements
+"""The PyTorch port, its scripts (scripts/*_torch.py), its examples (examples/*_torch.py) and
+chip_smoke.py import no JAX, no flax, no optax and nothing of the JAX package. The scan reads each source's import statements
 with `ast` (a substring match would trip on humanoid_gym_tpu_torch)."""
 
 import ast
@@ -14,8 +14,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "humanoid_gym_tpu")
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
-    out += [os.path.join(ROOT, "scripts", f) for f in sorted(os.listdir(os.path.join(ROOT, "scripts")))
-            if f.endswith("_torch.py")]
+    for sub in ("scripts", "examples"):
+        out += [os.path.join(ROOT, sub, f) for f in sorted(os.listdir(os.path.join(ROOT, sub)))
+                if f.endswith("_torch.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py")]
     return sorted(out)
@@ -50,8 +51,12 @@ def test_scan_covers_the_port():
               "utils/calculate_gait.py", "utils/roofline.py"):
         assert f"humanoid_gym_tpu_torch/{f}" in names
     for f in ("play", "sim2sim", "view", "eval_hfield", "robustness_curve", "gen_xbots_mjcf",
-              "plot_curves"):
+              "plot_curves", "learn_profile", "kernel_census", "scaling_bench", "config4_dryrun",
+              "roofline"):
         assert f"scripts/{f}_torch.py" in names
+    for f in ("utils/platform.py", "physics/sass_census.py", "physics/mega_sass.py"):
+        assert f"humanoid_gym_tpu_torch/{f}" in names
+    assert "examples/minimal_train_loop_torch.py" in names
     assert len(names) > 15
 
 

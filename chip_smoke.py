@@ -96,7 +96,8 @@ script exits non-zero):
      demo's arrays; the trace is finite, the robot never falls and its mean
      base_vel_x is at least PLAY_MIN_VX; then the first 20 noise-free steps
      of `play_rollout` on the card against the same rollout on the CPU
-     (PLAY_TOLS), with the card's host synchronisations counted;
+     (PLAY_TOLS), with the card's host synchronisations counted: none in
+     the env step's modules;
  15. the learning-curve band on the card: the seeded 16-env run of
      tests/test_learning_regression.py (seed 5, T=60, 12 iterations through
      `make_train_iter`) with solver mega, held to that test's bands
@@ -122,7 +123,20 @@ script exits non-zero):
      iteration time, its total equal to `iteration_flops`; the example
      (`examples/minimal_train_loop_torch.py`) at 8 envs on the card, 3
      finite iterations through the kernel;
- 20. one JSON line with a record per kernel, the card line, then the
+ 20. the env step with no host synchronisation, and captured:
+     `HumanoidEnv.step` at 4096 envs, solver mega, flat and on the terrain
+     task, under `torch.cuda.set_sync_debug_mode("error")` with resets and
+     command resamples in the window; `graft_entry_torch.entry()` captured
+     as one CUDA graph (solver apgd, then mega), three replays fed forward
+     against three eager steps from the same state and generator state
+     (bit-equal expected, fail above 1e-6), hgt_mega_kernel once per
+     replay in the profiler; `dryrun_multichip(1)` over nccl;
+ 21. `bench_torch.py` in its own process at 4096 envs: flat pipelined,
+     flat HGT_BENCH_SYNC=1, HGT_BENCH_TASK=humanoid_ppo_terrain_robust,
+     HGT_BENCH_MESH=1, each JSON line printed; value finite and > 0, solver
+     mega, 0 < mfu < 1, 60 launches of the task's mega kernel per timed
+     iteration and none of the other;
+ 22. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
@@ -1067,6 +1081,9 @@ PLAY_MIN_VX = 0.25  # mean base_vel_x at the 0.5 m/s command
 # this check allows four times those tolerances: joint positions and the
 # joint targets (rad) 2e-3, joint and base velocities 4e-2, torque 0.2 N m
 PLAY_CMP_STEPS = 20
+# the env step's modules: none of them may synchronise the host
+STEP_FILES = ("env.py", "rewards.py", "step.py", "mega.py", "contact.py", "dynamics.py",
+              "kinematics.py", "spatial.py", "terrain.py")
 PLAY_TOLS = {"dof_pos_target": 2e-3, "dof_pos": 2e-3, "dof_vel": 4e-2, "base_vel_x": 4e-2,
              "base_vel_y": 4e-2, "base_vel_z": 4e-2, "base_vel_yaw": 4e-2, "dof_torque": 0.2}
 
@@ -1225,6 +1242,9 @@ def _phase14_play(card, dev):
         raise AssertionError(f"phase 14: export equal {same}, finite {finite}, falls "
                              f"{res['falls']}, mean base_vel_x {mean_vx}")
     bad = {k: v for k, v in errs.items() if not v <= PLAY_TOLS[k]}
+    in_step = {k: v for k, v in where.items() if k.split(":")[0] in STEP_FILES}
+    if in_step:
+        raise AssertionError(f"phase 14: host synchronisations in the env step {in_step}")
     if bad or falls20:
         raise AssertionError(f"phase 14: the card's play rollout differs from the CPU's: {bad}")
     return counts["flat"]
@@ -1411,6 +1431,214 @@ def _phase19_roofline_and_example(card, dev, iter_ms):
     if len(history) != 3 or not finite or launches != (1 + 3 * 8, 0):
         raise AssertionError(f"phase 19: example history {history}, launches {launches}")
     return c
+
+
+# ---- phase 20: the env step with no host synchronisation, captured ----
+
+CAPTURE_REPLAYS = 3
+CAPTURE_TOL = 1e-6  # replays against eager steps: bit-equal expected
+TIMED_STEPS = 10
+
+
+def _sync_free_steps(card, dev):
+    """`HumanoidEnv.step` at N_ENVS envs, solver mega, flat and on the
+    terrain task, three steps under `torch.cuda.set_sync_debug_mode("error")`
+    (any host synchronisation raises), with a command resample on every
+    step and half the envs at their time-out in the first step (resets and,
+    on terrain, curriculum moves). Returns the kernel launches by task."""
+    import torch
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    launches = {}
+    for task in ("humanoid_ppo", TERRAIN_TASK):
+        def ov(c):
+            c.sim.solver.solver_type = "mega"
+            c.commands.resampling_time = c.dt
+
+        env, cfg = registry.make_env(task, num_envs=N_ENVS, cfg_overrides=ov, device=dev, seed=0)
+        zero = torch.zeros((N_ENVS, cfg.env.num_actions), device=dev)
+        state, _ = env.step(env.init_state(), zero)
+        half = (torch.arange(N_ENVS, device=dev) % 2 == 0).to(torch.int32)
+        state = state.replace(episode_length=half * env.max_episode_length)
+        dones = []
+        MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                state, tr = env.step(state, zero)
+                dones.append(tr.done)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches[task] = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
+        resets = [int(d.sum()) for d in dones]
+        _log(f"phase 20 no host synchronisation: HumanoidEnv.step, {task}, {N_ENVS} envs, solver "
+             f"mega, 3 steps under set_sync_debug_mode('error'): none raised | resets per step "
+             f"{resets} (half the envs timed out in the first), a resample every step | mega "
+             f"launches (flat, terrain) {launches[task]} | {card}")
+        if resets[0] < N_ENVS // 2:
+            raise AssertionError(f"phase 20: {resets[0]} resets in the first step, expected at "
+                                 f"least {N_ENVS // 2}")
+        del env, state, tr, dones
+    if launches != {"humanoid_ppo": (3, 0), TERRAIN_TASK: (0, 3)}:
+        raise AssertionError(f"phase 20: launches in the sync-free steps {launches}")
+    return launches
+
+
+def _captured_entry(card, dev, solver):
+    """`graft_entry_torch.entry(solver=)` captured as one CUDA graph: three
+    replays that feed the state forward against three eager steps from the
+    same state and the same generator state (largest difference over the
+    outputs, qpos and qvel; bit-equal expected, fail above CAPTURE_TOL);
+    the mega kernel seen by the profiler once per replay; eager step and
+    replay timed over TIMED_STEPS. Returns the launches counted while
+    capturing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import graft_entry_torch as GE
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    fn, (net, state0, obs0, priv0) = GE.entry(device=dev, solver=solver)
+    gen = fn.env.gen
+    g0 = gen.get_state()
+    MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+    t0 = time.perf_counter()
+    graph = GE.CapturedStep(fn.step, net, state0, obs0, priv0, gen)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    capture_launches = MG.mega_kernel_launch.launches  # warm-up calls + the capture
+
+    def rollout(step):
+        gen.set_state(g0)
+        st, o, p = state0, obs0, priv0
+        seen = []
+        for _ in range(CAPTURE_REPLAYS):
+            st, out = step(st, o, p)
+            o, p = out[0], out[1]
+            seen.append([x.clone() for x in (*out, st.phys.qpos, st.phys.qvel)])
+        return seen
+
+    eager = rollout(lambda s, o, p: fn.step(net, s, o, p))
+    MG.mega_kernel_launch.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        replayed = rollout(graph)
+        torch.cuda.synchronize()
+    replay_launches = MG.mega_kernel_launch.launches
+    mega_events = sum(e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "hgt_mega_kernel" in e.key)
+    err = max(_maxerr(a, b) for ea, ra in zip(eager, replayed) for a, b in zip(ea, ra))
+    bit_equal = all(torch.equal(a, b) for ea, ra in zip(eager, replayed) for a, b in zip(ea, ra))
+
+    def host_ms(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+
+    eager_ms = host_ms(lambda: fn.step(net, state0, obs0, priv0))
+    replay_ms = host_ms(lambda: graph(state0, obs0, priv0))
+    _log(f"phase 20 capture: graft_entry_torch.entry(solver={solver!r}), {GE.NUM_ENVS} envs, one "
+         f"CUDA graph ({capture_s:.2f} s with {GE.CAPTURE_WARMUP} warm-up calls) | {CAPTURE_REPLAYS} replays fed "
+         f"forward against {CAPTURE_REPLAYS} eager steps: max|diff| {err:.3e} (tol "
+         f"{CAPTURE_TOL:.0e}), bit-equal {bit_equal} | hgt_mega_kernel in the profiled replays "
+         f"{mega_events}, wrapper launches while capturing {capture_launches}, while replaying "
+         f"{replay_launches} | a step eager {eager_ms:.3f} ms, replayed {replay_ms:.3f} ms (host "
+         f"clock, {TIMED_STEPS} calls) | {card}")
+    if not err <= CAPTURE_TOL:
+        raise AssertionError(f"phase 20 ({solver}): replays differ from eager steps by {err}")
+    want_events = CAPTURE_REPLAYS if solver == "mega" else 0
+    want_capture = GE.CAPTURE_WARMUP + 1 if solver == "mega" else 0
+    if (mega_events, capture_launches, replay_launches) != (want_events, want_capture, 0):
+        raise AssertionError(f"phase 20 ({solver}): mega kernels in the replays {mega_events}, "
+                             f"wrapper launches capturing {capture_launches}, replaying "
+                             f"{replay_launches}")
+    return capture_launches
+
+
+def _phase20_capture(card, dev):
+    """Phase 20: the env step free of host synchronisation (flat and
+    terrain), `entry()` captured and replayed with solver apgd and mega,
+    and `dryrun_multichip(1)` over nccl. Returns the flat mega launches of
+    the sync-free steps, of the capture and of the dry run's process
+    (read from its line)."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    import graft_entry_torch as GE
+
+    sync_free = _sync_free_steps(card, dev)
+    _captured_entry(card, dev, "apgd")
+    capture_launches = _captured_entry(card, dev, "mega")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        results = GE.dryrun_multichip(1)
+    line = buf.getvalue().strip()
+    _log(f"phase 20 {line} | {time.perf_counter() - t0:.1f} s, its own process | {card}")
+    if not (line.startswith("dryrun_multichip(1): ok — solver=mega (1 nccl")
+            and np.isfinite(results[0]["value_loss"])):
+        raise AssertionError(f"phase 20: dryrun_multichip(1) printed {line!r}")
+    return {"sync_free": sync_free["humanoid_ppo"][0], "capture": capture_launches}
+
+
+# ---- phase 21: bench_torch.py on the card ----
+
+BENCH_RUNS = (
+    ("flat, pipelined", {}),
+    ("flat, sync", {"HGT_BENCH_SYNC": "1"}),
+    ("terrain", {"HGT_BENCH_TASK": TERRAIN_TASK}),
+    ("flat, mesh 1", {"HGT_BENCH_MESH": "1"}),
+)
+BENCH_TIMEOUT_S = 300
+
+
+def _phase21_bench(card):
+    """Phase 21: `bench_torch.py` in its own process four times (flat
+    pipelined, flat sync, the terrain task, HGT_BENCH_MESH=1), at 4096 envs
+    with the default solver: each JSON line printed; value finite and > 0,
+    solver mega, 0 < mfu < 1 where the line has mfu, and 60 launches of
+    the task's mega kernel per timed iteration (none of the other one).
+    Returns the launches of the flat pipelined and the terrain run."""
+    import math
+    import re
+
+    launches = {}
+    for tag, extra in BENCH_RUNS:
+        env = dict(os.environ, **extra)
+        for k in ("HGT_SOLVER", "HGT_BENCH_ENVS", "HGT_BENCH_ITERS", "HGT_BENCH_DEVICE"):
+            env.pop(k, None)
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py")],
+                             capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, cwd=HERE,
+                             env=env)
+        seconds = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"phase 21 ({tag}): bench_torch.py exited {run.returncode}:\n"
+                                 f"{run.stdout[-3000:]}\n{run.stderr[-6000:]}")
+        out = json.loads(run.stdout.strip().splitlines()[-1])
+        note = [ln for ln in run.stderr.splitlines() if ln.startswith("# bench:")][-1]
+        m = re.search(r"mega launches (\d+) terrain (\d+) in (\d+) timed iterations", note)
+        flat, terrain, iters = (int(x) for x in m.groups())
+        on_terrain = "HGT_BENCH_TASK" in extra
+        launches[tag] = terrain if on_terrain else flat
+        print(json.dumps(out), flush=True)
+        _log(f"phase 21 bench_torch.py ({tag}): {seconds:.1f} s in its own process | {note[2:]} | "
+             f"{card}")
+        want = (0, T_STEPS * iters) if on_terrain else (T_STEPS * iters, 0)
+        mfu_ok = on_terrain or 0 < out.get("mfu", -1) < 1
+        if not (math.isfinite(out["value"]) and out["value"] > 0 and out["solver"] == "mega"
+                and mfu_ok and (flat, terrain) == want):
+            raise AssertionError(f"phase 21 ({tag}): {out}, launches (flat, terrain) "
+                                 f"{(flat, terrain)}, expected {want}")
+    return launches
 
 
 # ---- phase 5c: the runner's HGT_PROFILE_DIR trace ----
@@ -2232,13 +2460,21 @@ def main() -> int:
     _phase18_sass_census(card)
     _phase19_roofline_and_example(card, dev, mean_ms)
 
+    # ---- phase 20: the env step with no host synchronisation, captured ----
+    launches_graph = _phase20_capture(card, dev)
+
+    # ---- phase 21: bench_torch.py on the card ----
+    launches_bench = _phase21_bench(card)
+
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",
              source="humanoid_gym_tpu_torch/csrc/mega.cu",
              replaces="humanoid_gym_tpu/physics/mega_kernel.py:550",
              launches=launches["mega"], joint_launches=launches_joint["mega"],
              two_rank_launches=launches_ranks, play_launches=launches_play,
-             band_launches=launches_band, library_ms=None,
+             band_launches=launches_band, sync_free_step_launches=launches_graph["sync_free"],
+             graph_capture_launches=launches_graph["capture"],
+             bench_launches=launches_bench["flat, pipelined"], library_ms=None,
              **records["mega"], **extra["mega"]),
         dict(name="hgt_solve_env (contact solve; runs inside hgt_mega_kernel, "
                   "timed through its stand-alone launch hgt_solve_kernel)",
@@ -2260,7 +2496,8 @@ def main() -> int:
              source="humanoid_gym_tpu_torch/csrc/mega.cu",
              replaces="humanoid_gym_tpu/physics/mega_kernel.py:560",
              launches=launches_terrain["mega_terrain"],
-             joint_deploy_launches=launches_joint_deploy["mega_terrain"], library_ms=None,
+             joint_deploy_launches=launches_joint_deploy["mega_terrain"],
+             bench_launches=launches_bench["terrain"], library_ms=None,
              **records["mega_terrain"], **extra["mega_terrain"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -53,7 +53,7 @@ import torch
 from ..config.base import LeggedRobotCfg
 from ..parallel.mesh import EnvGroup, all_reduce_sum
 from ..physics import spatial as S
-from ..physics.kinematics import body_velocities, fk, use_full_f32_matmul
+from ..physics.kinematics import body_velocities, fk, index_tensor, use_full_f32_matmul
 from ..physics.model import RobotModel, build_model_from_urdf
 from ..physics.step import PhysicsState, make_physics_step
 from ..terrain.terrain import TerrainMap, flat_height_fn, make_height_fn
@@ -183,6 +183,17 @@ class HumanoidEnv:
         self._term_masks = [t(self._probe_body == b) > 0 for b in m.termination_body_idx]
         self._pen_masks = [t(self._probe_body == b) > 0 for b in m.penalized_body_idx]
         self._gravity_dir = t([0.0, 0.0, -1.0])
+        # the step's and a reset's constants, made here once: a tensor built
+        # from a Python list in the step is a copy from host memory, which
+        # on the card waits for the host and cannot be captured in a CUDA graph
+        rot = cfg.init_state.rot  # x, y, z, w
+        self._init_pos = t(cfg.init_state.pos)
+        self._init_quat = t([rot[3], rot[0], rot[1], rot[2]])
+        self._init_vel = t(list(cfg.init_state.lin_vel) + list(cfg.init_state.ang_vel))
+        self._forward = t([1.0, 0.0, 0.0])
+        self._vx_range0 = t(cfg.commands.ranges.lin_vel_x)
+        self._feet_idx = index_tensor(m.feet_body_idx, dev)
+        self._knee_idx = index_tensor(m.knee_body_idx, dev)
         # height sample grid around the base (legged_robot.py:743-757), read
         # under the base yaw when terrain.measure_heights is on; appended to
         # the privileged frame as clip(root_z - 0.5 - h) * scale
@@ -251,20 +262,13 @@ class HumanoidEnv:
         """Fresh (qpos, qvel): default dofs + U(-0.1, 0.1) jitter, the init
         root pose at the env origin, +-1 m xy jitter on terrain origins
         (reference legged_robot.py:359-397)."""
-        cfg = self.cfg
         qj = self.default_dof_pos + self._uniform((n, self.model.nj), -0.1, 0.1)
-        pos = torch.as_tensor(cfg.init_state.pos, dtype=torch.float32, device=self.device) + env_origin
+        pos = self._init_pos + env_origin
         if self.custom_origins:
             pos = torch.cat([pos[:, :2] + self._uniform((n, 2), -1.0, 1.0), pos[:, 2:]], dim=1)
-        rot = cfg.init_state.rot  # x, y, z, w
-        quat = torch.as_tensor([rot[3], rot[0], rot[1], rot[2]], dtype=torch.float32, device=self.device)
-        qpos = torch.cat([pos, quat.expand(n, 4), qj], dim=1)
+        qpos = torch.cat([pos, self._init_quat.expand(n, 4), qj], dim=1)
         qvel = torch.cat(
-            [
-                torch.as_tensor(cfg.init_state.lin_vel + cfg.init_state.ang_vel,
-                                dtype=torch.float32, device=self.device).expand(n, 6),
-                torch.zeros((n, self.model.nj), device=self.device),
-            ],
+            [self._init_vel.expand(n, 6), torch.zeros((n, self.model.nj), device=self.device)],
             dim=1,
         )
         return qpos, qvel
@@ -334,8 +338,7 @@ class HumanoidEnv:
         )
         na, nj = self.num_actions, m.nj
         z = lambda *s: torch.zeros((n,) + s, device=dev)  # noqa: E731
-        vx_range = torch.as_tensor(cfg.commands.ranges.lin_vel_x, dtype=torch.float32,
-                                   device=dev).expand(n, 2).clone()
+        vx_range = self._vx_range0.expand(n, 2).clone()
         quat = qpos[:, 3:7]
         return EnvState(
             phys=phys,
@@ -469,7 +472,7 @@ class HumanoidEnv:
             state.commands,
         )
         if cfg.commands.heading_command:
-            fwd = S.quat_rotate(quat, torch.tensor([1.0, 0.0, 0.0], device=dev).expand(n, 3))
+            fwd = S.quat_rotate(quat, self._forward.expand(n, 3))
             heading = torch.atan2(fwd[:, 1], fwd[:, 0])
             cmd_yaw = torch.clamp(0.5 * S.wrap_to_pi(commands[:, 3] - heading), -1.0, 1.0)
             commands = torch.cat(
@@ -500,12 +503,12 @@ class HumanoidEnv:
         else:
             kfk = fk(m, phys.qpos)
             bv = body_velocities(m, phys.qpos, phys.qvel, kfk)
-            fidx, kidx = list(m.feet_body_idx), list(m.knee_body_idx)
+            fidx, kidx = self._feet_idx, self._knee_idx
             feet_z = kfk.p[:, fidx, 2]
             feet_pos_xy = kfk.p[:, fidx, :2]
             knee_pos_xy = kfk.p[:, kidx, :2]
             feet_vel_xy = bv.v_origin[:, fidx, :2]
-        feet_force = phys.contact_forces[:, list(m.feet_body_idx)]
+        feet_force = phys.contact_forces[:, self._feet_idx]
         contact = feet_force[..., 2] > 5.0
         term_flags, pen_flags = self._probe_flags(phys.qpos)
 

@@ -63,15 +63,19 @@ class EnvGroup:
             torch.distributed.destroy_process_group()
 
 
-def make_env_group(backend: str, device=None, init_method: Optional[str] = None) -> EnvGroup:
-    """Join the process group the launcher set up: rank RANK of WORLD_SIZE,
-    meeting through `init_method` ("env://", i.e. MASTER_ADDR / MASTER_PORT,
-    unless given). The device is `cuda:LOCAL_RANK` unless `device` names
-    one ("cpu" for CPU ranks, "cuda:0" for ranks that share a card). A rank
-    that waits on a collective for 10 minutes raises."""
+def make_env_group(backend: str, device=None, init_method: Optional[str] = None,
+                   rank: Optional[int] = None, world: Optional[int] = None) -> EnvGroup:
+    """Join the process group the launcher set up: rank RANK of WORLD_SIZE
+    (or `rank` of `world`, for a group the caller sets up itself, such as
+    one process at world size 1), meeting through `init_method` ("env://",
+    i.e. MASTER_ADDR / MASTER_PORT, unless given). The device is
+    `cuda:LOCAL_RANK` unless `device` names one ("cpu" for CPU ranks,
+    "cuda:0" for ranks that share a card). A rank that waits on a
+    collective for 10 minutes raises."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"]) if rank is None else rank
+    world = int(os.environ["WORLD_SIZE"]) if world is None else world
     if device is None or str(device) == "cuda":
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
     device = torch.device(device)

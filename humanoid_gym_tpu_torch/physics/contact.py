@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from .dynamics import Dyn
-from .kinematics import ancestor_mask, dof_basis, point_jacobian
+from .kinematics import ancestor_mask, dof_basis, index_tensor, point_jacobian
 from .linalg import solve_lower_unrolled, solve_upper_unrolled
 from .model import RobotModel
 from .solve import apgd_solve_kernel
@@ -37,6 +37,12 @@ class ContactSetup(NamedTuple):
     pos_w: torch.Tensor  # (N, K, 3) world candidate positions
     frames: torch.Tensor | None  # (N, K, 3, 3) rows (t1, t2, n) per point,
     # or None on flat ground (identity frames: world x / y / z rows)
+
+
+def _per_env(x):
+    """A float, or an (N,) tensor as an (N, 1) column beside the (N, K)
+    points."""
+    return x[:, None] if torch.is_tensor(x) and x.dim() else x
 
 
 def terrain_contact_frames(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
@@ -72,7 +78,7 @@ def build_contact_setup(
     mask = ancestor_mask(model)
     basis = dof_basis(model, k)
 
-    body_idx = list(model.contact_point_body)
+    body_idx = index_tensor(model.contact_point_body, model.device)
     offs = model.contact_point_offset  # (K,3)
     Rb = k.R[:, body_idx]
     pb = k.p[:, body_idx]
@@ -90,12 +96,7 @@ def build_contact_setup(
         Jpts = torch.einsum("nkdc,nkcv->nkdv", frames_override, Jpts)
         phi_n = phi * frames_override[..., 2, 2]
 
-    coff = torch.as_tensor(contact_offset, dtype=phi.dtype, device=phi.device)
-    bmg = torch.as_tensor(baumgarte, dtype=phi.dtype, device=phi.device)
-    if coff.dim():
-        coff = coff[:, None]
-    if bmg.dim():
-        bmg = bmg[:, None]
+    coff, bmg = _per_env(contact_offset), _per_env(baumgarte)
     inactive = phi_n > coff
     b_pen = torch.clamp(bmg * (-phi_n) / dt, max=max_depen_vel)
     b_gap = -phi_n / dt
@@ -288,7 +289,8 @@ def delassus_operands(
     B = solve_lower_unrolled(dyn.Mtilde_chol, setup.J.transpose(1, 2))  # (N, nv, nrow)
     A = B.transpose(1, 2) @ B
     nrow = A.shape[-1]
-    comp = torch.as_tensor(compliance, dtype=A.dtype, device=A.device).expand(n)
+    comp = compliance.expand(n) if torch.is_tensor(compliance) else \
+        torch.full((n,), float(compliance), dtype=A.dtype, device=A.device)
     reg = comp * torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) / nrow
     A = A + reg[:, None, None] * torch.eye(nrow, device=A.device, dtype=A.dtype)
     u0 = (setup.J @ v_free[..., None])[..., 0]

@@ -8,6 +8,7 @@ matmuls must run in full precision (see `use_full_f32_matmul`).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -107,16 +108,31 @@ def dof_basis(model: RobotModel, k: FK) -> DofBasis:
 
 
 def ancestor_mask(model: RobotModel) -> torch.Tensor:
-    """(nb, nv) static 0/1 mask: which DOF columns move each body."""
-    nb, nv = model.nbody, model.nv
+    """(nb, nv) static 0/1 mask: which DOF columns move each body. Built
+    once per tree and device, like `index_tensor`'s indices."""
+    return _ancestor_mask(tuple(model.body_parent), model.nv, model.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _ancestor_mask(body_parent: tuple, nv: int, device: torch.device) -> torch.Tensor:
+    nb = len(body_parent)
     m = np.zeros((nb, nv), dtype=np.float32)
     m[:, :6] = 1.0  # free base moves everything
     for b in range(1, nb):
         cur = b
         while cur != 0:
             m[b, 6 + cur - 1] = 1.0  # joint i moves body i+1
-            cur = model.body_parent[cur]
-    return torch.as_tensor(m, device=model.device)
+            cur = body_parent[cur]
+    return torch.as_tensor(m, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def index_tensor(indices: tuple, device: torch.device) -> torch.Tensor:
+    """`indices` (a model's tuple of body indices) as an int64 tensor on
+    `device`, built on the first call and reused: indexing with the tuple
+    itself would copy it from host memory in every step, which on the card
+    waits for the host and cannot be captured in a CUDA graph."""
+    return torch.as_tensor(indices, dtype=torch.int64, device=device)
 
 
 def point_jacobian(basis: DofBasis, mask_row: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

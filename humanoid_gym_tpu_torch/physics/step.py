@@ -32,6 +32,7 @@ from .contact import (
     terrain_contact_frames, world_impulses,
 )
 from .dynamics import compute_dynamics, solve_mtilde
+from .kinematics import index_tensor
 from .mega import make_contact_xy, make_mega_step_batched, pd_torques
 from .model import RobotModel
 from .solve import fused_dense_solve
@@ -258,7 +259,7 @@ def make_physics_step(
         iterations=solver_iterations, max_depen_vel=max_depen_vel,
         terrain_map=terrain_map if on_terrain else None,
     )
-    foot_idx = [b for b, _, _ in model.contact_point_runs()]
+    foot_idx = index_tensor(tuple(b for b, _, _ in model.contact_point_runs()), model.device)
     nb = model.nbody
 
     def step(state: PhysicsState, targets: torch.Tensor) -> PhysicsState:

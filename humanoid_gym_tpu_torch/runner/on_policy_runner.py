@@ -114,6 +114,46 @@ def _env_state_from_dict(d: dict, template: EnvState, num_envs: int) -> EnvState
     return leaves(d, template, EnvState)
 
 
+def start_fetch(metrics: dict, device: torch.device):
+    """Begin moving one iteration's metrics to the host: (host dict, event).
+    On the card: non-blocking copies into pinned memory and an event after
+    them, so waiting on the event waits for this iteration only; on the
+    CPU the tensors are already there (event None)."""
+    if device.type != "cuda":
+        return metrics, None
+    host = {}
+    for k, v in metrics.items():
+        buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        buf.copy_(v.detach(), non_blocking=True)
+        host[k] = buf
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def start_profile(device: torch.device):
+    """A started torch.profiler recording the host, and the card's kernels
+    on a CUDA device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, device: torch.device, path: str) -> None:
+    """Wait for the profiled window's device work, stop the profiler and
+    write its Chrome trace to `path`."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    prof.export_chrome_trace(path)
+
+
 class OnPolicyRunner:
     def __init__(self, env, train_cfg, log_dir: Optional[str] = None, seed: Optional[int] = None):
         self.env = env
@@ -185,21 +225,6 @@ class OnPolicyRunner:
 
     # ------------------------------------------------------------------ #
 
-    def _start_fetch(self, metrics: dict):
-        """Begin moving one iteration's metrics to the host. On the card:
-        non-blocking copies into pinned memory and an event after them; on
-        the CPU the tensors are already there."""
-        if self.device.type != "cuda":
-            return metrics, None
-        host = {}
-        for k, v in metrics.items():
-            buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            buf.copy_(v.detach(), non_blocking=True)
-            host[k] = buf
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
     def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = False):
         if init_at_random_ep_len:
             # (reference on_policy_runner.py:103-106): drawn for the global
@@ -238,13 +263,13 @@ class OnPolicyRunner:
             self._log(p_it, tot_iter, metrics, fps, p_dt, n_resets)
 
         for it in range(start_iter, tot_iter):
-            prof = self._start_profile() if profile_dir and it == start_iter + 1 else None
+            prof = start_profile(self.device) if profile_dir and it == start_iter + 1 else None
             self.train_state, self.env_state, self.obs, self.priv_obs, metrics = self._train_iter(
                 self.train_state, self.env_state, self.obs, self.priv_obs, self.gen
             )
             if prof is not None:
                 self._write_profile(prof, profile_dir, it)
-            fetch = self._start_fetch(metrics)
+            fetch = start_fetch(metrics, self.device)
             if pending is not None:
                 consume(*pending)
             now = time.time()
@@ -265,26 +290,10 @@ class OnPolicyRunner:
             )
         self.close()
 
-    def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
-        prof.start()
-        return prof
-
     def _write_profile(self, prof, profile_dir: str, it: int):
-        """Wait for the profiled iteration's device work, stop the profiler
-        and write its Chrome trace into profile_dir."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
-        os.makedirs(profile_dir, exist_ok=True)
         rank = f"_rank{self.group.rank}" if self.group is not None and self.group.world > 1 else ""
         path = os.path.join(profile_dir, f"trace_iter{it}{rank}.json")
-        prof.export_chrome_trace(path)
+        stop_profile(prof, self.device, path)
         print(f"[profiler] trace written to {path}", flush=True)
 
     def close(self):

@@ -404,3 +404,64 @@ def test_env_step_substep_solvers_on_the_card(dev, solver, counter):
     assert getattr(SV, counter).launches == n0 + 20
     assert MG.mega_kernel_launch.launches == m0
     assert tr.obs.is_cuda and torch.isfinite(tr.obs).all() and torch.isfinite(tr.reward).all()
+
+
+@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain_robust"])
+def test_env_step_does_not_synchronise_the_host(dev, task):
+    """Three env steps (solver mega, 256 envs) under
+    `set_sync_debug_mode("error")`, with a resample every step and half the
+    envs resetting in the first: no host synchronisation raises."""
+    from humanoid_gym_tpu_torch import registry
+
+    def ov(c):
+        c.sim.solver.solver_type = "mega"
+        c.commands.resampling_time = c.dt
+
+    env, _ = registry.make_env(task, num_envs=256, cfg_overrides=ov, device=dev, seed=0)
+    zero = torch.zeros((256, 12), device=dev)
+    state, _ = env.step(env.init_state(), zero)
+    half = (torch.arange(256, device=dev) % 2 == 0).to(torch.int32)
+    state = state.replace(episode_length=half * env.max_episode_length)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, first = env.step(state, zero)
+        for _ in range(2):
+            state, tr = env.step(state, zero)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(first.done.sum()) >= 128
+    assert torch.isfinite(tr.obs).all()
+
+
+@pytest.mark.parametrize("solver", ["apgd", "mega"])
+def test_captured_entry_replays_equal_eager_steps(dev, solver):
+    """graft_entry_torch's step captured as one CUDA graph: three replays
+    fed forward are bit-equal to three eager steps from the same state and
+    generator state; the mega kernel's wrapper is called while capturing
+    only."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import graft_entry_torch as GE
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    fn, (net, state0, obs0, priv0) = GE.entry(device=dev, solver=solver)
+    g0 = fn.env.gen.get_state()
+    graph = GE.CapturedStep(fn.step, net, state0, obs0, priv0, fn.env.gen)
+
+    def roll(step):
+        fn.env.gen.set_state(g0)
+        st, o, p, seen = state0, obs0, priv0, []
+        for _ in range(3):
+            st, out = step(st, o, p)
+            o, p = out[0], out[1]
+            seen += [x.clone() for x in (*out, st.phys.qpos)]
+        return seen
+
+    want = roll(lambda s, o, p: fn.step(net, s, o, p))
+    n0 = MG.mega_kernel_launch.launches
+    got = roll(graph)
+    assert MG.mega_kernel_launch.launches == n0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

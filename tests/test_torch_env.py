@@ -254,6 +254,47 @@ def test_nonfinite_env_auto_resets():
     assert not bool(tr.done[1])
 
 
+HOST_DATA_CALLS = ((torch, "tensor"), (torch, "as_tensor"), (torch.Tensor, "tolist"),
+                   (torch.Tensor, "item"), (torch.Tensor, "cpu"))
+
+
+@pytest.mark.parametrize("solver", ["mega", "apgd"])
+@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain_robust"])
+def test_env_step_builds_no_tensor_from_host_data(task, solver, monkeypatch):
+    """After one warm-up step, `HumanoidEnv.step` calls none of
+    torch.tensor, torch.as_tensor, Tensor.tolist, Tensor.item and
+    Tensor.cpu: on the card each would copy between host and device
+    memory, wait for the host, and break the capture of the step in a CUDA
+    graph. The counted step resamples every command and resets half the
+    envs (time-outs)."""
+    from humanoid_gym_tpu_torch import registry as treg
+
+    def ov(c):
+        _quiet(c, 4, 2)
+        c.sim.solver.solver_type = solver
+        c.commands.resampling_time = c.dt  # a resample on every step
+        if task != "humanoid_ppo":
+            _small_terrain(c)
+
+    env, _ = treg.make_env(task, num_envs=4, cfg_overrides=ov, device="cpu")
+    state, _ = env.step(env.init_state(), torch.zeros((4, 12)))
+    length = torch.tensor([env.max_episode_length, 0] * 2, dtype=torch.int32)
+    state = state.replace(episode_length=length)
+    counts = {}
+    for owner, name in HOST_DATA_CALLS:
+        real = getattr(owner, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(owner, name, counted)
+    state, tr = env.step(state, torch.zeros((4, 12)))
+    monkeypatch.undo()
+    assert counts == {}
+    assert tr.done.tolist() == [True, False, True, False]
+
+
 # ------------------------------------------------------------------ terrain
 
 

@@ -1,6 +1,8 @@
-"""The PyTorch port, its scripts (scripts/*_torch.py), its examples (examples/*_torch.py) and
-chip_smoke.py import no JAX, no flax, no optax and nothing of the JAX package. The scan reads each source's import statements
-with `ast` (a substring match would trip on humanoid_gym_tpu_torch)."""
+"""The PyTorch port, its scripts (scripts/*_torch.py), its examples (examples/*_torch.py),
+its root programs (bench_torch.py, graft_entry_torch.py: the root's *_torch.py) and
+chip_smoke.py import no JAX, no flax, no optax and nothing of the JAX package. The scan
+reads each source's import statements with `ast` (a substring match would trip on
+humanoid_gym_tpu_torch)."""
 
 import ast
 import os
@@ -14,6 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "humanoid_gym_tpu")
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(ROOT, f) for f in sorted(os.listdir(ROOT)) if f.endswith("_torch.py")]
     for sub in ("scripts", "examples"):
         out += [os.path.join(ROOT, sub, f) for f in sorted(os.listdir(os.path.join(ROOT, sub)))
                 if f.endswith("_torch.py")]
@@ -57,6 +60,8 @@ def test_scan_covers_the_port():
     for f in ("utils/platform.py", "physics/sass_census.py", "physics/mega_sass.py"):
         assert f"humanoid_gym_tpu_torch/{f}" in names
     assert "examples/minimal_train_loop_torch.py" in names
+    for f in ("bench_torch.py", "graft_entry_torch.py"):
+        assert f in names
     assert len(names) > 15
 
 

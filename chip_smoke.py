@@ -40,10 +40,11 @@ script exits non-zero):
      solve at 200 (reported) and 1000 iterations (dense and factor form
      agree at convergence);
   8. the substep path through the entry points: `registry.make_env` ->
-     `OnPolicyRunner.learn` at 4096 envs, T=60, with solver fused_pallas
-     (warm-up, 1 timed iteration, resume from its own checkpoint) and
-     apgd_pallas (warm-up, 1 timed iteration), launch counters zeroed just
-     before each timed run and read just after;
+     `OnPolicyRunner.learn` at 4096 envs, T=10 (CUT_T_STEPS), with solver
+     fused_pallas (warm-up, 1 timed iteration, resume from its own
+     checkpoint) and apgd_pallas (warm-up, 1 timed iteration), launch
+     counters zeroed just before each timed run and read just after; one
+     env step profiled;
   9. the terrain path through the entry points: `registry.make_env(
      "humanoid_ppo_terrain_robust")` -> `OnPolicyRunner.learn` at 4096 envs,
      T=60, solver mega (warm-up, 2 timed iterations): 60 terrain-kernel
@@ -59,9 +60,10 @@ script exits non-zero):
      phase 4t's landed states;
  11. joint XBot-L + XBot-S training through the entry points:
      `registry.make_env("humanoid_joint_ppo")` and `("humanoid_joint_deploy")`
-     -> `OnPolicyRunner.learn` at 2048 + 2048 envs, T=60, solver mega, the
-     estimator head on (warm-up, 2 timed iterations): 120 flat (joint_ppo)
-     or 120 terrain (joint_deploy) launches per iteration and no other,
+     -> `OnPolicyRunner.learn` at 2048 + 2048 envs, T=10 (CUT_T_STEPS),
+     solver mega, the estimator head on (warm-up, 2 timed iterations): 20
+     flat (joint_ppo) or 20 terrain (joint_deploy) launches per iteration
+     and no other,
      finite losses, an estimator loss that falls on a fixed batch (the
      observations ending the warm-up iteration, initial weights against
      the last iteration's; the logged per-iteration loss is reported), and
@@ -136,7 +138,19 @@ script exits non-zero):
      HGT_BENCH_MESH=1, each JSON line printed; value finite and > 0, solver
      mega, 0 < mfu < 1, 60 launches of the task's mega kernel per timed
      iteration and none of the other;
- 22. one JSON line with a record per kernel, the card line, then the
+ 22. the flat recipe trained from scratch: `scripts/train_torch.py`'s
+     `train` in its own process, `--task humanoid_ppo --num_envs 4096
+     --max_iterations 200` (the config's seed, solver mega, HGT_WANDB=0),
+     the run directory under chiprun_out/phase22/: exit 0, 200 lines in
+     metrics.jsonl with finite losses and no non-finite reset, 60 x 200
+     flat mega launches plus the reset step and no terrain launch,
+     model_100 and model_200 written; checkpoints 100 and 200 exported
+     (`export_checkpoint`) and rolled as phase 12 (a) rolls the walk demo,
+     checkpoint 200 held to the walk demo's gate (at least 95% survive,
+     median distance at least 0.8 m), checkpoint 100 reported; the
+     training metrics at iterations 1, 50, 100, 150 and 200, the seconds an
+     iteration and the phase's wall time printed;
+ 23. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
@@ -172,8 +186,14 @@ if os.path.isdir(os.path.join(HERE, "humanoid_gym_tpu_torch")):
 
 N_ENVS = 4096
 T_STEPS = 60
+# the horizon of phases 8 and 11 (the substep solvers' paths and the joint
+# paths), cut from the recipe's T_STEPS so that the whole script, phase 22's
+# 200 iterations included, stays inside its time on a slow host; their
+# checks are the same, counted at this horizon
+CUT_T_STEPS = 10
 TIMED_ITERS = 3
 TERRAIN_TASK = "humanoid_ppo_terrain_robust"
+JOINT_TASK = "humanoid_joint_ppo"
 # policy steps at the default pose before phase 4t compares: long enough
 # that the robots stand on the terrain rather than land on it (the impacts
 # of the landing make the 8-iteration solve's iterates most sensitive to
@@ -774,7 +794,7 @@ def _phase10t_two_models_terrain(c, landed_l, extra):
 
 
 def _joint_path(task, card, dev, timed_iters=2):
-    """Phase 11 for one joint task: XBot-L + XBot-S (2048 + 2048 envs), T=60,
+    """Phase 11 for one joint task: XBot-L + XBot-S (2048 + 2048 envs), T=CUT_T_STEPS,
     solver mega, through registry.make_env -> OnPolicyRunner.learn. A first
     runner warms up with one iteration and leaves its final checkpoint (the
     list state of both sub-envs); a second loads it and runs the timed
@@ -813,6 +833,7 @@ def _joint_path(task, card, dev, timed_iters=2):
     if shape[0] != [N_ENVS // 2] * 2 or not shape[1][1] < shape[1][0] or shape[2:] != (
             T_STEPS, 705, 219, 3, 1.0):
         raise AssertionError(f"{task}: not the full-width joint XBot-L + XBot-S recipe: {shape}")
+    tcfg.runner.num_steps_per_env = CUT_T_STEPS
     terrain = cfg.terrain.mesh_type == "trimesh"
     with tempfile.TemporaryDirectory(prefix="hgt_smoke_") as root:
         t0 = time.perf_counter()
@@ -867,17 +888,17 @@ def _joint_path(task, card, dev, timed_iters=2):
     if not (all(np.isfinite(fixed)) and fixed[1] < fixed[0]):
         raise AssertionError(f"{task}: the estimator loss on the fixed batch did not fall: {fixed}")
     own = "mega_terrain" if terrain else "mega"
-    want = 2 * T_STEPS * timed_iters  # one launch per sub-env and policy step
+    want = 2 * CUT_T_STEPS * timed_iters  # one launch per sub-env and policy step
     if launches[own] != want or any(v for k, v in launches.items() if k != own):
         raise AssertionError(f"{task}: launches {launches}, expected {own} = {want} only")
     mean_ms = wall_ms / timed_iters
     iter_ms = [ln["Perf/iter_time"] * 1e3 for ln in lines[1:]]
     _log(f"phase 11 joint path: {task} XBot-L + XBot-S {N_ENVS // 2} + {N_ENVS // 2} envs "
-         f"T={T_STEPS} solver mega through registry.make_env -> OnPolicyRunner.learn | env built in "
+         f"T={CUT_T_STEPS} solver mega through registry.make_env -> OnPolicyRunner.learn | env built in "
          f"{make_s:.1f} s, warm-up {warm_s:.1f} s | {timed_iters} iterations in {wall_ms:.1f} ms "
          f"(dispatch to dispatch: {', '.join(f'{x:.1f}' for x in iter_ms)} ms) | "
-         f"{T_STEPS * N_ENVS / (mean_ms / 1e3):.1f} env steps/s | {own} launches {launches[own]} "
-         f"(= 2 x {T_STEPS} x {timed_iters}), "
+         f"{CUT_T_STEPS * N_ENVS / (mean_ms / 1e3):.1f} env steps/s | {own} launches {launches[own]} "
+         f"(= 2 x {CUT_T_STEPS} x {timed_iters}), "
          f"{'flat' if terrain else 'terrain'} {launches['mega' if terrain else 'mega_terrain']} | "
          f"estimator loss on the fixed batch {fixed[0]:.4g} -> {fixed[1]:.4g}, logged "
          f"{', '.join(f'{x:.4g}' for x in est)} (iterations 0-{timed_iters}) | "
@@ -895,20 +916,22 @@ def _joint_path(task, card, dev, timed_iters=2):
     return launches
 
 
-def _roll_policy(task, policy, vx, terrain, dev, n_steps=400):
-    """Roll a shipped actor (loaded by actor_critic_from_npz) on 4096 envs of
-    `task` with the deployment-clean overrides of tests/test_xbots.py:71-83
-    (no noise, pushes, friction / mass DR, action delay or noise, no
-    heading command; `terrain` keeps the task's map and curriculum
-    placement, else flat), solver mega, the command held at (vx, 0, 0), for
-    n_steps policy steps through the kernel. Returns (share of envs that
-    never fell, median forward distance in m; a fallen env counts the
-    distance it had walked when it fell)."""
+def _roll_policy(task, npz, vx, terrain, dev, n_steps=400, n_envs=N_ENVS):
+    """Roll the actor of a `policy.npz` (loaded by actor_critic_from_npz) on
+    n_envs envs of `task` with the deployment-clean overrides of
+    tests/test_xbots.py:71-83 (no noise, pushes, friction / mass DR, action
+    delay or noise, no heading command; `terrain` keeps the task's map and
+    curriculum placement, else flat), solver mega, the command held at (vx,
+    0, 0), for n_steps policy steps through the kernel (its plain version
+    on the CPU). Returns (share of envs that never fell, median forward
+    distance in m; a fallen env counts the distance it had walked when it
+    fell)."""
     import torch
 
-    from humanoid_gym_tpu_torch import HGT_ROOT_DIR, registry
+    from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.algo.convert import actor_critic_from_npz
     from humanoid_gym_tpu_torch.algo.networks import ActorCritic
+    from humanoid_gym_tpu_torch.utils.platform import synchronize
 
     def ov(cfg):
         if not terrain:
@@ -923,15 +946,15 @@ def _roll_policy(task, policy, vx, terrain, dev, n_steps=400):
         cfg.commands.heading_command = False
         cfg.sim.solver.solver_type = "mega"
 
-    env, cfg = registry.make_env(task, num_envs=N_ENVS, cfg_overrides=ov, device=dev, seed=0)
+    env, cfg = registry.make_env(task, num_envs=n_envs, cfg_overrides=ov, device=dev, seed=0)
     net = ActorCritic(cfg.env.num_observations, cfg.env.num_privileged_obs, cfg.env.num_actions,
                       seed=0).to(dev)
-    actor_critic_from_npz(net, os.path.join(HGT_ROOT_DIR, "resources", "policies", f"{policy}.npz"))
+    actor_critic_from_npz(net, npz)
     state, obs, _ = env.reset_all()
-    cmd = torch.tensor([vx, 0.0, 0.0, 0.0], device=dev).expand(N_ENVS, 4).contiguous()
+    cmd = torch.tensor([vx, 0.0, 0.0, 0.0], device=dev).expand(n_envs, 4).contiguous()
     x0 = state.phys.qpos[:, 0].clone()
-    alive = torch.ones(N_ENVS, dtype=torch.bool, device=dev)
-    dist = torch.zeros(N_ENVS, device=dev)
+    alive = torch.ones(n_envs, dtype=torch.bool, device=dev)
+    dist = torch.zeros(n_envs, device=dev)
     with torch.no_grad():
         for _ in range(n_steps):
             state = state.replace(commands=cmd)
@@ -939,7 +962,7 @@ def _roll_policy(task, policy, vx, terrain, dev, n_steps=400):
             obs = tr.obs
             alive &= ~(tr.done & ~tr.time_out)
             dist = torch.where(alive, state.phys.qpos[:, 0] - x0, dist)
-    torch.cuda.synchronize()
+    synchronize(torch.device(dev))
     return float(alive.float().mean()), float(dist.median())
 
 
@@ -950,6 +973,7 @@ def _phase12_trained_policies(card, dev):
     (c) the footing demo on the rubble map through B1t, reported."""
     import math
 
+    from humanoid_gym_tpu_torch import HGT_ROOT_DIR
     from humanoid_gym_tpu_torch.config.xbots import SCALE
     from humanoid_gym_tpu_torch.physics import mega as MG
 
@@ -960,7 +984,8 @@ def _phase12_trained_policies(card, dev):
     for tag, task, policy, vx, terrain, need in cases:
         n0 = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
         t0 = time.perf_counter()
-        survived, median = _roll_policy(task, policy, vx, terrain, dev)
+        npz = os.path.join(HGT_ROOT_DIR, "resources", "policies", f"{policy}.npz")
+        survived, median = _roll_policy(task, npz, vx, terrain, dev)
         seconds = time.perf_counter() - t0
         n1 = (MG.mega_kernel_launch.launches - n0[0], MG.mega_kernel_launch.terrain_launches - n0[1])
         if n1 != ((0, 401) if terrain else (401, 0)):
@@ -1442,17 +1467,23 @@ TIMED_STEPS = 10
 
 def _sync_free_steps(card, dev):
     """`HumanoidEnv.step` at N_ENVS envs, solver mega, flat and on the
-    terrain task, three steps under `torch.cuda.set_sync_debug_mode("error")`
-    (any host synchronisation raises), with a command resample on every
-    step and half the envs at their time-out in the first step (resets and,
-    on terrain, curriculum moves). Returns the kernel launches by task."""
+    terrain task, and `JointEnv.step` of `humanoid_joint_ppo` at N_ENVS / 2
+    XBot-L + N_ENVS / 2 XBot-S envs, three steps each under
+    `torch.cuda.set_sync_debug_mode("error")` (any host synchronisation
+    raises), with a command resample on every step and half the envs (of
+    each robot) at their time-out in the first step (resets and, on
+    terrain, curriculum moves). Returns the kernel launches by task."""
     import torch
 
     from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.physics import mega as MG
 
+    def half_timed_out(e, st):
+        half = (torch.arange(st.episode_length.shape[0], device=dev) % 2 == 0).to(torch.int32)
+        return st.replace(episode_length=half * e.max_episode_length)
+
     launches = {}
-    for task in ("humanoid_ppo", TERRAIN_TASK):
+    for task in ("humanoid_ppo", TERRAIN_TASK, JOINT_TASK):
         def ov(c):
             c.sim.solver.solver_type = "mega"
             c.commands.resampling_time = c.dt
@@ -1460,8 +1491,10 @@ def _sync_free_steps(card, dev):
         env, cfg = registry.make_env(task, num_envs=N_ENVS, cfg_overrides=ov, device=dev, seed=0)
         zero = torch.zeros((N_ENVS, cfg.env.num_actions), device=dev)
         state, _ = env.step(env.init_state(), zero)
-        half = (torch.arange(N_ENVS, device=dev) % 2 == 0).to(torch.int32)
-        state = state.replace(episode_length=half * env.max_episode_length)
+        if isinstance(state, list):  # the joint env: one state per robot
+            state = [half_timed_out(e, st) for e, st in zip(env.envs, state)]
+        else:
+            state = half_timed_out(env, state)
         dones = []
         MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
         torch.cuda.synchronize()
@@ -1474,15 +1507,16 @@ def _sync_free_steps(card, dev):
             torch.cuda.set_sync_debug_mode(0)
         launches[task] = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
         resets = [int(d.sum()) for d in dones]
-        _log(f"phase 20 no host synchronisation: HumanoidEnv.step, {task}, {N_ENVS} envs, solver "
-             f"mega, 3 steps under set_sync_debug_mode('error'): none raised | resets per step "
-             f"{resets} (half the envs timed out in the first), a resample every step | mega "
+        _log(f"phase 20 no host synchronisation: {type(env).__name__}.step, {task}, {N_ENVS} "
+             f"envs, solver mega, 3 steps under set_sync_debug_mode('error'): none raised | "
+             f"resets per step {resets} (half the envs timed out in the first), a resample "
+             f"every step | mega "
              f"launches (flat, terrain) {launches[task]} | {card}")
         if resets[0] < N_ENVS // 2:
             raise AssertionError(f"phase 20: {resets[0]} resets in the first step, expected at "
                                  f"least {N_ENVS // 2}")
         del env, state, tr, dones
-    if launches != {"humanoid_ppo": (3, 0), TERRAIN_TASK: (0, 3)}:
+    if launches != {"humanoid_ppo": (3, 0), TERRAIN_TASK: (0, 3), JOINT_TASK: (6, 0)}:
         raise AssertionError(f"phase 20: launches in the sync-free steps {launches}")
     return launches
 
@@ -1641,6 +1675,122 @@ def _phase21_bench(card):
     return launches
 
 
+# ---- phase 22: the flat recipe trained from scratch on the card ----
+
+TRAIN_TASK = "humanoid_ppo"
+TRAIN_ITERS = 200
+TRAIN_TIMEOUT_S = 600
+# the run directory; under chiprun_out/ so that it can be evaluated on a
+# host with MuJoCo after the run (scripts/robustness_curve_torch.py)
+TRAIN_ROOT = os.path.join(HERE, "chiprun_out", "phase22")
+WALK_VX = 0.4
+# the walk demo's gate (phase 12 (a)): share of envs that never fall in 400
+# policy steps, median forward distance in m
+WALK_GATE = (0.95, 0.8)
+REPORT_AT = (1, 50, 100, 150, 200)  # iterations whose training metrics are printed
+# the child process: scripts/train_torch.py's train() on the command line's
+# flags, then the mega kernel's launch counts of the whole process
+TRAIN_CHILD = """
+import json, sys
+sys.path.insert(0, "scripts")
+from train_torch import train
+from humanoid_gym_tpu_torch.physics import mega as MG
+from humanoid_gym_tpu_torch.utils.helpers import get_args
+train(get_args(sys.argv[1:]))
+print(json.dumps({"flat": MG.mega_kernel_launch.launches,
+                  "terrain": MG.mega_kernel_launch.terrain_launches}))
+"""
+
+
+def _phase22_train_from_scratch(card, dev):
+    """Phase 22: `scripts/train_torch.py`'s `train` in a fresh process,
+    `--task humanoid_ppo --num_envs 4096 --max_iterations 200` (the
+    config's seed, solver mega on the card, HGT_WANDB=0), the run directory
+    under TRAIN_ROOT. Hard checks: exit 0; 200 lines in metrics.jsonl,
+    every loss finite and no non-finite reset; 60 x 200 flat mega launches
+    plus the runner's reset step, no terrain launch; model_100 and
+    model_200 written. Then checkpoints 100 and 200 are exported
+    (`export_checkpoint`) and rolled as phase 12 (a) rolls the walk demo;
+    checkpoint 200 is held to WALK_GATE, checkpoint 100 reported. Returns
+    the launches of the training process."""
+    import glob
+    import math
+    import shutil
+    import statistics
+
+    from humanoid_gym_tpu_torch.export import export_checkpoint
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    env = dict(os.environ, HGT_WANDB="0")
+    for k in ("HGT_SOLVER", "HGT_PROFILE_DIR"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", TRAIN_CHILD, "--task", TRAIN_TASK, "--num_envs", str(N_ENVS),
+         "--max_iterations", str(TRAIN_ITERS), "--log_root", TRAIN_ROOT],
+        capture_output=True, text=True, timeout=TRAIN_TIMEOUT_S, cwd=HERE, env=env)
+    train_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"phase 22: the training process exited {run.returncode}:\n"
+                             f"{run.stdout[-3000:]}\n{run.stderr[-6000:]}")
+    launches = json.loads(run.stdout.strip().splitlines()[-1])
+    (run_dir,) = glob.glob(os.path.join(TRAIN_ROOT, "*", ""))
+    with open(os.path.join(run_dir, "train_stdout.txt"), "w") as f:
+        f.write(run.stdout)
+    lines = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
+    ckpts = sorted(os.path.basename(p) for p in glob.glob(os.path.join(run_dir, "model_*.ckpt")))
+    losses = [v for ln in lines for k, v in ln.items() if k.startswith("Loss/")]
+    nonfinite = sum(ln["Train/nonfinite_resets"] for ln in lines)
+    want = {"flat": T_STEPS * TRAIN_ITERS + 1, "terrain": 0}  # + the runner's reset step
+    dts = [ln["Perf/iter_time"] for ln in lines[1:]]  # after the first (warm-up) iteration
+    _log(f"phase 22 train: scripts/train_torch.py train() in its own process, {TRAIN_TASK} "
+         f"{N_ENVS} envs, {TRAIN_ITERS} iterations, seed of the config, solver mega | "
+         f"{train_s:.1f} s | s an iteration (dispatch to dispatch, iterations 2-{TRAIN_ITERS}) "
+         f"median {statistics.median(dts):.3f}, min {min(dts):.3f}, max {max(dts):.3f} | mega "
+         f"launches {launches} (= {T_STEPS} x {TRAIN_ITERS} + 1 reset step) | metrics lines "
+         f"{len(lines)}, losses finite {all(map(math.isfinite, losses))}, non-finite resets "
+         f"{nonfinite:g} | {', '.join(ckpts)} | {card}")
+    if not (len(lines) == TRAIN_ITERS and [ln["iter"] for ln in lines] == list(range(TRAIN_ITERS))
+            and all(map(math.isfinite, losses)) and nonfinite == 0 and launches == want
+            and {"model_100.ckpt", f"model_{TRAIN_ITERS}.ckpt"} <= set(ckpts)):
+        raise AssertionError(f"phase 22: {len(lines)} metrics lines, non-finite resets "
+                             f"{nonfinite}, launches {launches} (expected {want}), {ckpts}")
+    _log("phase 22 curve: " + " | ".join(
+        f"iteration {i}: mean_reward {lines[i - 1]['Train/mean_reward']:.4g}, mean_episode_length "
+        f"{lines[i - 1]['Train/mean_episode_length']:.1f}" for i in REPORT_AT)
+        + f" | learning rate at iteration {TRAIN_ITERS} {lines[-1]['Loss/learning_rate']:.3e}"
+        + f" | {card}")
+    rolled = {}
+    for ck in (100, TRAIN_ITERS):
+        with tempfile.TemporaryDirectory() as out:
+            export_checkpoint(os.path.join(run_dir, f"model_{ck}.ckpt"), out)
+            MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+            t0 = time.perf_counter()
+            rolled[ck] = _roll_policy(TRAIN_TASK, os.path.join(out, "policy.npz"), WALK_VX, False,
+                                      dev)
+            n = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
+        gate = (f"gate >= {WALK_GATE[0]} and >= {WALK_GATE[1]} m" if ck == TRAIN_ITERS
+                else "reported, not gated")
+        _log(f"phase 22 checkpoint {ck}: export_checkpoint -> policy.npz, rolled as phase 12 (a): "
+             f"{N_ENVS} envs, vx {WALK_VX} m/s, 400 steps in {time.perf_counter() - t0:.1f} s | "
+             f"survived {rolled[ck][0]:.4f}, median forward distance {rolled[ck][1]:.3f} m ({gate})"
+             f" | mega launches (flat, terrain) {n} | {card}")
+        if n != (401, 0):
+            raise AssertionError(f"phase 22 (checkpoint {ck}): kernel launches (flat, terrain) {n}")
+    # model_0 is the untrained net; dropping it keeps the run directory
+    # under 60 MiB (model_200 carries the 4096 envs' state: ~45 MB)
+    os.remove(os.path.join(run_dir, "model_0.ckpt"))
+    _log(f"phase 22 wall time {time.perf_counter() - t_phase:.1f} s (training process "
+         f"{train_s:.1f} s) | run directory {os.path.relpath(run_dir, HERE)} | {card}")
+    survived, median = rolled[TRAIN_ITERS]
+    if not (survived >= WALK_GATE[0] and median >= WALK_GATE[1]):
+        raise AssertionError(f"phase 22: checkpoint {TRAIN_ITERS} survived {survived}, median "
+                             f"{median} m (gate {WALK_GATE})")
+    return launches
+
+
 # ---- phase 5c: the runner's HGT_PROFILE_DIR trace ----
 
 def _phase5c_profile_dir(card, dev):
@@ -1768,7 +1918,7 @@ def _profile_line(tag, prof, window_ms, what):
 
 
 def _substep_path(solver, timed_iters, resume, card):
-    """Phase 8 for one solver: XBot-L PPO at 4096 envs, T=60, through
+    """Phase 8 for one solver: XBot-L PPO at 4096 envs, T=CUT_T_STEPS, through
     registry.make_env -> OnPolicyRunner.learn. A first runner warms up with
     one iteration and leaves its final checkpoint; a second loads it and
     runs the timed iterations with the launch counters zeroed just before
@@ -1792,6 +1942,7 @@ def _substep_path(solver, timed_iters, resume, card):
     if (cfg.sim.solver.solver_type, tcfg.runner.num_steps_per_env, cfg.env.num_observations,
             cfg.env.num_privileged_obs) != (solver, T_STEPS, 705, 219):
         raise AssertionError(f"{solver}: the task is not the full-width XBot-L recipe")
+    tcfg.runner.num_steps_per_env = CUT_T_STEPS
     dec = cfg.control.decimation
     counters = {"mega": MG.mega_kernel_launch, "solve_standalone": SV.fused_solve,
                 "fused_dense": SV.fused_dense_solve, "apgd": SV.apgd_solve_kernel}
@@ -1836,7 +1987,7 @@ def _substep_path(solver, timed_iters, resume, card):
         launches["mega_terrain"] = MG.mega_kernel_launch.terrain_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         lines = records(os.path.join(root, "timed"), 1, timed_iters)
-        want = T_STEPS * dec * timed_iters
+        want = CUT_T_STEPS * dec * timed_iters
         if launches[own] != want or any(v for k, v in launches.items() if k != own):
             raise AssertionError(f"{solver}: launches {launches}, expected {own} = {want} only")
         last_ckpt = os.path.join(root, "timed", f"model_{1 + timed_iters}.ckpt")
@@ -1844,12 +1995,12 @@ def _substep_path(solver, timed_iters, resume, card):
             raise AssertionError(f"{solver}: no checkpoint {last_ckpt}")
         iter_ms = [ln["Perf/iter_time"] * 1e3 for ln in lines]
         mean_ms = wall_ms / timed_iters
-        _log(f"phase 8 substep path: XBot-L {N_ENVS} envs T={T_STEPS} solver {solver} through "
+        _log(f"phase 8 substep path: XBot-L {N_ENVS} envs T={CUT_T_STEPS} solver {solver} through "
              f"registry.make_env -> OnPolicyRunner.learn | warm-up {warm_s:.1f} s | "
              f"{timed_iters} iteration(s) in {wall_ms:.1f} ms (dispatch to dispatch: "
              f"{', '.join(f'{x:.1f}' for x in iter_ms)} ms) | "
-             f"{T_STEPS * N_ENVS / (mean_ms / 1e3):.1f} env steps/s | {own} launches "
-             f"{launches[own]} (= {T_STEPS} x {dec} x {timed_iters}), mega launches "
+             f"{CUT_T_STEPS * N_ENVS / (mean_ms / 1e3):.1f} env steps/s | {own} launches "
+             f"{launches[own]} (= {CUT_T_STEPS} x {dec} x {timed_iters}), mega launches "
              f"{launches['mega']} | value_loss {lines[-1]['Loss/value_function']:.4g} "
              f"mean_step_reward {lines[-1]['Train/mean_step_reward']:.4g} | peak mem "
              f"{peak_gib:.2f} GiB | {card}")
@@ -1869,7 +2020,7 @@ def _substep_path(solver, timed_iters, resume, card):
             _log(f"phase 8 resume: solver {solver} save -> load -> iteration "
                  f"{again.current_learning_iteration - 1} ok")
 
-        # where the time goes on this path: two env steps under the profiler
+        # where the time goes on this path: one env step under the profiler
         state, act = timed.env_state, torch.zeros((N_ENVS, cfg.env.num_actions), device=env.device)
         state, _ = env.step(state, act)
         torch.cuda.synchronize()
@@ -1879,11 +2030,10 @@ def _substep_path(solver, timed_iters, resume, card):
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / 2
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                state, _ = env.step(state, act)
+            state, _ = env.step(state, act)
             torch.cuda.synchronize()
-        _profile_line(f"phase 8 profile ({solver}, 2 env steps = {2 * dec} substeps, unprofiled "
-                      f"env step {step_ms:.1f} ms)", prof, 2 * step_ms, "window")
+        _profile_line(f"phase 8 profile ({solver}, 1 env step = {dec} substeps, unprofiled "
+                      f"env step {step_ms:.1f} ms)", prof, step_ms, "window")
     return launches
 
 
@@ -2465,6 +2615,9 @@ def main() -> int:
 
     # ---- phase 21: bench_torch.py on the card ----
     launches_bench = _phase21_bench(card)
+
+    # ---- phase 22: the flat recipe trained from scratch on the card ----
+    _phase22_train_from_scratch(card, dev)
 
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",

@@ -181,15 +181,17 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
     n_mb = cfg.num_mini_batches
     sharded = group is not None and group.world > 1
     if sharded:
+        dev = env.device if env is not None else group.device
         if env is not None:
-            ids = env.global_env_ids()
+            ids = env.global_env_ids().to(dev)
         else:
             start, count = local_env_slice(num_envs, group)
-            ids = torch.arange(start, start + count)
+            ids = torch.arange(start, start + count, device=dev)
         # global env -> this rank's env axis position, -1 where another
-        # rank holds the env
-        local_of_global = torch.full((num_envs,), -1, dtype=torch.long)
-        local_of_global[ids] = torch.arange(len(ids))
+        # rank holds the env; made once, on the device the permutation is
+        # drawn on
+        local_of_global = torch.full((num_envs,), -1, dtype=torch.long, device=dev)
+        local_of_global[ids] = torch.arange(len(ids), device=dev)
         n_local = len(ids)
 
     def minibatch_rows(perm: torch.Tensor):
@@ -200,11 +202,17 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         used = perm[:n_mb * mb_size]
         if not sharded:
             return used, [mb_size] * n_mb
-        loc = local_of_global.to(perm.device)[used % num_envs]
+        loc = local_of_global[used % num_envs]
         keep = loc >= 0
-        rows = ((used // num_envs) * n_local + loc)[keep]
-        mb_of_row = torch.arange(used.numel(), device=perm.device) // mb_size
-        counts = torch.bincount(mb_of_row[keep], minlength=n_mb).tolist()
+        # The one host read of an iteration, and only under several ranks:
+        # how many of this rank's rows fall in each minibatch depends on the
+        # permutation drawn on the device, and torch.split (permute_batch)
+        # needs those sizes on the host. It waits for the rollout and GAE
+        # before the update is dispatched. The kept rows are then taken by
+        # a stable sort (not a boolean mask, which would read the host again).
+        counts = keep.view(n_mb, mb_size).sum(dim=1).tolist()
+        order = torch.argsort((~keep).to(torch.uint8), stable=True)[:sum(counts)]
+        rows = ((used // num_envs) * n_local + loc)[order]
         return rows, counts
 
     @torch.no_grad()

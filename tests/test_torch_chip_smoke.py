@@ -241,3 +241,36 @@ def test_profile_line_returns_the_busy_time(smoke):
                                          (cpu, "aten::add", 900, 0.0)), 900.0, "iteration")
     assert busy == pytest.approx(33.5)
     assert smoke._profile_line("t", prof((cpu, "aten::add", 3, 0.0)), 10.0, "iteration") is None
+
+
+def test_phase22_is_wired(smoke):
+    """Phase 22 runs after phase 21 and before the kernels line, which it
+    leaves as it was: scripts/train_torch.py's `train` in a fresh process on
+    the recipe's flags (4096 envs, 200 iterations, the config's seed, the
+    default solver, HGT_WANDB=0) with its run directory under chiprun_out/,
+    60 x 200 flat launches plus the reset step and no terrain launch;
+    checkpoints 100 and 200 exported and rolled as phase 12 (a), checkpoint
+    200 held to the walk demo's gate. Phase 20's sync-free steps take the
+    joint env too."""
+    src = open(SCRIPT).read()
+    order = [src.index(s) for s in (
+        "launches_bench = _phase21_bench(card)", "    _phase22_train_from_scratch(card, dev)",
+        'print(json.dumps({"kernels"')]
+    assert order == sorted(order)
+    assert src.count('route="cuda"') == 5 and "train_launches" not in src
+    assert (smoke.TRAIN_TASK, smoke.TRAIN_ITERS, smoke.N_ENVS) == ("humanoid_ppo", 200, 4096)
+    assert smoke.WALK_GATE == (0.95, 0.8) and smoke.WALK_VX == 0.4
+    assert os.path.relpath(smoke.TRAIN_ROOT, ROOT).split(os.sep)[0] == "chiprun_out"
+    assert "from train_torch import train" in smoke.TRAIN_CHILD
+    assert "train(get_args(sys.argv[1:]))" in smoke.TRAIN_CHILD
+    assert '"--max_iterations", str(TRAIN_ITERS), "--log_root", TRAIN_ROOT]' in src
+    assert 'env = dict(os.environ, HGT_WANDB="0")' in src
+    assert 'want = {"flat": T_STEPS * TRAIN_ITERS + 1, "terrain": 0}' in src
+    assert "for ck in (100, TRAIN_ITERS):" in src
+    assert "_roll_policy(TRAIN_TASK, os.path.join(out, \"policy.npz\"), WALK_VX, False," in src
+    assert "survived, median = _roll_policy(task, npz, vx, terrain, dev)" in src  # phase 12
+    assert "n != (401, 0)" in src and "survived >= WALK_GATE[0] and median >= WALK_GATE[1]" in src
+    assert 'for task in ("humanoid_ppo", TERRAIN_TASK, JOINT_TASK):' in src
+    assert smoke.JOINT_TASK == "humanoid_joint_ppo"
+    assert "\n 22. the flat recipe trained from scratch" in smoke.__doc__
+    assert "\n 23. one JSON line with a record per kernel" in smoke.__doc__

@@ -259,27 +259,37 @@ HOST_DATA_CALLS = ((torch, "tensor"), (torch, "as_tensor"), (torch.Tensor, "toli
 
 
 @pytest.mark.parametrize("solver", ["mega", "apgd"])
-@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain_robust"])
+@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain_robust",
+                                  "humanoid_joint_ppo"])
 def test_env_step_builds_no_tensor_from_host_data(task, solver, monkeypatch):
-    """After one warm-up step, `HumanoidEnv.step` calls none of
-    torch.tensor, torch.as_tensor, Tensor.tolist, Tensor.item and
-    Tensor.cpu: on the card each would copy between host and device
-    memory, wait for the host, and break the capture of the step in a CUDA
-    graph. The counted step resamples every command and resets half the
-    envs (time-outs)."""
+    """After one warm-up step, `HumanoidEnv.step` (and `JointEnv.step`,
+    XBot-L and XBot-S envs of one batch) calls none of torch.tensor,
+    torch.as_tensor, Tensor.tolist, Tensor.item and Tensor.cpu: on the
+    card each would copy between host and device memory, wait for the
+    host, and break the capture of the step in a CUDA graph. The counted
+    step resamples every command and resets half the envs (time-outs) of
+    each robot."""
     from humanoid_gym_tpu_torch import registry as treg
 
     def ov(c):
         _quiet(c, 4, 2)
         c.sim.solver.solver_type = solver
         c.commands.resampling_time = c.dt  # a resample on every step
-        if task != "humanoid_ppo":
+        if "terrain" in task:
             _small_terrain(c)
 
     env, _ = treg.make_env(task, num_envs=4, cfg_overrides=ov, device="cpu")
     state, _ = env.step(env.init_state(), torch.zeros((4, 12)))
-    length = torch.tensor([env.max_episode_length, 0] * 2, dtype=torch.int32)
-    state = state.replace(episode_length=length)
+
+    def half_timed_out(e, st):
+        n = st.episode_length.shape[0]
+        return st.replace(episode_length=torch.tensor([e.max_episode_length, 0] * (n // 2),
+                                                      dtype=torch.int32))
+
+    if isinstance(state, list):
+        state = [half_timed_out(e, st) for e, st in zip(env.envs, state)]
+    else:
+        state = half_timed_out(env, state)
     counts = {}
     for owner, name in HOST_DATA_CALLS:
         real = getattr(owner, name)

@@ -34,6 +34,11 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 O, P, A = 705, 219, 12
 WORLD = 2
+# the calls that build a tensor from host data, read one back or move one
+# between devices (Tensor.to counted where it names a device; the first five
+# as in tests/test_torch_env.py)
+HOST_DATA_CALLS = ((torch, "tensor"), (torch, "as_tensor"), (torch.Tensor, "tolist"),
+                   (torch.Tensor, "item"), (torch.Tensor, "cpu"), (torch.Tensor, "to"))
 
 # One rank's program. argv: case, working dir, tag. It joins the group
 # through a file in the working dir, runs the case and saves what the test
@@ -102,6 +107,39 @@ if case == "update":
     if r == 0:
         _, _, out["single_params"], mets = phases(None, torch.from_numpy)
         out["single_metrics"] = {k: float(v) for k, v in mets.items()}
+
+elif case == "hostcalls":
+    # one train_iter of 8 global envs (4 a rank, T = 2) after a warm-up
+    # one, with the test's HOST_DATA_CALLS counted
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo import ppo as TP
+    from humanoid_gym_tpu_torch.algo.networks import ActorCritic
+
+    env, _ = registry.make_env("humanoid_ppo", num_envs=8, device="cpu", seed=0, group=group,
+                               cfg_overrides=lambda c: setattr(c.sim.solver, "solver_type", "apgd"))
+    net = ActorCritic(705, 219, 12, seed=0)
+    cfg = TP.PPOConfig(num_steps_per_env=2, num_mini_batches=2, num_learning_epochs=1)
+    train_iter = TP.make_train_iter(env, net, cfg, 8, group, perm_seed=5)
+    ts = TP.init_train_state(net, cfg.learning_rate)
+    state, obs, priv = env.reset_all()
+    gen = torch.Generator().manual_seed(r)
+    ts, state, obs, priv, _ = train_iter(ts, state, obs, priv, gen)
+    counts = {}
+    for owner, name in ((torch, "tensor"), (torch, "as_tensor"), (torch.Tensor, "tolist"),
+                        (torch.Tensor, "item"), (torch.Tensor, "cpu"), (torch.Tensor, "to")):
+        real = getattr(owner, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            moves = k.get("device") is not None or any(
+                isinstance(x, (torch.device, str, torch.Tensor)) for x in a[1:])
+            if _name != "to" or moves:  # Tensor.to only where it names a device
+                counts[_name] = counts.get(_name, 0) + 1
+            return _real(*a, **k)
+
+        setattr(owner, name, counted)
+    ts, state, obs, priv, mets = train_iter(ts, state, obs, priv, gen)
+    out["counts"] = counts
+    out["value_loss"] = float(mets["value_loss"])
 
 elif case in ("train", "resume"):
     from humanoid_gym_tpu_torch import registry
@@ -322,6 +360,52 @@ def test_sharded_update_phase_equals_one_process(update_run):
         for r in range(WORLD):
             np.testing.assert_allclose(outs[r]["upd_metrics"][k], v, rtol=1e-5, atol=1e-9,
                                        err_msg=k)
+
+
+@pytest.mark.parametrize("world", [1, WORLD])
+def test_train_iter_builds_no_tensor_from_host_data(world, tmp_path, monkeypatch):
+    """After a warm-up iteration, one `train_iter` (T = 2, 2 minibatches)
+    calls none of torch.tensor, torch.as_tensor, Tensor.item, Tensor.cpu
+    and Tensor.to(device), at world size 1 and on each of two gloo ranks:
+    no index is built on the host and copied over. Its only host read is
+    under several ranks: the one Tensor.tolist of `minibatch_rows`, the
+    sizes of this rank's share of each minibatch, which torch.split needs
+    on the host."""
+    if world == WORLD:
+        outs = _spawn(tmp_path, "hostcalls", "hostcalls")
+        for o in outs:
+            assert o["counts"] == {"tolist": 1}, o["counts"]
+            assert np.isfinite(o["value_loss"])
+        assert outs[0]["value_loss"] == outs[1]["value_loss"]
+        return
+    from humanoid_gym_tpu_torch.algo import ppo as TP
+    from humanoid_gym_tpu_torch.algo.networks import ActorCritic
+
+    env, _ = registry.make_env("humanoid_ppo", num_envs=4, device="cpu", seed=0,
+                               cfg_overrides=lambda c: setattr(c.sim.solver, "solver_type", "apgd"))
+    net = ActorCritic(O, P, A, seed=0)
+    cfg = TP.PPOConfig(num_steps_per_env=2, num_mini_batches=2, num_learning_epochs=1)
+    train_iter = TP.make_train_iter(env, net, cfg, 4)
+    ts = TP.init_train_state(net, cfg.learning_rate)
+    state, obs, priv = env.reset_all()
+    gen = torch.Generator().manual_seed(0)
+    ts, state, obs, priv, _ = train_iter(ts, state, obs, priv, gen)
+    counts = {}
+    for owner, name in HOST_DATA_CALLS:
+        real = getattr(owner, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            moves = k.get("device") is not None or any(
+                isinstance(x, (torch.device, str, torch.Tensor)) for x in a[1:])
+            if _name != "to" or moves:  # Tensor.to only where it names a device
+                counts[_name] = counts.get(_name, 0) + 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(owner, name, counted)
+    _, _, _, _, mets = train_iter(ts, state, obs, priv, gen)
+    monkeypatch.undo()
+    assert counts == {}
+    assert np.isfinite(float(mets["value_loss"]))
 
 
 def _small_terrain_ov(c):

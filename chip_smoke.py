@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-4, 4t, 10, 10t, 6 and 7, then the records; no contract line
+    python3 chip_smoke.py --train TASK ITERS SEED   # phases 1-2, then a training run as phase 22's, no gate
+    python3 chip_smoke.py --roll POLICY.npz N_ENVS STEPS [STEPS ...]   # phases 1-2, then phase 12 (a)'s roll
 
 Phases (each prints one line of its numbers; any failure raises, so the
 script exits non-zero):
@@ -150,7 +152,20 @@ script exits non-zero):
      median distance at least 0.8 m), checkpoint 100 reported; the
      training metrics at iterations 1, 50, 100, 150 and 200, the seconds an
      iteration and the phase's wall time printed;
- 23. one JSON line with a record per kernel, the card line, then the
+ 23. the random draw sites of the training path, each held to the
+     closed-form law of its config at 4096 envs with the env's CUDA
+     generator (the checks of tests/test_torch_random_paths.py, whose
+     limits follow from the sample size at a false-alarm rate of 1e-4):
+     through B1 on `humanoid_ppo`, the joint offsets, friction, added base
+     mass, motor strength and the commands of `init_state`, then over two
+     steps with a push and a command resample on every second step the
+     action delay and noise, the push, the resampled commands and the
+     observation noise; through B1t on `humanoid_ppo_terrain_robust`, the
+     base xy about the origin, the contact stiffness, offset, compliance
+     and slope bias and the initial level and type, then the re-entry level
+     and reset pose after a time-out on the top row; the runner's random
+     initial episode lengths. One line a site; a miss fails the run;
+ 24. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
@@ -160,7 +175,9 @@ the repo, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1687,7 +1704,6 @@ WALK_VX = 0.4
 # the walk demo's gate (phase 12 (a)): share of envs that never fall in 400
 # policy steps, median forward distance in m
 WALK_GATE = (0.95, 0.8)
-REPORT_AT = (1, 50, 100, 150, 200)  # iterations whose training metrics are printed
 # the child process: scripts/train_torch.py's train() on the command line's
 # flags, then the mega kernel's launch counts of the whole process
 TRAIN_CHILD = """
@@ -1702,68 +1718,72 @@ print(json.dumps({"flat": MG.mega_kernel_launch.launches,
 """
 
 
-def _phase22_train_from_scratch(card, dev):
-    """Phase 22: `scripts/train_torch.py`'s `train` in a fresh process,
-    `--task humanoid_ppo --num_envs 4096 --max_iterations 200` (the
-    config's seed, solver mega on the card, HGT_WANDB=0), the run directory
-    under TRAIN_ROOT. Hard checks: exit 0; 200 lines in metrics.jsonl,
-    every loss finite and no non-finite reset; 60 x 200 flat mega launches
-    plus the runner's reset step, no terrain launch; model_100 and
-    model_200 written. Then checkpoints 100 and 200 are exported
-    (`export_checkpoint`) and rolled as phase 12 (a) rolls the walk demo;
-    checkpoint 200 is held to WALK_GATE, checkpoint 100 reported. Returns
-    the launches of the training process."""
+def _train_and_roll(card, dev, task, iters, seed, root, tag, gate_at=None):
+    """`scripts/train_torch.py`'s `train` in a fresh process, `--task task
+    --num_envs 4096 --max_iterations iters` (`seed` None: the config's;
+    solver mega on the card, HGT_WANDB=0), the run directory under `root`.
+    Hard checks: exit 0; `iters` lines in metrics.jsonl, every loss finite
+    and no non-finite reset; 60 x iters launches of the task's mega kernel
+    plus the runner's reset step and none of the other; a checkpoint every
+    100 iterations and at `iters`. Then each checkpoint past 0 is exported
+    (`export_checkpoint`) and rolled as phase 12 (a) rolls the walk demo
+    (flat `humanoid_ppo`); the line of checkpoint `gate_at` names
+    WALK_GATE, which the caller holds it to. Returns (run directory,
+    {checkpoint: (survived, median)}, launches, seconds of the training
+    process)."""
     import glob
-    import math
     import shutil
-    import statistics
 
     from humanoid_gym_tpu_torch.export import export_checkpoint
     from humanoid_gym_tpu_torch.physics import mega as MG
 
-    t_phase = time.perf_counter()
-    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
     env = dict(os.environ, HGT_WANDB="0")
     for k in ("HGT_SOLVER", "HGT_PROFILE_DIR"):
         env.pop(k, None)
+    flags = ["--task", task, "--num_envs", str(N_ENVS), "--max_iterations", str(iters),
+             "--log_root", root] + ([] if seed is None else ["--seed", str(seed)])
     t0 = time.perf_counter()
-    run = subprocess.run(
-        [sys.executable, "-c", TRAIN_CHILD, "--task", TRAIN_TASK, "--num_envs", str(N_ENVS),
-         "--max_iterations", str(TRAIN_ITERS), "--log_root", TRAIN_ROOT],
-        capture_output=True, text=True, timeout=TRAIN_TIMEOUT_S, cwd=HERE, env=env)
+    timeout = TRAIN_TIMEOUT_S * max(iters, TRAIN_ITERS) // TRAIN_ITERS
+    run = subprocess.run([sys.executable, "-c", TRAIN_CHILD] + flags, capture_output=True,
+                         text=True, timeout=timeout, cwd=HERE, env=env)
     train_s = time.perf_counter() - t0
     if run.returncode != 0:
-        raise AssertionError(f"phase 22: the training process exited {run.returncode}:\n"
+        raise AssertionError(f"{tag}: the training process exited {run.returncode}:\n"
                              f"{run.stdout[-3000:]}\n{run.stderr[-6000:]}")
     launches = json.loads(run.stdout.strip().splitlines()[-1])
-    (run_dir,) = glob.glob(os.path.join(TRAIN_ROOT, "*", ""))
+    (run_dir,) = glob.glob(os.path.join(root, "*", ""))
     with open(os.path.join(run_dir, "train_stdout.txt"), "w") as f:
         f.write(run.stdout)
     lines = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
     ckpts = sorted(os.path.basename(p) for p in glob.glob(os.path.join(run_dir, "model_*.ckpt")))
     losses = [v for ln in lines for k, v in ln.items() if k.startswith("Loss/")]
     nonfinite = sum(ln["Train/nonfinite_resets"] for ln in lines)
-    want = {"flat": T_STEPS * TRAIN_ITERS + 1, "terrain": 0}  # + the runner's reset step
+    kind, other = ("terrain", "flat") if "terrain" in task else ("flat", "terrain")
+    want = {kind: T_STEPS * iters + 1, other: 0}  # + the runner's reset step
     dts = [ln["Perf/iter_time"] for ln in lines[1:]]  # after the first (warm-up) iteration
-    _log(f"phase 22 train: scripts/train_torch.py train() in its own process, {TRAIN_TASK} "
-         f"{N_ENVS} envs, {TRAIN_ITERS} iterations, seed of the config, solver mega | "
-         f"{train_s:.1f} s | s an iteration (dispatch to dispatch, iterations 2-{TRAIN_ITERS}) "
+    seed_txt = "seed of the config" if seed is None else f"seed {seed}"
+    _log(f"{tag} train: scripts/train_torch.py train() in its own process, {task} "
+         f"{N_ENVS} envs, {iters} iterations, {seed_txt}, solver mega | "
+         f"{train_s:.1f} s | s an iteration (dispatch to dispatch, iterations 2-{iters}) "
          f"median {statistics.median(dts):.3f}, min {min(dts):.3f}, max {max(dts):.3f} | mega "
-         f"launches {launches} (= {T_STEPS} x {TRAIN_ITERS} + 1 reset step) | metrics lines "
+         f"launches {launches} (= {T_STEPS} x {iters} + 1 reset step) | metrics lines "
          f"{len(lines)}, losses finite {all(map(math.isfinite, losses))}, non-finite resets "
          f"{nonfinite:g} | {', '.join(ckpts)} | {card}")
-    if not (len(lines) == TRAIN_ITERS and [ln["iter"] for ln in lines] == list(range(TRAIN_ITERS))
+    saved = set(range(0, iters, 100)) | {iters}
+    if not (len(lines) == iters and [ln["iter"] for ln in lines] == list(range(iters))
             and all(map(math.isfinite, losses)) and nonfinite == 0 and launches == want
-            and {"model_100.ckpt", f"model_{TRAIN_ITERS}.ckpt"} <= set(ckpts)):
-        raise AssertionError(f"phase 22: {len(lines)} metrics lines, non-finite resets "
+            and {f"model_{i}.ckpt" for i in saved} <= set(ckpts)):
+        raise AssertionError(f"{tag}: {len(lines)} metrics lines, non-finite resets "
                              f"{nonfinite}, launches {launches} (expected {want}), {ckpts}")
-    _log("phase 22 curve: " + " | ".join(
+    _log(f"{tag} curve: " + " | ".join(
         f"iteration {i}: mean_reward {lines[i - 1]['Train/mean_reward']:.4g}, mean_episode_length "
-        f"{lines[i - 1]['Train/mean_episode_length']:.1f}" for i in REPORT_AT)
-        + f" | learning rate at iteration {TRAIN_ITERS} {lines[-1]['Loss/learning_rate']:.3e}"
+        f"{lines[i - 1]['Train/mean_episode_length']:.1f}"
+        for i in sorted({1} | set(range(50, iters + 1, 50))))
+        + f" | learning rate at iteration {iters} {lines[-1]['Loss/learning_rate']:.3e}"
         + f" | {card}")
     rolled = {}
-    for ck in (100, TRAIN_ITERS):
+    for ck in sorted(saved - {0}):
         with tempfile.TemporaryDirectory() as out:
             export_checkpoint(os.path.join(run_dir, f"model_{ck}.ckpt"), out)
             MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
@@ -1771,17 +1791,28 @@ def _phase22_train_from_scratch(card, dev):
             rolled[ck] = _roll_policy(TRAIN_TASK, os.path.join(out, "policy.npz"), WALK_VX, False,
                                       dev)
             n = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
-        gate = (f"gate >= {WALK_GATE[0]} and >= {WALK_GATE[1]} m" if ck == TRAIN_ITERS
+        gate = (f"gate >= {WALK_GATE[0]} and >= {WALK_GATE[1]} m" if ck == gate_at
                 else "reported, not gated")
-        _log(f"phase 22 checkpoint {ck}: export_checkpoint -> policy.npz, rolled as phase 12 (a): "
+        _log(f"{tag} checkpoint {ck}: export_checkpoint -> policy.npz, rolled as phase 12 (a): "
              f"{N_ENVS} envs, vx {WALK_VX} m/s, 400 steps in {time.perf_counter() - t0:.1f} s | "
              f"survived {rolled[ck][0]:.4f}, median forward distance {rolled[ck][1]:.3f} m ({gate})"
              f" | mega launches (flat, terrain) {n} | {card}")
         if n != (401, 0):
-            raise AssertionError(f"phase 22 (checkpoint {ck}): kernel launches (flat, terrain) {n}")
+            raise AssertionError(f"{tag} (checkpoint {ck}): kernel launches (flat, terrain) {n}")
     # model_0 is the untrained net; dropping it keeps the run directory
-    # under 60 MiB (model_200 carries the 4096 envs' state: ~45 MB)
+    # under 60 MiB (the last checkpoint carries the 4096 envs' state: ~45 MB)
     os.remove(os.path.join(run_dir, "model_0.ckpt"))
+    return run_dir, rolled, launches, train_s
+
+
+def _phase22_train_from_scratch(card, dev):
+    """Phase 22: `_train_and_roll` of `humanoid_ppo` for 200 iterations
+    (the config's seed) under TRAIN_ROOT; checkpoint 200 is held to
+    WALK_GATE, checkpoint 100 reported. Returns the launches of the
+    training process."""
+    t_phase = time.perf_counter()
+    run_dir, rolled, launches, train_s = _train_and_roll(
+        card, dev, TRAIN_TASK, TRAIN_ITERS, None, TRAIN_ROOT, "phase 22", gate_at=TRAIN_ITERS)
     _log(f"phase 22 wall time {time.perf_counter() - t_phase:.1f} s (training process "
          f"{train_s:.1f} s) | run directory {os.path.relpath(run_dir, HERE)} | {card}")
     survived, median = rolled[TRAIN_ITERS]
@@ -1789,6 +1820,340 @@ def _phase22_train_from_scratch(card, dev):
         raise AssertionError(f"phase 22: checkpoint {TRAIN_ITERS} survived {survived}, median "
                              f"{median} m (gate {WALK_GATE})")
     return launches
+
+
+def _diagnostic_train(task: str, iters: int, seed: int) -> int:
+    """`python3 chip_smoke.py --train TASK ITERS SEED`: the card line, the
+    kernels' build, then `_train_and_roll` of TASK for ITERS iterations
+    from SEED under chiprun_out/train/<task>_s<seed>/, no gate. The
+    checkpoints are then cut to their nets (no Adam moments, no env
+    state), which is all that export and the MuJoCo farm read: ~4 MB each,
+    so that the run directory of a 300-iteration run stays under ~15 MB.
+    Prints no contract line."""
+    import torch
+
+    card = _phase12_card_and_build()
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "chiprun_out", "train", f"{task}_s{seed}")
+    run_dir, _, _, train_s = _train_and_roll(card, torch.device("cuda"), task, iters, seed, root,
+                                             f"train {task} seed {seed}")
+    for p in sorted(os.listdir(run_dir)):
+        if p.startswith("model_") and p.endswith(".ckpt"):
+            path = os.path.join(run_dir, p)
+            net = torch.load(path, map_location="cpu", weights_only=True)["train_state"]["net"]
+            torch.save({"train_state": {"net": net}}, path)
+    _log(f"train {task} seed {seed} wall time {time.perf_counter() - t0:.1f} s (training process "
+         f"{train_s:.1f} s) | run directory {os.path.relpath(run_dir, HERE)} | {card}")
+    return 0
+
+
+def _diagnostic_roll(npz: str, n_envs: int, horizons) -> int:
+    """`python3 chip_smoke.py --roll NPZ N_ENVS STEPS [STEPS ...]`: the card
+    line, the kernels' build, then the actor of NPZ rolled as phase 12 (a)
+    rolls the walk demo (flat `humanoid_ppo`, vx WALK_VX, through the
+    kernel) on N_ENVS envs, once for each horizon. Prints no contract
+    line."""
+    import torch
+
+    card = _phase12_card_and_build()
+    for n in horizons:
+        t0 = time.perf_counter()
+        survived, median = _roll_policy(TRAIN_TASK, npz, WALK_VX, False, torch.device("cuda"),
+                                        n_steps=n, n_envs=n_envs)
+        _log(f"roll {npz}: {n_envs} envs, vx {WALK_VX} m/s, {n} steps in "
+             f"{time.perf_counter() - t0:.1f} s | survived {survived:.4f}, median forward "
+             f"distance {median:.3f} m | {card}")
+    return 0
+
+
+# ---- phase 23: the random draw sites held to their laws on the card ----
+
+# The law checks of tests/test_torch_random_paths.py, copied here (the
+# port's package has no use for them; tests/test_torch_chip_smoke.py pins
+# the copies equal): every comparison has a false-alarm rate of LAW_ALPHA
+# for a sample that follows the law, so the KS limit is LAW_KS_C / sqrt(n)
+# and a mean or a variance may miss by LAW_Z standard errors.
+LAW_ALPHA = 1e-4
+LAW_KS_C = math.sqrt(-math.log(LAW_ALPHA / 2) / 2)
+LAW_Z = statistics.NormalDist().inv_cdf(1 - LAW_ALPHA / 2)
+
+
+def _ks_discrete(x, support, cdf):
+    """sup |F_n - F| over the support of a discrete law (exact there)."""
+    import numpy as np
+
+    ecdf = np.searchsorted(np.sort(x), support, side="right") / len(x)
+    return float(np.max(np.abs(ecdf - cdf(support))))
+
+
+def _var_se(x, var, excess_kurtosis):
+    """Standard error of the sample variance of len(x) draws."""
+    return var * ((excess_kurtosis + 2.0) / len(x)) ** 0.5
+
+
+def _hold(name, x, law, support=None):
+    """The checks of one sample against a frozen scipy law, each (label,
+    statistic, limit): KS, the mean and the variance."""
+    import numpy as np
+    from scipy import stats
+
+    x = np.asarray(x, np.float64).ravel()
+    mu, var, _, kurt = (float(v) for v in law.stats(moments="mvsk"))
+    dk = (stats.kstest(x, law.cdf).statistic if support is None
+          else _ks_discrete(x, support, law.cdf))
+    return [(f"{name}: KS", dk, LAW_KS_C / len(x) ** 0.5),
+            (f"{name}: mean", abs(x.mean() - mu), LAW_Z * (var / len(x)) ** 0.5),
+            (f"{name}: variance", abs(x.var() - var), LAW_Z * _var_se(x, var, kurt))]
+
+
+def _exact(name, got, want, atol=1e-6):
+    """A deterministic relation the path must keep (label, max error, limit)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return [(name, float(np.max(np.abs(got - want))) if got.size else 0.0, atol)]
+
+
+def _dead_zone_kept_cdf(box, r, a):
+    """CDF of one command component given that the pair (vx, vy), uniform
+    on box = ((x0, x1), (y0, y1)), lies outside the disk of radius r about
+    0 (the resampler's dead zone, inside the box). `a`: 0 for vx, 1 for
+    vy."""
+    import numpy as np
+
+    (x0, x1), (y0, y1) = box
+    lo, other = (x0, y1 - y0) if a == 0 else (y0, x1 - x0)
+    kept = (x1 - x0) * (y1 - y0) - math.pi * r * r
+
+    def cdf(x):
+        u = np.clip(x, -r, r)
+        disk = u * np.sqrt(r * r - u * u) + r * r * (np.arcsin(u / r) + math.pi / 2)
+        return ((np.asarray(x) - lo) * other - disk) / kept
+
+    return cdf
+
+
+def _dead_zone(name, c, vx_range, vy_range, r=0.2):
+    """Commands (N, >=2): the share of zeroed pairs against the closed
+    form, and each kept component against its conditional law."""
+    import numpy as np
+    from scipy import stats
+
+    box = (tuple(vx_range), tuple(vy_range))
+    p0 = math.pi * r * r / ((box[0][1] - box[0][0]) * (box[1][1] - box[1][0]))
+    c = np.asarray(c, np.float64)
+    zero = (c[:, 0] == 0) & (c[:, 1] == 0)
+    out = [(f"{name}: zeroed share - {p0:.4f}", abs(zero.mean() - p0),
+            LAW_Z * (p0 * (1 - p0) / len(c)) ** 0.5)]
+    out += _exact(f"{name}: kept pairs outside the dead zone",
+                  np.minimum(np.hypot(c[~zero, 0], c[~zero, 1]) - r, 0.0), 0.0)
+    for a, comp in ((0, "vx"), (1, "vy")):
+        x = c[~zero, a]
+        out.append((f"{name}: KS kept {comp}",
+                    stats.kstest(x, _dead_zone_kept_cdf(box, r, a)).statistic,
+                    LAW_KS_C / len(x) ** 0.5))
+    return out
+
+
+def _delay_law(d_max, sigma, k):
+    """(CDF, mean, variance) of 1 - mean_k((1 - d)(1 + sigma z_i)), d ~
+    U(0, d_max), z_i standard normal: d - (1 - d) sigma zbar, zbar ~ N(0,
+    1/k)."""
+    import numpy as np
+    from scipy import stats
+
+    d = np.linspace(0.0, d_max, 4001)
+
+    def cdf(x):
+        x = np.atleast_1d(np.asarray(x, np.float64))
+        s = (1 - d)[None] * sigma / math.sqrt(k)
+        return np.trapezoid(stats.norm.cdf((x[:, None] - d[None]) / s), d, axis=1) / d_max
+
+    var = d_max ** 2 / 12 + sigma ** 2 / k * (1 - d_max + d_max ** 2 / 3)
+    return cdf, d_max / 2, var
+
+
+def _phase23_laws(card, dev, n_envs=N_ENVS):
+    """Phase 23: the random draw sites of the training path on the card,
+    each held to the closed-form law of its config (the env's CUDA
+    generator; `humanoid_ppo` through B1, `humanoid_ppo_terrain_robust`
+    through B1t; solver mega). Flat, from `init_state`: the joint offsets,
+    friction, added base mass, motor strength (switched on) and the
+    commands; from two steps after `reset_all` with a push and a command
+    resample on every second step: the action delay and noise, the push,
+    the resampled commands, the observation noise. Terrain, from
+    `init_state`: the base xy about the origin, the contact stiffness,
+    offset and compliance, the slope bias, the initial level and type; from
+    a time-out step on the top row: the re-entry level and the reset pose.
+    Then the runner's random initial episode lengths. Prints one line a
+    site; a miss fails the run."""
+    import numpy as np
+    import torch
+    from scipy import stats
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+
+    def npy(x):
+        return x.detach().cpu().numpy().astype(np.float64)
+
+    def uniform(lo, hi):
+        return stats.uniform(lo, hi - lo)
+
+    def flat_ov(c):
+        _solver_mega(c)
+        c.domain_rand.randomize_motor_strength = True
+        c.domain_rand.push_interval_s = 1.5 * c.dt  # a push on every second step
+        c.commands.resampling_time = 2 * c.dt  # and a command resample
+
+    sites = {}
+    env, cfg = registry.make_env(TRAIN_TASK, num_envs=n_envs, cfg_overrides=flat_ov, device=dev,
+                                 seed=23)
+    dr, cr = cfg.domain_rand, cfg.commands.ranges
+    st = env.init_state()
+    dof = npy(env.default_dof_pos)
+    sites["initial joint pose"] = _hold("joint offset", npy(st.phys.qpos[:, 7:]) - dof,
+                                        uniform(-0.1, 0.1))
+    sites["friction"] = _hold("env_friction", npy(st.env_friction), uniform(*dr.friction_range))
+    sites["added mass"] = _hold(
+        "added base mass (kg)", (npy(st.phys.base_mass_scale) - 1) * float(env.model.body_mass[0]),
+        uniform(*dr.added_mass_range))
+    sites["motor strength"] = (
+        _hold("kp_scale", npy(st.phys.kp_scale), uniform(*dr.motor_strength_range))
+        + _hold("kd_scale", npy(st.phys.kd_scale), uniform(*dr.motor_strength_range)))
+    c0 = npy(st.commands)
+    sites["commands at init"] = (_dead_zone("command", c0, cr.lin_vel_x, cr.lin_vel_y)
+                                 + _hold("heading", c0[:, 3], uniform(*cr.heading)))
+
+    # two steps after reset_all (common_step 1): the first pushes and
+    # resamples, the second does neither. Previous actions 1 on joints 0-5
+    # and 0 on 6-11, the policy action 1: joints 0-5 read the noise, 6-11
+    # the delay (tests/test_torch_random_paths.py says how)
+    MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+    st, _, _ = env.reset_all()
+    prev = torch.zeros((n_envs, 12), device=dev)
+    prev[:, :6] = 1.0
+    st = st.replace(actions=prev, ref_dof_pos=torch.zeros_like(st.ref_dof_pos))
+    ones = torch.ones((n_envs, 12), device=dev)
+    st1, tr1 = env.step(st, ones)
+    st2, tr2 = env.step(st1, ones)
+    flat_launches = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
+    k = ~(npy(tr1.done) > 0) & ~(npy(tr2.done) > 0)
+    a1 = npy(st1.actions)[k]
+    cdf, mean, var = _delay_law(dr.action_delay, dr.action_noise, 6)
+    delay = 1 - a1[:, 6:].mean(1)
+    sites["action delay and noise"] = (
+        _hold("action noise z", (a1[:, :6] - 1) / dr.action_noise, stats.norm())
+        + [("delay estimate: KS", stats.kstest(delay, cdf).statistic,
+            LAW_KS_C / len(delay) ** 0.5),
+           ("delay estimate: mean", abs(delay.mean() - mean), LAW_Z * (var / len(delay)) ** 0.5)])
+    pf1, pt1, qv1 = npy(st1.rand_push_force), npy(st1.rand_push_torque), npy(st1.phys.qvel)
+    pushes = []
+    for a in (0, 1):
+        pushes += _hold(f"push v_{'xy'[a]}", pf1[:, a],
+                        uniform(-dr.max_push_vel_xy, dr.max_push_vel_xy))
+    for a in range(3):
+        pushes += _hold(f"push w_{'xyz'[a]}", pt1[:, a],
+                        uniform(-dr.max_push_ang_vel, dr.max_push_ang_vel))
+    pushes += _exact("qvel = push", np.concatenate([qv1[k, 0:2], qv1[k, 3:6]], 1),
+                     np.concatenate([pf1[k, :2], pt1[k]], 1), 0.0)
+    pushes += _exact("no push off the interval",
+                     np.concatenate([npy(st2.rand_push_force), npy(st2.rand_push_torque)], 1),
+                     np.concatenate([pf1, pt1], 1), 0.0)
+    sites["pushes"] = pushes
+    c1, c2 = npy(st1.commands)[k], npy(st2.commands)[k]
+    sites["commands at a resample"] = (
+        _dead_zone("command", c1, cr.lin_vel_x, cr.lin_vel_y)
+        + _hold("heading", c1[:, 3], uniform(*cr.heading))
+        + _exact("no resample off the interval", c2[:, [0, 1, 3]], c1[:, [0, 1, 3]], 0.0))
+    os_ = cfg.normalization.obs_scales
+    scale = npy(env.noise_scale_vec) * cfg.noise.noise_level
+    phase = npy(st1.episode_length) * env.dt / cfg.rewards.cycle_time
+    clean = np.concatenate([
+        np.sin(2 * np.pi * phase)[:, None], np.cos(2 * np.pi * phase)[:, None],
+        npy(st1.commands)[:, :3] * [os_.lin_vel, os_.lin_vel, os_.ang_vel],
+        (npy(st1.phys.qpos[:, 7:]) - dof) * os_.dof_pos, npy(st1.phys.qvel[:, 6:]) * os_.dof_vel,
+        npy(st1.actions), npy(st1.base_ang_vel) * os_.ang_vel, npy(st1.base_euler) * os_.quat],
+        axis=1)
+    diff = npy(tr1.obs).reshape(n_envs, -1, cfg.env.num_single_obs)[:, -1] - clean
+    noisy = scale > 0
+    sites["observation noise"] = (
+        _hold("observation noise z", diff[:, noisy] / scale[noisy], stats.norm())
+        + _exact("noise-free entries", diff[:, ~noisy], 0.0, 1e-5))
+
+    MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+    tenv, tcfg = registry.make_env(TERRAIN_TASK, num_envs=n_envs, cfg_overrides=_solver_mega,
+                                   device=dev, seed=23)
+    tdr, tc = tcfg.domain_rand, tcfg.terrain
+    st = tenv.init_state()
+    origins = npy(tenv.terrain_origins)
+    lvl, ty = npy(st.terrain_level).astype(int), npy(st.terrain_type).astype(int)
+    xy = npy(st.phys.qpos[:, :2]) - npy(st.env_origin[:, :2])
+    sites["initial base xy"] = (_hold("base x - origin", xy[:, 0], uniform(-1.0, 1.0))
+                                + _hold("base y - origin", xy[:, 1], uniform(-1.0, 1.0)))
+    sites["contact stiffness, offset, compliance"] = sum(
+        (_hold(f, npy(getattr(st.phys, f)), stats.loguniform(*rng)) for f, rng in (
+            ("contact_stiffness", tdr.contact_stiffness_range),
+            ("contact_offset", tdr.contact_offset_range),
+            ("contact_compliance", tdr.contact_compliance_range))), [])
+    sites["contact slope bias"] = (
+        _hold("slope_bias x", npy(st.phys.slope_bias[:, 0]), uniform(*tdr.contact_slope_range))
+        + _hold("slope_bias y", npy(st.phys.slope_bias[:, 1]), uniform(*tdr.contact_slope_range)))
+    hi = tc.max_init_terrain_level
+    sites["initial terrain level and type"] = (
+        _hold("terrain_level", lvl, stats.randint(0, hi + 1), support=np.arange(hi + 1))
+        + _exact("terrain_type", ty, np.arange(n_envs) * tc.num_cols // n_envs, 0.0)
+        + _exact("env_origin", npy(st.env_origin),
+                 origins[np.minimum(lvl, tc.num_rows - 1), ty]))
+    # a time-out on the top row with no command: the survival curriculum
+    # moves every env past the top, so it re-enters at a uniform level
+    st, _, _ = tenv.reset_all()
+    top = torch.full_like(st.terrain_level, tc.num_rows - 1)
+    st = st.replace(episode_length=torch.full_like(st.episode_length, tenv.max_episode_length),
+                    terrain_level=top, env_origin=tenv.terrain_origin(top, st.terrain_type),
+                    commands=torch.zeros_like(st.commands))
+    st1, tr1 = tenv.step(st, torch.zeros((n_envs, 12), device=dev))
+    terrain_launches = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
+    lvl1, ty1 = npy(st1.terrain_level).astype(int), npy(st1.terrain_type).astype(int)
+    xy1 = npy(st1.phys.qpos[:, :2]) - npy(st1.env_origin[:, :2])
+    sites["reset pose and level"] = (
+        _exact("every env timed out", npy(tr1.time_out), 1.0, 0.0)
+        + _hold("re-entry level", lvl1, stats.randint(0, tc.num_rows),
+                support=np.arange(tc.num_rows))
+        + _exact("reset origin", npy(st1.env_origin), origins[lvl1, ty1])
+        + _hold("reset joint offset", npy(st1.phys.qpos[:, 7:]) - npy(tenv.default_dof_pos),
+                uniform(-0.1, 0.1))
+        + _hold("reset base x - origin", xy1[:, 0], uniform(-1.0, 1.0))
+        + _hold("reset base y - origin", xy1[:, 1], uniform(-1.0, 1.0)))
+    del tenv, st, st1
+
+    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
+
+    runner = OnPolicyRunner(env, XBotLCfgPPO(), log_dir=None)
+    runner.learn(0, init_at_random_ep_len=True)
+    sites["runner's initial episode lengths"] = _hold(
+        "episode_length", npy(runner.env_state.episode_length),
+        stats.randint(0, env.max_episode_length), support=np.arange(env.max_episode_length))
+
+    misses = []
+    for site, checks in sites.items():
+        label, stat, limit = max(checks, key=lambda c: c[1] / c[2] if c[2] > 0 else
+                                 (0.0 if c[1] == 0 else float("inf")))
+        bad = [c for c in checks if not c[1] <= c[2]]
+        misses += [f"{site}: {lab} {s:.4g} > {lim:.4g}" for lab, s, lim in bad]
+        _log(f"phase 23 {site}: {len(checks)} checks, {len(bad)} missed | closest: {label} "
+             f"{stat:.4g} (limit {limit:.4g}) | {n_envs} envs | {card}")
+    want = ((3, 0), (0, 2)) if on_card else ((0, 0), (0, 0))
+    _log(f"phase 23 wall time {time.perf_counter() - t_phase:.1f} s | mega launches (flat, "
+         f"terrain): flat steps {flat_launches}, terrain steps {terrain_launches} | {card}")
+    if misses or (flat_launches, terrain_launches) != want:
+        raise AssertionError("phase 23: " + "; ".join(misses)
+                             + f" | launches {flat_launches}, {terrain_launches} (expected {want})")
+    return {"flat": flat_launches[0], "terrain": terrain_launches[1]}
 
 
 # ---- phase 5c: the runner's HGT_PROFILE_DIR trace ----
@@ -2490,6 +2855,11 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--phase13-rank"]:
         return _phase13_rank(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--train"]:
+        task, iters, seed = sys.argv[2:5]
+        return _diagnostic_train(task, int(iters), int(seed))
+    if sys.argv[1:2] == ["--roll"]:
+        return _diagnostic_roll(sys.argv[2], int(sys.argv[3]), [int(s) for s in sys.argv[4:]])
 
     import numpy as np
 
@@ -2618,6 +2988,9 @@ def main() -> int:
 
     # ---- phase 22: the flat recipe trained from scratch on the card ----
     _phase22_train_from_scratch(card, dev)
+
+    # ---- phase 23: the random draw sites held to their laws on the card ----
+    _phase23_laws(card, dev)
 
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",

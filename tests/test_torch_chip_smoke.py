@@ -4,6 +4,7 @@ per-kernel records."""
 
 import ast
 import importlib.util
+import inspect
 import os
 import subprocess
 import sys
@@ -251,7 +252,8 @@ def test_phase22_is_wired(smoke):
     60 x 200 flat launches plus the reset step and no terrain launch;
     checkpoints 100 and 200 exported and rolled as phase 12 (a), checkpoint
     200 held to the walk demo's gate. Phase 20's sync-free steps take the
-    joint env too."""
+    joint env too. The training and the rolls live in `_train_and_roll`,
+    which `--train` also runs."""
     src = open(SCRIPT).read()
     order = [src.index(s) for s in (
         "launches_bench = _phase21_bench(card)", "    _phase22_train_from_scratch(card, dev)",
@@ -263,14 +265,87 @@ def test_phase22_is_wired(smoke):
     assert os.path.relpath(smoke.TRAIN_ROOT, ROOT).split(os.sep)[0] == "chiprun_out"
     assert "from train_torch import train" in smoke.TRAIN_CHILD
     assert "train(get_args(sys.argv[1:]))" in smoke.TRAIN_CHILD
-    assert '"--max_iterations", str(TRAIN_ITERS), "--log_root", TRAIN_ROOT]' in src
+    assert ('card, dev, TRAIN_TASK, TRAIN_ITERS, None, TRAIN_ROOT, "phase 22", '
+            'gate_at=TRAIN_ITERS)') in src
+    assert '"--max_iterations", str(iters),' in src and '"--log_root", root]' in src
+    assert '([] if seed is None else ["--seed", str(seed)])' in src
     assert 'env = dict(os.environ, HGT_WANDB="0")' in src
-    assert 'want = {"flat": T_STEPS * TRAIN_ITERS + 1, "terrain": 0}' in src
-    assert "for ck in (100, TRAIN_ITERS):" in src
+    assert 'want = {kind: T_STEPS * iters + 1, other: 0}' in src
+    assert 'kind, other = ("terrain", "flat") if "terrain" in task else ("flat", "terrain")' in src
+    assert "saved = set(range(0, iters, 100)) | {iters}" in src
+    assert "for ck in sorted(saved - {0}):" in src
     assert "_roll_policy(TRAIN_TASK, os.path.join(out, \"policy.npz\"), WALK_VX, False," in src
     assert "survived, median = _roll_policy(task, npz, vx, terrain, dev)" in src  # phase 12
     assert "n != (401, 0)" in src and "survived >= WALK_GATE[0] and median >= WALK_GATE[1]" in src
     assert 'for task in ("humanoid_ppo", TERRAIN_TASK, JOINT_TASK):' in src
     assert smoke.JOINT_TASK == "humanoid_joint_ppo"
     assert "\n 22. the flat recipe trained from scratch" in smoke.__doc__
-    assert "\n 23. one JSON line with a record per kernel" in smoke.__doc__
+    assert "\n 24. one JSON line with a record per kernel" in smoke.__doc__
+
+
+def test_phase23_is_wired(smoke):
+    """Phase 23 runs after phase 22 and before the kernels line, which it
+    leaves as it was; `--train` and `--roll` run the diagnostics and print
+    no contract line."""
+    src = open(SCRIPT).read()
+    order = [src.index(s) for s in (
+        "    _phase22_train_from_scratch(card, dev)", "    _phase23_laws(card, dev)",
+        'print(json.dumps({"kernels"')]
+    assert order == sorted(order)
+    assert src.count('route="cuda"') == 5
+    assert "\n 23. the random draw sites" in smoke.__doc__
+    assert 'sys.argv[1:2] == ["--train"]' in src and 'sys.argv[1:2] == ["--roll"]' in src
+    for fn in (smoke._diagnostic_train, smoke._diagnostic_roll):
+        assert '"ok"' not in inspect.getsource(fn)
+
+
+def test_phase23_law_checks_are_the_random_path_tests(smoke):
+    """Phase 23's copies of the law checks give what
+    tests/test_torch_random_paths.py's give."""
+    import numpy as np
+
+    spec = importlib.util.spec_from_file_location(
+        "random_paths_under_test", os.path.join(ROOT, "tests", "test_torch_random_paths.py"))
+    T = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(T)
+
+    assert (smoke.LAW_ALPHA, smoke.LAW_KS_C) == (T.ALPHA, T.KS_C)
+    assert smoke.LAW_Z == pytest.approx(T.Z, rel=1e-9)
+    x = np.linspace(-0.5, 0.7, 97)
+    box = ((-0.3, 0.6), (-0.3, 0.3))
+    for a in (0, 1):
+        np.testing.assert_array_equal(smoke._dead_zone_kept_cdf(box, 0.2, a)(x),
+                                      T._dead_zone_kept_cdf(box, 0.2, a)(x))
+    mine, theirs = smoke._delay_law(0.5, 0.02, 6), T._delay_law(0.5, 0.02, 6)
+    np.testing.assert_array_equal(mine[0](x), theirs[0](x))
+    assert mine[1:] == theirs[1:]
+    support = np.arange(11)
+    draws = np.random.default_rng(0).integers(0, 11, 500)
+    cdf = lambda k: (k + 1) / 11  # noqa: E731
+    assert smoke._ks_discrete(draws, support, cdf) == T._ks_discrete(draws, support, cdf)
+    assert smoke._var_se(draws, 2.0, -1.2) == T._var_se(draws, 2.0, -1.2)
+
+
+def test_phase23_rehearsal_on_the_cpu(smoke):
+    """Phase 23 at 256 envs on the CPU through the plain mega step: every
+    site within its limits, no launch counted (the plain version)."""
+    assert smoke._phase23_laws("cpu card", "cpu", n_envs=256) == {"flat": 0, "terrain": 0}
+
+
+def test_phase23_misses_a_wrong_law(smoke, monkeypatch):
+    """A joint jitter of U(-0.2, 0.2) where the config says U(-0.1, 0.1)
+    fails phase 23 at the initial and the reset pose."""
+    from humanoid_gym_tpu_torch.envs.env import HumanoidEnv
+
+    real = HumanoidEnv._uniform
+
+    def wide(self, shape, lo, hi):
+        if isinstance(lo, float) and (lo, hi) == (-0.1, 0.1):  # the joint jitter
+            lo, hi = -0.2, 0.2
+        return real(self, shape, lo, hi)
+
+    monkeypatch.setattr(HumanoidEnv, "_uniform", wide)
+    with pytest.raises(AssertionError) as err:
+        smoke._phase23_laws("cpu card", "cpu", n_envs=256)
+    assert "initial joint pose: joint offset" in str(err.value)
+    assert "reset pose and level: reset joint offset" in str(err.value)

@@ -2,7 +2,9 @@
 (XBot-L). The counterpart of bench.py.
 
 Runs the training iteration of `algo.ppo.make_train_iter` (a T-step
-rollout through the 1 kHz contact physics, GAE, the minibatched PPO update)
+rollout through the 1 kHz contact physics, GAE, the minibatched PPO update),
+as one CUDA graph on the card at world size 1 (`algo.capture`, bench.py's
+`jax.jit`; captured in the first warm-up iteration), eagerly elsewhere,
 and reports value = T * N / iteration time, the runner's Perf/total_fps.
 vs_baseline is reported against bench.py's nominal 60,000 steps/s (an Isaac
 Gym humanoid-gym figure on a desktop GPU at 4096 envs), and mfu is the
@@ -67,7 +69,8 @@ def measure(task: str, num_envs: int, iters: int, solver: str, sync: bool, devic
 
     from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
-    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
+    from humanoid_gym_tpu_torch.algo.capture import compiled_train_iter
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
     from humanoid_gym_tpu_torch.parallel.mesh import replicate
     from humanoid_gym_tpu_torch.parallel.multihost import rank_seed
     from humanoid_gym_tpu_torch.physics import mega as MG
@@ -88,7 +91,7 @@ def measure(task: str, num_envs: int, iters: int, solver: str, sync: bool, devic
     algo = PPOConfig.from_cfg(tcfg.algorithm)
     algo.num_steps_per_env = T = horizon or tcfg.runner.num_steps_per_env
     ts = init_train_state(net, algo.learning_rate)
-    train_iter = make_train_iter(env, net, algo, num_envs, group, perm_seed=0)
+    train_iter = compiled_train_iter(env, net, algo, num_envs, group, perm_seed=0)
     state = env.init_state()
     obs = torch.zeros((env.num_envs, cfg.env.num_observations), device=device)
     priv = torch.zeros((env.num_envs, cfg.env.num_privileged_obs), device=device)

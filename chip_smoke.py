@@ -26,8 +26,12 @@ script exits non-zero):
      `terrain_patches` call; the count of active contacts on sloped cells;
      its launch timed beside the flat launch on the same states;
   5. the main path: XBot-L PPO training (4096 envs, T=60, solver mega)
-     through `make_train_iter`, one warm-up iteration and 3 timed ones,
-     with the kernels' launch counters zeroed just before the timed run;
+     through `CapturedTrainIter` (the iteration as one CUDA graph): one
+     warm-up iteration, which captures the graph, and 3 timed replays,
+     with the kernels' launch counters zeroed just before the timed run
+     (the replays add the launches the capture recorded); 5b: one
+     iteration of the eager stages on CUDA events and one eager iteration
+     under torch.profiler;
   5c. OnPolicyRunner.learn(2) at 4096 envs (humanoid_ppo, solver mega)
      with HGT_PROFILE_DIR set: one Chrome trace of the second iteration,
      which names hgt_mega_kernel 60 times;
@@ -104,8 +108,9 @@ script exits non-zero):
      the env step's modules;
  15. the learning-curve band on the card: the seeded 16-env run of
      tests/test_learning_regression.py (seed 5, T=60, 12 iterations through
-     `make_train_iter`) with solver mega, held to that test's bands
-     unchanged (humanoid_gym_tpu_torch/utils/learning_band.py);
+     `compiled_train_iter`, one CUDA graph an iteration) with solver mega,
+     held to that test's bands unchanged
+     (humanoid_gym_tpu_torch/utils/learning_band.py);
  16. the stage profile of the training iteration on the card:
      `scripts/learn_profile_torch.py` at 4096 envs, T=60 (flat
      humanoid_ppo, solver mega), all eight stages (full, rollout, gae,
@@ -165,8 +170,26 @@ script exits non-zero):
      and slope bias and the initial level and type, then the re-entry level
      and reset pose after a time-out on the top row; the runner's random
      initial episode lengths. One line a site; a miss fails the run;
- 24. one JSON line with a record per kernel, the card line, then the
+ 24. the training iteration captured as one CUDA graph against the eager
+     one (`algo/capture.py`), at 4096 envs and T=60 for humanoid_ppo,
+     humanoid_ppo_terrain_robust and humanoid_joint_ppo (2048 + 2048): 3
+     iterations a side from one snapshot (train state, env state, obs,
+     every generator), parameters, Adam moments, count, learning rate, env
+     state, obs and metrics bit-equal (a difference up to CAPTURE_REL_TOL
+     relative passes only with its tensor named); the task's mega kernel
+     launched T (joint: 2 T) times an iteration on each side, counted from
+     the replays, and as often in one profiled replay where the profiler
+     lists a graph's kernels; capture seconds, eager and replayed
+     iteration ms on CUDA events and on the host clock, the replay's
+     device idle share, the peak memory with the graph's pool;
+ 25. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
+
+Phases 5, 5c, 8, 9, 11, 13 (its one-rank nccl run), 15, 17, 19, 20
+(`dryrun_multichip(1)`), 21 and 22 train through entry points that run the
+captured iteration on the card at world size 1, as the JAX package
+jit-compiles them; phase 13's two gloo ranks and phase 16's stages run
+eagerly.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
 the repo, it exits non-zero and prints no result.
@@ -2156,6 +2179,198 @@ def _phase23_laws(card, dev, n_envs=N_ENVS):
     return {"flat": flat_launches[0], "terrain": terrain_launches[1]}
 
 
+# ---- phase 24: the training iteration captured as one CUDA graph ----
+
+CAPTURE_TASKS = ("humanoid_ppo", TERRAIN_TASK, JOINT_TASK)
+CAPTURE_ITERS = 3  # compared iterations a side, then as many timed replays
+# captured against eager: the same kernels on the same inputs and generator
+# offsets, so bit-equal is expected; a difference up to this (relative to
+# the tensor's largest magnitude) passes only with the tensor named
+CAPTURE_REL_TOL = 1e-5
+
+
+def _leaf_names(tree, prefix):
+    """Names of tensor_leaves(tree), by field path."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(tree):
+        return [n for f in dataclasses.fields(tree)
+                for n in _leaf_names(getattr(tree, f.name), f"{prefix}.{f.name}")]
+    if isinstance(tree, (tuple, list)):
+        return [n for i, x in enumerate(tree) for n in _leaf_names(x, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAPTURE_ITERS):
+    """`task` at n_envs envs, T = horizon, solver mega: from one snapshot
+    (train state, env state, obs, every generator), `iters` iterations of
+    the eager `make_train_iter`, then `iters` of `CapturedTrainIter`, with
+    the launch counters zeroed before each side; then `iters` more replays
+    timed and one under torch.profiler. Returns the record: the largest
+    relative difference and the tensor it is in, the launches of each side,
+    the capture seconds, the iteration ms (CUDA events and host clock) of
+    each side, the replay's device busy ms, the profiler's count of
+    hgt_mega_kernel in one replay and the peak memory of each side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo.capture import (
+        CapturedTrainIter,
+        clone_tree,
+        launch_counts,
+        tensor_leaves,
+        train_state_tensors,
+    )
+    from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
+
+    env, cfg = registry.make_env(task, num_envs=n_envs, cfg_overrides=_solver_mega, device=dev,
+                                 seed=0)
+    tcfg = registry.get_task(task).make_train_cfg()
+    net = actor_critic_from_cfg(cfg.env, tcfg.policy, seed=0).to(dev)
+    pc = PPOConfig.from_cfg(tcfg.algorithm)
+    pc.num_steps_per_env = horizon
+    ts = init_train_state(net, pc.learning_rate)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    generators = [gen, *env.generators()]
+    snap_inputs = clone_tree(env.reset_all())
+    snap_ts = [t.detach().clone() for t in train_state_tensors(ts)]
+    snap_gens = [g.get_state() for g in generators]
+    names = ([f"param {k}" for k, _ in net.named_parameters()] + [f"mu {k}" for k in ts.opt_mu]
+             + [f"nu {k}" for k in ts.opt_nu] + ["opt_count", "lr"]
+             + _leaf_names(snap_inputs, "(state, obs, priv)"))
+
+    metric_names = []
+
+    def timed(train_iter, inputs, n):
+        """n calls from inputs: (per-call outputs, event ms, host ms, inputs after)."""
+        outs, ev_ms, host_ms = [], [], []
+        for _ in range(n):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            _, *inputs, metrics = train_iter(ts, *inputs, gen)
+            ev[1].record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(ev[0].elapsed_time(ev[1]))
+            metric_names[:] = [f"metric {k}" for k in sorted(metrics)]
+            kept = train_state_tensors(ts) + tensor_leaves(inputs)
+            outs.append([t.detach().clone() for t in kept] + [metrics[k] for k in sorted(metrics)])
+        return outs, ev_ms, host_ms, inputs
+
+    def side(train_iter):
+        with torch.no_grad():
+            for t, s in zip(train_state_tensors(ts), snap_ts):
+                t.copy_(s)
+        ts.iteration = 0
+        for g, s in zip(generators, snap_gens):
+            g.set_state(s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        res = timed(train_iter, clone_tree(snap_inputs), iters)
+        launches = [a - b for a, b in zip(launch_counts(), before)]
+        return res, launches, torch.cuda.max_memory_allocated() / 2**30
+
+    (eager, e_ev, e_host, _), e_launch, e_peak = side(make_train_iter(env, net, pc, n_envs))
+    captured = CapturedTrainIter(env, net, pc, n_envs)
+    (got, c_ev, c_host, inputs), c_launch, c_peak = side(captured)
+    names += metric_names
+    worst, where = 0.0, None
+    for i, (a_it, b_it) in enumerate(zip(got, eager)):
+        for name, a, b in zip(names, a_it, b_it, strict=True):
+            diff = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+            rel = diff / max(float(b.double().abs().max()), 1e-30) if diff else 0.0
+            if rel > worst:
+                worst, where = rel, f"iteration {i + 1}, {name}"
+    _, r_ev, r_host, inputs = timed(captured, inputs, iters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, *inputs, _ = captured(ts, *inputs, gen)
+        torch.cuda.synchronize()
+    by_class, n_kernels, _ = _device_time(prof)
+    cuda = torch.autograd.DeviceType.CUDA
+    in_trace = sum(e.count for e in prof.key_averages()
+                   if e.device_type == cuda and "hgt_mega_kernel" in e.key)
+    # the replay's kernels from the first one's start to the last one's end
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == cuda]
+    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 if spans else None
+    rec = {"task": task, "envs": n_envs, "T": horizon, "worst_rel": worst, "where": where,
+           "launches_eager": e_launch, "launches_replayed": c_launch,
+           "capture_s": captured.capture_seconds, "eager_ms": e_ev, "eager_host_ms": e_host,
+           "captured_ms": c_ev, "captured_host_ms": c_host, "replay_ms": r_ev,
+           "replay_host_ms": r_host, "replay_busy_ms": sum(by_class.values()) / 1e3,
+           "replay_span_ms": span_ms,
+           "replay_busy_by_class_ms": {k: v / 1e3 for k, v in by_class.items()},
+           "replay_kernels": n_kernels, "mega_in_trace": in_trace,
+           "peak_gib_eager": e_peak, "peak_gib_captured": c_peak}
+    captured.reset()
+    del captured, got, eager, inputs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _phase24_captured(card, dev):
+    """Phase 24: the training iteration captured as one CUDA graph against
+    the eager one, at 4096 envs and T = 60, for flat `humanoid_ppo` (B1),
+    `humanoid_ppo_terrain_robust` (B1t) and `humanoid_joint_ppo` (B1 twice a
+    step, 2048 + 2048 envs): 3 iterations a side from one snapshot, bit-equal
+    (a difference within CAPTURE_REL_TOL passes with its tensor named); the
+    task's kernel launched T (joint: 2 T) times an iteration on each side,
+    counted from the replays, and named as often in one profiled replay
+    where the profiler lists a graph's kernels; capture seconds, eager and
+    replayed iteration ms on CUDA events and on the host clock, the
+    replay's device idle share, the peak memory with the graph's pool.
+    Returns the records."""
+    records = []
+    for task in CAPTURE_TASKS:
+        t0 = time.perf_counter()
+        r = _captured_against_eager(task, dev)
+        joint, terrain = task == JOINT_TASK, "terrain" in task
+        own = 1 if terrain else 0  # launch_counts(): flat, terrain, then the solvers
+        want = [0] * 5
+        want[own] = (2 if joint else 1) * T_STEPS * CAPTURE_ITERS
+        per_iter = want[own] // CAPTURE_ITERS
+        replay_ms = statistics.median(r["replay_host_ms"])
+        span = r["replay_span_ms"]
+        idle = "not measured (no kernel in the trace)" if not span else (
+            f"idle share {1.0 - r['replay_busy_ms'] / span:.3f} of the {span:.1f} ms from its "
+            f"first kernel's start to its last one's end; "
+            f"{1.0 - r['replay_busy_ms'] / replay_ms:.3f} of the unprofiled replays' median "
+            f"{replay_ms:.1f} ms")
+        ms = lambda xs: ", ".join(f"{x:.1f}" for x in xs)  # noqa: E731
+        _log(f"phase 24 captured iteration: {task} {r['envs']} envs T={r['T']} solver mega | "
+             f"capture {r['capture_s']:.2f} s | eager ms {ms(r['eager_ms'])} (host "
+             f"{ms(r['eager_host_ms'])}) | captured ms {ms(r['captured_ms'])} (host "
+             f"{ms(r['captured_host_ms'])}; the first holds the capture) | replayed ms "
+             f"{ms(r['replay_ms'])} (host {ms(r['replay_host_ms'])}) | one profiled replay: device "
+             f"busy {r['replay_busy_ms']:.1f} ms over {r['replay_kernels']} kernels ("
+             + ", ".join(f"{k} {v:.1f}" for k, v in r["replay_busy_by_class_ms"].items())
+             + f" ms), {idle} | "
+             f"launches an iteration eager {r['launches_eager'][own] / CAPTURE_ITERS:g}"
+             f", replayed {r['launches_replayed'][own] / CAPTURE_ITERS:g} (= {per_iter}); "
+             f"hgt_mega_kernel in one profiled replay {r['mega_in_trace']} | largest difference "
+             f"{r['worst_rel']:.3g} relative"
+             + (f" ({r['where']})" if r["where"] else " (bit-equal)")
+             + f" | peak mem eager {r['peak_gib_eager']:.2f} GiB, captured "
+             f"{r['peak_gib_captured']:.2f} GiB | {time.perf_counter() - t0:.1f} s | {card}")
+        if r["launches_eager"] != want or r["launches_replayed"] != want:
+            raise AssertionError(f"phase 24 {task}: launches eager {r['launches_eager']}, "
+                                 f"replayed {r['launches_replayed']}, expected {want}")
+        if r["mega_in_trace"] not in (0, per_iter):
+            raise AssertionError(f"phase 24 {task}: the profiler names hgt_mega_kernel "
+                                 f"{r['mega_in_trace']} times in one replay")
+        if r["worst_rel"] > CAPTURE_REL_TOL:
+            raise AssertionError(f"phase 24 {task}: captured against eager {r['worst_rel']:.3g} "
+                                 f"relative at {r['where']}")
+        records.append(r)
+    return records
+
+
 # ---- phase 5c: the runner's HGT_PROFILE_DIR trace ----
 
 def _phase5c_profile_dir(card, dev):
@@ -2205,11 +2420,12 @@ def _kernel_class(name: str) -> str:
 
 
 def _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_iter_ms):
-    """Phase 5b, after the main path's counters were read: one iteration
-    stage by stage on CUDA events, then one under torch.profiler for the
-    device time by kernel class and the device's idle share. Returns the
-    profiled iteration's device-busy ms (None if the profiler saw no
-    kernel)."""
+    """Phase 5b, after the main path's counters were read: one eager
+    iteration stage by stage on CUDA events, then one eager iteration under
+    torch.profiler for the device time by kernel class and the device's
+    idle share over the staged iteration's time (phase 5's replayed mean,
+    `mean_iter_ms`, is printed beside it). Returns the profiled iteration's
+    device-busy ms (None if the profiler saw no kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2232,7 +2448,8 @@ def _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_iter_ms
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pieces["train_iter"](ts, state, obs, priv, gen)
         torch.cuda.synchronize()
-    return _profile_line("phase 5b profile", prof, mean_iter_ms, "iteration")
+    return _profile_line(f"phase 5b profile (eager; phase 5 replayed {mean_iter_ms:.1f} ms an "
+                         f"iteration)", prof, sum(stages), "staged eager iteration")
 
 
 def _kernel_launches(fn) -> int:
@@ -2863,8 +3080,9 @@ def main() -> int:
 
     import numpy as np
 
+    from humanoid_gym_tpu_torch.algo.capture import CapturedTrainIter
     from humanoid_gym_tpu_torch.algo.networks import ActorCritic
-    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
     from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
     from humanoid_gym_tpu_torch.envs import make_env
     from humanoid_gym_tpu_torch.physics import mega as MG, solve as SV
@@ -2901,7 +3119,7 @@ def main() -> int:
     pcfg.num_steps_per_env = tcfg.runner.num_steps_per_env
     assert pcfg.num_steps_per_env == T_STEPS
     ts = init_train_state(net, pcfg.learning_rate)
-    train_iter = make_train_iter(env, net, pcfg, N_ENVS)
+    train_iter = CapturedTrainIter(env, net, pcfg, N_ENVS)
     state = env.init_state()
     obs = torch.zeros((N_ENVS, cfg.env.num_observations), device=dev)
     priv = torch.zeros((N_ENVS, cfg.env.num_privileged_obs), device=dev)
@@ -2935,8 +3153,9 @@ def main() -> int:
                              f"and no terrain launch")
     mean_ms = sum(iter_ms) / len(iter_ms)
     last = all_metrics[-1]
-    _log(f"phase 5 main path: XBot-L {N_ENVS} envs T={T_STEPS} solver mega | warm-up {warm_s:.1f} s | "
-         f"iter ms {', '.join(f'{x:.1f}' for x in iter_ms)} | "
+    _log(f"phase 5 main path: XBot-L {N_ENVS} envs T={T_STEPS} solver mega, one CUDA graph an "
+         f"iteration | warm-up {warm_s:.1f} s (capture {train_iter.capture_seconds:.1f} s) | "
+         f"replayed iter ms {', '.join(f'{x:.1f}' for x in iter_ms)} | "
          f"{T_STEPS * N_ENVS / (mean_ms / 1e3):.1f} env steps/s | mega launches {launches['mega']} "
          f"(= {T_STEPS} x {TIMED_ITERS}) | value_loss {float(last['value_loss']):.4g} "
          f"surrogate {float(last['surrogate_loss']):.4g} mean_step_reward "
@@ -2944,7 +3163,7 @@ def main() -> int:
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
 
     busy5_ms = _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_ms)
-    del env, net, ts, state, obs, priv
+    del env, net, ts, state, obs, priv, train_iter
     _phase5c_profile_dir(card, dev)
 
     _phase6_apgd(c, st1, tgt0, records)
@@ -2991,6 +3210,9 @@ def main() -> int:
 
     # ---- phase 23: the random draw sites held to their laws on the card ----
     _phase23_laws(card, dev)
+
+    # ---- phase 24: the training iteration as one CUDA graph against eager ----
+    _phase24_captured(card, dev)
 
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",

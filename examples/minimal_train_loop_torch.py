@@ -4,7 +4,7 @@ the counterpart of examples/minimal_train_loop.py.
 The three layers a framework user composes:
   env   = make_env(cfg)                   # batched step / reset on a device
   net   = ActorCritic(...)                # policy and value MLPs (nn.Module)
-  iter  = make_train_iter(env, net, ...)  # one PPO iteration
+  iter  = compiled_train_iter(env, net, ...)  # one PPO iteration (one CUDA graph on the card)
 
 On the card (the default) every env step is one launch of the CUDA mega
 kernel (solver mega); `--device cpu` runs the plain versions (solver apgd).
@@ -25,7 +25,8 @@ def main(num_envs=8, iterations=3, horizon=8, device="cuda"):
     import torch
 
     from humanoid_gym_tpu_torch.algo.networks import ActorCritic
-    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
+    from humanoid_gym_tpu_torch.algo.capture import compiled_train_iter
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
     from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
     from humanoid_gym_tpu_torch.envs import make_env
     from humanoid_gym_tpu_torch.utils.platform import resolve_device
@@ -46,7 +47,7 @@ def main(num_envs=8, iterations=3, horizon=8, device="cuda"):
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
 
-    train_iter = make_train_iter(env, net, algo, num_envs)
+    train_iter = compiled_train_iter(env, net, algo, num_envs)
     history = []
     for i in range(iterations):
         ts, state, obs, priv, metrics = train_iter(ts, state, obs, priv, gen)

@@ -10,7 +10,8 @@ CapturedStep(step, net, state, obs, priv, generator): a step captured as
     one CUDA graph, the port's counterpart of `jax.jit`.
 dryrun_multichip(n, device=None): one full PPO training iteration (rollout,
     GAE, minibatch updates) with the env axis sharded over n ranks of
-    `parallel/` and the parameters replicated, on tiny shapes.
+    `parallel/` and the parameters replicated, on tiny shapes (at one rank
+    on the card, captured as one CUDA graph, `algo.capture`).
 
     python graft_entry_torch.py                 # on the card: capture entry()'s step, replay it
     python graft_entry_torch.py --device cpu    # the same step, eager, on the CPU
@@ -19,7 +20,6 @@ dryrun_multichip(n, device=None): one full PPO training iteration (rollout,
 """
 
 import argparse
-import dataclasses
 import os
 import sys
 import tempfile
@@ -76,22 +76,6 @@ def entry(device=None, solver=None):
     return fn, (net, state, obs, priv)
 
 
-def _tensors(tree):
-    """The tensors of a nested dataclass / tuple, in field order."""
-    if dataclasses.is_dataclass(tree):
-        return [t for f in dataclasses.fields(tree) for t in _tensors(getattr(tree, f.name))]
-    if isinstance(tree, (tuple, list)):
-        return [t for x in tree for t in _tensors(x)]
-    return [tree]
-
-
-def _clone(tree):
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{f.name: _clone(getattr(tree, f.name))
-                                            for f in dataclasses.fields(tree)})
-    return tree.clone()
-
-
 class CapturedStep:
     """`step(net, state, obs, priv) -> (new_state, outputs)` captured as one
     CUDA graph. The step is warmed up on a side stream (CAPTURE_WARMUP calls,
@@ -104,7 +88,9 @@ class CapturedStep:
     def __init__(self, step, net, state, obs, priv, generator):
         import torch
 
-        self.inputs = (_clone(state), obs.clone(), priv.clone())
+        from humanoid_gym_tpu_torch.algo.capture import clone_tree
+
+        self.inputs = clone_tree((state, obs, priv))
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -117,7 +103,9 @@ class CapturedStep:
             self.outputs = step(net, *self.inputs)
 
     def __call__(self, state, obs, priv):
-        for dst, src in zip(_tensors(self.inputs), _tensors((state, obs, priv))):
+        from humanoid_gym_tpu_torch.algo.capture import tensor_leaves
+
+        for dst, src in zip(tensor_leaves(self.inputs), tensor_leaves((state, obs, priv))):
             dst.copy_(src)
         self.graph.replay()
         return self.outputs
@@ -162,7 +150,8 @@ def _dryrun_rank(work: str, device_type: str) -> int:
     torch.set_num_threads(1)
     from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
-    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
+    from humanoid_gym_tpu_torch.algo.capture import compiled_train_iter
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
     from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
     from humanoid_gym_tpu_torch.parallel.mesh import make_env_group, replicate
     from humanoid_gym_tpu_torch.parallel.multihost import rank_seed
@@ -191,7 +180,7 @@ def _dryrun_rank(work: str, device_type: str) -> int:
         priv = torch.zeros((env.num_envs, cfg.env.num_privileged_obs), device=device)
         gen = torch.Generator(device=device)
         gen.manual_seed(rank_seed(1, group))
-        train_iter = make_train_iter(env, net, algo, num_envs, group, perm_seed=0)
+        train_iter = compiled_train_iter(env, net, algo, num_envs, group, perm_seed=0)
         ts, state, obs, priv, metrics = train_iter(ts, state, obs, priv, gen)
         out = {
             "rank": group.rank,

@@ -23,6 +23,12 @@ permutation from a generator of its own. The loop over T steps is plain
 Python; every env step is one mega-kernel launch on the card. Under env
 sharding (`group=`) the batch-global means are sums over the ranks
 (SURVEY.md §2.3); at world size 1 no collective runs.
+
+The iteration's body (`iteration_body`, everything after the permutation
+is drawn) updates the train state's tensors in place and reads no host
+value that changes from one iteration to the next, so on the card it is
+captured as one CUDA graph (`algo/capture.py`); the eager iteration is the
+same body.
 """
 
 from __future__ import annotations
@@ -86,9 +92,9 @@ class TrainState:
     net: ActorCritic
     opt_mu: Dict[str, torch.Tensor]  # Adam first moments, by parameter name
     opt_nu: Dict[str, torch.Tensor]  # Adam second moments
-    opt_count: int
-    lr: torch.Tensor  # () adaptive learning rate
-    iteration: int
+    opt_count: torch.Tensor  # () int32 Adam step count, advanced in place
+    lr: torch.Tensor  # () adaptive learning rate, written in place
+    iteration: int  # host counter: seeds each iteration's minibatch permutation
 
 
 class Rollout(NamedTuple):
@@ -110,7 +116,7 @@ def init_train_state(net: ActorCritic, lr0: float) -> TrainState:
         net=net,
         opt_mu={k: torch.zeros_like(p) for k, p in params.items()},
         opt_nu={k: torch.zeros_like(p) for k, p in params.items()},
-        opt_count=0,
+        opt_count=torch.zeros((), dtype=torch.int32, device=dev),
         lr=torch.tensor(lr0, dtype=torch.float32, device=dev),
         iteration=0,
     )
@@ -119,10 +125,13 @@ def init_train_state(net: ActorCritic, lr0: float) -> TrainState:
 @torch.no_grad()
 def _adam_step(ts: TrainState, grads: Dict[str, torch.Tensor], lr: torch.Tensor,
                b1=0.9, b2=0.999, eps=1e-8) -> None:
-    """Plain Adam, in place, with the state-carried learning rate."""
-    ts.opt_count += 1
-    c1 = 1 - b1 ** ts.opt_count
-    c2 = 1 - b2 ** ts.opt_count
+    """Plain Adam, in place, with the state-carried learning rate. The count
+    is a device tensor and the bias corrections are float32 on the device,
+    as the JAX package computes them (`b1**count.astype(jnp.float32)`)."""
+    ts.opt_count.add_(1)
+    count = ts.opt_count.to(torch.float32)
+    c1 = 1 - b1 ** count
+    c2 = 1 - b2 ** count
     for name, p in ts.net.named_parameters():
         g = grads[name]
         m = ts.opt_mu[name].mul_(b1).add_((1 - b1) * g)
@@ -155,13 +164,14 @@ def permutation_seed(seed: int, iteration: int) -> int:
 
 def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                       group: Optional[EnvGroup] = None, perm_seed: Optional[int] = None) -> dict:
-    """The train iteration and its stages: train_iter = rollout_phase ->
-    compute_gae -> update_phase (minibatch_update over the loss). Each
-    stage in the returned dict can be called, and timed, on its own, as
-    can the pieces of an update: `permute_batch` (the minibatches of one
-    permutation), `make_loss_fn(mb)` (the mean-form loss of one minibatch,
-    as the JAX package's), `actor_apply(net, obs)` and
-    `critic_apply(net, priv_obs)`.
+    """The train iteration and its stages: train_iter = draw_permutation,
+    then iteration_body (rollout_phase -> compute_gae -> the update phase,
+    minibatch_update over the loss, and the metrics). Each stage in the
+    returned dict can be called, and timed, on its own, as can the pieces
+    of an update: `update_phase` and `permute_batch` (the update and the
+    minibatches of a permutation drawn from a generator given),
+    `make_loss_fn(mb)` (the mean-form loss of one minibatch, as the JAX
+    package's), `actor_apply(net, obs)` and `critic_apply(net, priv_obs)`.
 
     `num_envs` is the global env count. Under a `group` of several ranks
     the rollout holds this rank's envs (`env.global_env_ids()`; with no env,
@@ -359,7 +369,7 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         scale = torch.clamp(cfg.max_grad_norm / (gnorm + 1e-12), max=1.0)
         grads = {k: torch.where(ok, g * scale, torch.zeros_like(g)) for k, g in grads.items()}
         _adam_step(ts, grads, lr)
-        ts.lr = lr
+        ts.lr.copy_(lr)
         return ts, {
             "value_loss": val_l,
             "surrogate_loss": surr_l,
@@ -369,13 +379,11 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
             "estimator_loss": est_l,
         }
 
-    def permute_batch(roll: Rollout, adv, ret, perm_gen):
-        """The minibatches of one update phase: a permutation of the global
-        flattened batch drawn from `perm_gen`, this rank's rows of it
-        gathered from the rollout, as num_mini_batches tuples (obs, priv,
-        actions, log_probs, values, adv, ret, mu, sigma)."""
+    def minibatches(roll: Rollout, adv, ret, perm: torch.Tensor):
+        """The minibatches of the global permutation `perm`: this rank's
+        rows of each, gathered from the rollout, as num_mini_batches tuples
+        (obs, priv, actions, log_probs, values, adv, ret, mu, sigma)."""
         flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))  # noqa: E731
-        perm = torch.randperm(batch, generator=perm_gen, device=adv.device)
         rows, counts = minibatch_rows(perm)
         data = [torch.split(flat(x)[rows], counts) for x in (
             roll.obs, roll.priv_obs, roll.actions, roll.log_probs, roll.values, adv, ret,
@@ -383,11 +391,16 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         )]
         return [tuple(x[i] for x in data) for i in range(n_mb)]
 
-    def update_phase(ts: TrainState, roll: Rollout, adv, ret, perm_gen):
-        """num_learning_epochs x num_mini_batches updates over one shared
-        permutation of the global flattened batch, drawn from `perm_gen`;
-        returns the mean metrics."""
-        mbs = permute_batch(roll, adv, ret, perm_gen)
+    def permute_batch(roll: Rollout, adv, ret, perm_gen):
+        """The minibatches of one update phase: a permutation of the global
+        flattened batch drawn from `perm_gen`, then `minibatches`."""
+        perm = torch.randperm(batch, generator=perm_gen, device=adv.device)
+        return minibatches(roll, adv, ret, perm)
+
+    def update_on(ts: TrainState, roll: Rollout, adv, ret, perm: torch.Tensor):
+        """num_learning_epochs x num_mini_batches updates over the global
+        permutation `perm`; returns the mean metrics."""
+        mbs = minibatches(roll, adv, ret, perm)
         metrics_acc = None
         for _ in range(cfg.num_learning_epochs):
             for mb in mbs:
@@ -398,13 +411,30 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         n_updates = cfg.num_learning_epochs * n_mb
         return ts, {k: v / n_updates for k, v in metrics_acc.items()}
 
-    def train_iter(ts: TrainState, env_state, obs, priv_obs, gen):
-        env_state, obs, priv_obs, roll, infos = rollout_phase(ts, env_state, obs, priv_obs, gen)
-        adv, ret = compute_gae(ts, roll, priv_obs)
-        perm_gen = torch.Generator(device=obs.device)
+    def update_phase(ts: TrainState, roll: Rollout, adv, ret, perm_gen):
+        """`update_on` a permutation of the global flattened batch drawn
+        from `perm_gen`."""
+        perm = torch.randperm(batch, generator=perm_gen, device=adv.device)
+        return update_on(ts, roll, adv, ret, perm)
+
+    def draw_permutation(ts: TrainState, gen):
+        """The minibatch permutation of iteration `ts.iteration`: drawn over
+        the global flattened batch, on `gen`'s device, from a generator
+        seeded by `permutation_seed(perm_seed, ts.iteration)` (`perm_seed`
+        defaults to the seed of `gen`), the same on every rank."""
+        perm_gen = torch.Generator(device=gen.device)
         perm_gen.manual_seed(permutation_seed(
             gen.initial_seed() if perm_seed is None else perm_seed, ts.iteration))
-        ts, metrics = update_phase(ts, roll, adv, ret, perm_gen)
+        return torch.randperm(batch, generator=perm_gen, device=gen.device)
+
+    def iteration_body(ts: TrainState, env_state, obs, priv_obs, gen, perm: torch.Tensor):
+        """One training iteration on the minibatch permutation `perm`:
+        rollout, GAE, the update phase and the metrics; -> (env_state, obs,
+        priv_obs, metrics). It updates the parameters, Adam moments, count
+        and learning rate of `ts` in place and leaves `ts.iteration` alone."""
+        env_state, obs, priv_obs, roll, infos = rollout_phase(ts, env_state, obs, priv_obs, gen)
+        adv, ret = compute_gae(ts, roll, priv_obs)
+        ts, metrics = update_on(ts, roll, adv, ret, perm)
         stack = lambda f: torch.stack([getattr(tr, f) for tr in infos])  # noqa: E731
         (reward_sum, ep_term_sums, ep_reset_count, ep_len_sum, ep_reward_sum, nonfinite,
          level_sum) = all_reduce_sum([
@@ -420,14 +450,22 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
             ep_reward_sum=ep_reward_sum,
             nonfinite_resets=nonfinite,
             mean_terrain_level=level_sum / batch,
-            lr=ts.lr,
+            # a copy: the next iteration writes ts.lr in place
+            lr=ts.lr.clone(),
             action_std_mean=ts.net.std.detach().abs().mean(),
         )
+        return env_state, obs, priv_obs, metrics
+
+    def train_iter(ts: TrainState, env_state, obs, priv_obs, gen):
+        perm = draw_permutation(ts, gen)
+        env_state, obs, priv_obs, metrics = iteration_body(ts, env_state, obs, priv_obs, gen, perm)
         ts.iteration += 1
         return ts, env_state, obs, priv_obs, metrics
 
     return {
         "train_iter": train_iter,
+        "iteration_body": iteration_body,
+        "draw_permutation": draw_permutation,
         "rollout_phase": rollout_phase,
         "compute_gae": compute_gae,
         "update_phase": update_phase,

@@ -431,6 +431,10 @@ class HumanoidEnv:
         """The global env index of each of this env's envs, in order."""
         return torch.arange(self.env_offset, self.env_offset + self.num_envs)
 
+    def generators(self) -> list:
+        """The generators that `step` and `init_state` draw from."""
+        return [self.gen]
+
     # ------------------------------------------------------------------ #
 
     def step(self, state: EnvState, policy_action: torch.Tensor):

@@ -68,6 +68,10 @@ class JointEnv:
         base = np.cumsum([0] + [e.num_envs_global for e in self.envs[:-1]]).tolist()
         return torch.cat([b + e.global_env_ids() for b, e in zip(base, self.envs)])
 
+    def generators(self) -> list:
+        """The sub-envs' generators, in order."""
+        return [g for e in self.envs for g in e.generators()]
+
     def init_state(self) -> list:
         """The joint state: each sub-env's initial state, in order."""
         return [e.init_state() for e in self.envs]

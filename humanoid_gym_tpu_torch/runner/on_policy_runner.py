@@ -4,7 +4,13 @@ rank of an env-sharded run.
 Port of humanoid_gym_tpu/runner/on_policy_runner.py: the same scalar names
 on TensorBoard and in metrics.jsonl, the same console line, a checkpoint
 every save_interval, resumable. The per-iteration work (rollout + GAE +
-update) is `algo.ppo.make_train_iter`; the runner adds no arithmetic.
+update) is `algo.ppo.make_train_iter`; the runner adds no arithmetic. On a
+CUDA device at world size 1 it runs as one CUDA graph
+(`algo.capture.CapturedTrainIter`, the JAX runner's `jax.jit(...,
+donate_argnums=(0, 1))`), captured at the first iteration of `learn`, so a
+checkpoint loaded before it is in place; a `load` drops the graph and the
+next `learn` captures anew. On the CPU and under several ranks the
+iteration runs eagerly.
 
 Under env sharding the env's group (`env.group`, from `registry.make_env(
 ..., group=)`) makes this process one rank: the parameters are broadcast
@@ -47,8 +53,9 @@ from typing import Optional
 
 import torch
 
+from ..algo.capture import CapturedTrainIter, compiled_train_iter
 from ..algo.networks import actor_critic_from_cfg, dtype_name, resolve_compute_dtype
-from ..algo.ppo import PPOConfig, init_train_state, make_train_iter
+from ..algo.ppo import PPOConfig, init_train_state
 from ..envs.state import EnvState
 from ..parallel.mesh import replicate
 from ..parallel.multihost import broadcast_str, rank_seed, shard_path
@@ -183,8 +190,8 @@ class OnPolicyRunner:
 
         # env state + first obs (reference on_policy_runner.py:91 env.reset())
         self.env_state, self.obs, self.priv_obs = env.reset_all()
-        self._train_iter = make_train_iter(env, self.net, algo_cfg, self.num_envs, self.group,
-                                           perm_seed=self.seed)
+        self._train_iter = compiled_train_iter(env, self.net, algo_cfg, self.num_envs, self.group,
+                                               perm_seed=self.seed)
 
         # every rank keeps rank 0's checkpoint directory (each would name a
         # timestamped one by its own clock); the log sinks are rank 0's
@@ -435,14 +442,17 @@ class OnPolicyRunner:
     def load(self, path: str, load_optimizer: bool = True):
         payload = torch.load(path, map_location="cpu", weights_only=True)
         self._honor_ckpt_dtype(payload.get("compute_dtype"))
+        if isinstance(self._train_iter, CapturedTrainIter):
+            self._train_iter.reset()
+        # into the train state's own tensors, which a captured iteration reads
         saved, ts = payload["train_state"], self.train_state
         ts.net.load_state_dict(saved["net"])
         if load_optimizer:
             for mine, theirs in ((ts.opt_mu, saved["opt_mu"]), (ts.opt_nu, saved["opt_nu"])):
                 for k in mine:
                     mine[k].copy_(theirs[k])
-            ts.opt_count = int(saved["opt_count"])
-        ts.lr = saved["lr"].to(self.device)
+            ts.opt_count.fill_(int(saved["opt_count"]))
+        ts.lr.copy_(saved["lr"])
         ts.iteration = int(saved["iteration"])
         self.current_learning_iteration = int(payload.get("iter", 0))
         world = 1 if self.group is None else self.group.world

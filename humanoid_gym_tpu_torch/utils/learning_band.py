@@ -2,7 +2,8 @@
 to the JAX package's bands (tests/test_learning_regression.py:80-90).
 
 `learning_curve` trains `n` XBot-L envs for `iters` iterations of T steps
-through `make_train_iter` and returns the metrics the bands read;
+through `compiled_train_iter` (one CUDA graph an iteration on the card,
+as the JAX test jit-compiles it) and returns the metrics the bands read;
 `band_misses` lists the bands a curve misses. The bands were pinned on the
 JAX package (seed 5, 16 envs, T = 60, 12 iterations: late step reward
 0.0132, late episode length 138, value loss 0.066 -> 0.015); each lower
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from ..algo.networks import actor_critic_from_cfg
-from ..algo.ppo import PPOConfig, init_train_state, make_train_iter
+from ..algo.capture import compiled_train_iter
+from ..algo.ppo import PPOConfig, init_train_state
 from ..config.xbotl import XBotLCfg, XBotLCfgPPO
 from ..envs import make_env
 
@@ -39,7 +41,7 @@ def learning_curve(device="cpu", solver="apgd", seed=5, n=16, T=60, iters=12) ->
     acfg.num_steps_per_env = T
     ts = init_train_state(net, acfg.learning_rate)
     state, obs, priv = env.reset_all()
-    train_iter = make_train_iter(env, net, acfg, n, perm_seed=seed)
+    train_iter = compiled_train_iter(env, net, acfg, n, perm_seed=seed)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     step_rew, ep_len, vloss, nonfinite = [], [], [], 0

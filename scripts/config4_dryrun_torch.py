@@ -4,7 +4,10 @@ scripts/config4_dryrun.py).
 
 `humanoid_joint_deploy` (8,192 XBot-L + 8,192 XBot-S envs, the recipe's
 nets with the estimator head) through the registry's `make_env` and
-`make_train_iter`: one warm-up iteration, then one timed one with the mega
+`make_train_iter` (on the card at one rank as one CUDA graph,
+`algo.capture.compiled_train_iter`, the JAX script's `jax.jit`; the graph
+is captured in the warm-up iteration, and its memory pool is in the
+peak): one warm-up iteration, then one timed one with the mega
 launch counters zeroed just before it and read just after. The JAX script
 ran T = 4 on 8 emulated CPU devices and projected T = 60; the card holds
 the production horizon itself, so `--horizon` defaults to 60 there (8 on
@@ -98,7 +101,8 @@ def run_rank(envs: int, horizon: int, device, group=None) -> dict:
 
     from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
-    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
+    from humanoid_gym_tpu_torch.algo.capture import compiled_train_iter
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
     from humanoid_gym_tpu_torch.parallel.mesh import replicate
     from humanoid_gym_tpu_torch.physics.mega import mega_kernel_launch
     from humanoid_gym_tpu_torch.utils.platform import synchronize
@@ -122,7 +126,7 @@ def run_rank(envs: int, horizon: int, device, group=None) -> dict:
     n_local = env.num_envs
     obs = torch.zeros((n_local, ec.num_observations), device=device)
     priv = torch.zeros((n_local, ec.num_privileged_obs), device=device)
-    train_iter = make_train_iter(env, net, algo, envs, group, perm_seed=0)
+    train_iter = compiled_train_iter(env, net, algo, envs, group, perm_seed=0)
     gen = torch.Generator(device=device)
     gen.manual_seed(1 + (group.rank if group is not None else 0))
     synchronize(device)

@@ -280,7 +280,7 @@ def test_phase22_is_wired(smoke):
     assert 'for task in ("humanoid_ppo", TERRAIN_TASK, JOINT_TASK):' in src
     assert smoke.JOINT_TASK == "humanoid_joint_ppo"
     assert "\n 22. the flat recipe trained from scratch" in smoke.__doc__
-    assert "\n 24. one JSON line with a record per kernel" in smoke.__doc__
+    assert "\n 25. one JSON line with a record per kernel" in smoke.__doc__
 
 
 def test_phase23_is_wired(smoke):
@@ -349,3 +349,44 @@ def test_phase23_misses_a_wrong_law(smoke, monkeypatch):
         smoke._phase23_laws("cpu card", "cpu", n_envs=256)
     assert "initial joint pose: joint offset" in str(err.value)
     assert "reset pose and level: reset joint offset" in str(err.value)
+
+
+def test_phase24_is_wired(smoke):
+    """Phase 24 runs after phase 23 and before the kernels line, which it
+    leaves as it was: the captured iteration against the eager one for
+    the flat, terrain and joint tasks at 4096 envs and T = 60, 3 iterations
+    a side, a difference above 1e-5 relative failing the run, the launch
+    counts T (joint: 2 T) an iteration on both sides. The main path of
+    phase 5 replays the captured iteration."""
+    src = open(SCRIPT).read()
+    order = [src.index(s) for s in (
+        "    _phase23_laws(card, dev)", "    _phase24_captured(card, dev)",
+        'print(json.dumps({"kernels"')]
+    assert order == sorted(order)
+    assert src.count('route="cuda"') == 5 and "captured_launches" not in src
+    assert smoke.CAPTURE_TASKS == ("humanoid_ppo", "humanoid_ppo_terrain_robust",
+                                   "humanoid_joint_ppo")
+    assert (smoke.CAPTURE_ITERS, smoke.CAPTURE_REL_TOL, smoke.N_ENVS, smoke.T_STEPS) == (
+        3, 1e-5, 4096, 60)
+    assert "want[own] = (2 if joint else 1) * T_STEPS * CAPTURE_ITERS" in src
+    assert 'r["launches_eager"] != want or r["launches_replayed"] != want' in src
+    assert 'if r["worst_rel"] > CAPTURE_REL_TOL:' in src
+    assert "train_iter = CapturedTrainIter(env, net, pcfg, N_ENVS)" in src
+    assert "\n 24. the training iteration captured as one CUDA graph" in smoke.__doc__
+
+
+def test_phase24_names_every_compared_tensor(smoke):
+    """The names phase 24 reports a difference under follow tensor_leaves'
+    order over a joint env's list state."""
+    import torch
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo.capture import tensor_leaves
+
+    env, _ = registry.make_env("humanoid_joint_ppo", num_envs=2, device="cpu", seed=0)
+    tree = env.reset_all()
+    names = smoke._leaf_names(tree, "x")
+    assert len(names) == len(tensor_leaves(tree)) == len(set(names))
+    assert "x[0][0].phys.qpos" in names and "x[0][1].phys.qpos" in names
+    assert names[-2:] == ["x[1]", "x[2]"]
+    assert all(isinstance(t, torch.Tensor) for t in tensor_leaves(tree))

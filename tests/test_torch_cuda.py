@@ -465,3 +465,25 @@ def test_captured_entry_replays_equal_eager_steps(dev, solver):
     got = roll(graph)
     assert MG.mega_kernel_launch.launches == n0
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain_robust",
+                                  "humanoid_joint_ppo"])
+def test_captured_train_iter_equals_eager(dev, task):
+    """The training iteration captured as one CUDA graph against the eager
+    one at 16 envs, T = 8, solver mega (chip_smoke.py phase 24's comparison
+    at a small size): 3 iterations a side from one snapshot, bit-equal, the
+    same mega launches on each side, counted from the replays."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    r = smoke._captured_against_eager(task, dev, n_envs=16, horizon=8, iters=3)
+    want = [0] * 5
+    want[1 if "terrain" in task else 0] = (2 if "joint" in task else 1) * 8 * 3
+    assert r["launches_eager"] == r["launches_replayed"] == want
+    assert r["worst_rel"] == 0.0, r["where"]

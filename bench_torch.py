@@ -3,8 +3,9 @@
 
 Runs the training iteration of `algo.ppo.make_train_iter` (a T-step
 rollout through the 1 kHz contact physics, GAE, the minibatched PPO update),
-as one CUDA graph on the card at world size 1 (`algo.capture`, bench.py's
-`jax.jit`; captured in the first warm-up iteration), eagerly elsewhere,
+captured on the card (`algo.capture`, bench.py's `jax.jit`: one CUDA graph
+at world size 1, graphs cut at each all-reduce under several ranks;
+captured in the first warm-up iteration), eagerly on the CPU,
 and reports value = T * N / iteration time, the runner's Perf/total_fps.
 vs_baseline is reported against bench.py's nominal 60,000 steps/s (an Isaac
 Gym humanoid-gym figure on a desktop GPU at 4096 envs), and mfu is the
@@ -70,7 +71,7 @@ def measure(task: str, num_envs: int, iters: int, solver: str, sync: bool, devic
     from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
     from humanoid_gym_tpu_torch.algo.capture import compiled_train_iter
-    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, check_minibatch_split, init_train_state
     from humanoid_gym_tpu_torch.parallel.mesh import replicate
     from humanoid_gym_tpu_torch.parallel.multihost import rank_seed
     from humanoid_gym_tpu_torch.physics import mega as MG
@@ -101,6 +102,7 @@ def measure(task: str, num_envs: int, iters: int, solver: str, sync: bool, devic
     def fetch(metrics, event=None):
         if event is not None:
             event.synchronize()
+        check_minibatch_split(metrics)
         return float(metrics["value_loss"])
 
     t0 = time.perf_counter()

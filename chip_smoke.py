@@ -87,15 +87,23 @@ script exits non-zero):
      T=60, solver mega, as 2 ranks x 2048 envs over gloo, each started by
      this script with the launcher's variables and going through
      `registry.make_env(..., group=)` -> `OnPolicyRunner.learn` on the kernel
-     library of phase 2 (warm-up, 2 timed iterations): 60 mega launches per
-     rank per iteration, finite losses, parameters, Adam moments, learning
-     rate and logged metrics bit-equal across the ranks after every
-     iteration (compared through the group), one all-reduce per minibatch
-     (timed, with its bytes); the sharded compute_gae + update_phase of one
-     fixed 4096-env rollout within SHARDED_UPDATE_TOL of one process on it;
-     then 2 fresh ranks restore the final checkpoint's env shards exactly
-     and train on, beside 1 nccl rank at world size 1 (an all-reduce and a
-     broadcast on the card, one iteration);
+     library of phase 2, every iteration a replay of the runner's capture,
+     cut at each of its RANK_ALLREDUCES all-reduces (warm-up with the
+     capture, 2 timed iterations): 60 mega launches per rank per iteration
+     counted from the replays, 11 all-reduces, finite losses, parameters,
+     Adam moments, learning rate and logged metrics bit-equal across the
+     ranks after every iteration (compared through the group), one
+     all-reduce per minibatch (timed, with its bytes); the sharded
+     compute_gae + update_phase of one fixed 4096-env rollout within
+     SHARDED_UPDATE_TOL of one process on it; the captured iteration
+     against the eager one on the two ranks (phase 24's comparison, 3
+     iterations a side from one snapshot, bit-equal or within
+     CAPTURE_REL_TOL with the tensor named, the ranks bit-equal), at T=60
+     and with the command curriculum on at T=CUT_T_STEPS (T more cuts),
+     with the iteration ms per rank eager and replayed and the capture
+     seconds; then 2 fresh ranks restore the final checkpoint's env shards
+     exactly and train on, captured anew, beside 1 nccl rank at world size
+     1 (an all-reduce and a broadcast on the card, one iteration);
  14. play on the card: `play(get_args([...]))` of scripts/play_torch.py
      (HGT_PLAY_VIDEO=0) on a humanoid_ppo checkpoint whose actor is the
      walk demo's, 1 env, 1200 policy steps at vx 0.5: the counts zeroed
@@ -185,11 +193,10 @@ script exits non-zero):
  25. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
-Phases 5, 5c, 8, 9, 11, 13 (its one-rank nccl run), 15, 17, 19, 20
-(`dryrun_multichip(1)`), 21 and 22 train through entry points that run the
-captured iteration on the card at world size 1, as the JAX package
-jit-compiles them; phase 13's two gloo ranks and phase 16's stages run
-eagerly.
+Phases 5, 5c, 8, 9, 11, 13, 15, 17, 19, 20 (`dryrun_multichip(1)`), 21
+and 22 train through entry points that run the captured iteration on the
+card (phase 13's two gloo ranks as graphs cut at each all-reduce), as the
+JAX package jit-compiles them; phase 16's stages run eagerly.
 
 It imports nothing of JAX. Without a CUDA card, or outside a checkout of
 the repo, it exits non-zero and prints no result.
@@ -2201,16 +2208,21 @@ def _leaf_names(tree, prefix):
     return [prefix]
 
 
-def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAPTURE_ITERS):
-    """`task` at n_envs envs, T = horizon, solver mega: from one snapshot
-    (train state, env state, obs, every generator), `iters` iterations of
-    the eager `make_train_iter`, then `iters` of `CapturedTrainIter`, with
-    the launch counters zeroed before each side; then `iters` more replays
-    timed and one under torch.profiler. Returns the record: the largest
-    relative difference and the tensor it is in, the launches of each side,
-    the capture seconds, the iteration ms (CUDA events and host clock) of
-    each side, the replay's device busy ms, the profiler's count of
-    hgt_mega_kernel in one replay and the peak memory of each side."""
+def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAPTURE_ITERS,
+                            group=None, curriculum=None):
+    """`task` at n_envs (global) envs, T = horizon, solver mega, on this
+    rank of `group` (None: one process), the command curriculum forced to
+    `curriculum` where given: from one snapshot (train state, env state,
+    obs, every generator), `iters` iterations of the eager
+    `make_train_iter`, then `iters` of `CapturedTrainIter`, with the launch
+    counters zeroed before each side; then `iters` more replays timed and
+    one under torch.profiler. Returns the record: the largest relative
+    difference and the tensor it is in, the launches of each side, the
+    capture seconds, the iteration ms (CUDA events and host clock) of each
+    side, the replay's device busy ms, the profiler's count of
+    hgt_mega_kernel in one replay, the peak memory of each side, and under
+    a group the capture's cuts, the all-reduces of a timed replay and the
+    digest of the final train state."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2224,16 +2236,23 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
     )
     from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
     from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
+    from humanoid_gym_tpu_torch.parallel import rank_seed, replicate
 
-    env, cfg = registry.make_env(task, num_envs=n_envs, cfg_overrides=_solver_mega, device=dev,
-                                 seed=0)
+    def overrides(c):
+        _solver_mega(c)
+        if curriculum is not None:
+            c.commands.curriculum = curriculum
+
+    env, cfg = registry.make_env(task, num_envs=n_envs, cfg_overrides=overrides, device=dev,
+                                 seed=0, group=group)
     tcfg = registry.get_task(task).make_train_cfg()
     net = actor_critic_from_cfg(cfg.env, tcfg.policy, seed=0).to(dev)
+    replicate(list(net.parameters()), group)
     pc = PPOConfig.from_cfg(tcfg.algorithm)
     pc.num_steps_per_env = horizon
     ts = init_train_state(net, pc.learning_rate)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
+    gen.manual_seed(rank_seed(1, group))
     generators = [gen, *env.generators()]
     snap_inputs = clone_tree(env.reset_all())
     snap_ts = [t.detach().clone() for t in train_state_tensors(ts)]
@@ -2276,8 +2295,8 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
         launches = [a - b for a, b in zip(launch_counts(), before)]
         return res, launches, torch.cuda.max_memory_allocated() / 2**30
 
-    (eager, e_ev, e_host, _), e_launch, e_peak = side(make_train_iter(env, net, pc, n_envs))
-    captured = CapturedTrainIter(env, net, pc, n_envs)
+    (eager, e_ev, e_host, _), e_launch, e_peak = side(make_train_iter(env, net, pc, n_envs, group))
+    captured = CapturedTrainIter(env, net, pc, n_envs, group)
     (got, c_ev, c_host, inputs), c_launch, c_peak = side(captured)
     names += metric_names
     worst, where = 0.0, None
@@ -2287,7 +2306,9 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
             rel = diff / max(float(b.double().abs().max()), 1e-30) if diff else 0.0
             if rel > worst:
                 worst, where = rel, f"iteration {i + 1}, {name}"
+    reduced = group.collectives if group is not None else 0
     _, r_ev, r_host, inputs = timed(captured, inputs, iters)
+    reduced = (group.collectives - reduced) / iters if group is not None else 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, *inputs, _ = captured(ts, *inputs, gen)
         torch.cuda.synchronize()
@@ -2308,6 +2329,9 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
            "replay_busy_by_class_ms": {k: v / 1e3 for k, v in by_class.items()},
            "replay_kernels": n_kernels, "mega_in_trace": in_trace,
            "peak_gib_eager": e_peak, "peak_gib_captured": c_peak}
+    if group is not None:
+        rec.update(cuts=len(captured.graph.buffers), allreduces_per_replay=reduced,
+                   train_digest=_digest(_train_state_tensors(ts)))
     captured.reset()
     del captured, got, eager, inputs
     torch.cuda.empty_cache()
@@ -2710,6 +2734,10 @@ def _phase9_terrain_path(card):
 RANKS = 2
 RANK_TIMED_ITERS = 2  # after one warm-up iteration; the final checkpoint is model_3.ckpt
 RANK_TIMEOUT_S = 420
+# the all-reduces of a sharded flat iteration, each a cut of its capture:
+# 2 for the advantage statistics, 2 epochs x 4 minibatches, 1 for the
+# metrics; with the command curriculum on, one more a policy step
+RANK_ALLREDUCES = 11
 # the sharded update against one process: float32 nets at the recipe's
 # learning rate (1e-5), 8 Adam steps; the sums of 245,760 rows run in
 # another order on two ranks, and an element of the gradient near Adam's eps
@@ -2755,16 +2783,20 @@ def _same_on_every_rank(text: str, group) -> bool:
 
 def _phase13_rank(work: str, role: str) -> int:
     """One rank of phase 13, started by `_phase13_ranks` with the launcher's
-    variables. Roles: "train" (2 gloo ranks: warm-up, 2 timed iterations,
-    the sharded update against one process), "resume" (2 gloo ranks: load
-    the final checkpoint's shards, one more iteration) and "nccl" (1 rank,
-    world size 1: one iteration). Writes its numbers to
+    variables. Roles: "train" (2 gloo ranks: warm-up with the capture, 2
+    timed replayed iterations, the sharded update against one process, the
+    captured iteration against the eager one, flat at T = 60 and with the
+    command curriculum on at T = CUT_T_STEPS), "resume" (2 gloo ranks: load
+    the final checkpoint's shards, one more iteration, captured anew) and
+    "nccl" (1 rank, world size 1: one iteration). Every `learn` iteration
+    must be a replay of the runner's capture. Writes its numbers to
     <work>/<role>_rank<r>.json."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo.capture import CapturedTrainIter
     from humanoid_gym_tpu_torch.parallel import all_reduce_sum, make_env_group
     from humanoid_gym_tpu_torch.physics import cuda_build, mega as MG, solve as SV
     from humanoid_gym_tpu_torch.physics.kinematics import use_full_f32_matmul
@@ -2787,6 +2819,11 @@ def _phase13_rank(work: str, role: str) -> int:
             raise AssertionError(f"rank {group.rank}: not {N_ENVS // group.world} of {N_ENVS} "
                                  f"envs at T={T_STEPS}")
         counters = (MG.mega_kernel_launch, SV.fused_solve, SV.fused_dense_solve, SV.apgd_solve_kernel)
+        algo = tcfg.algorithm
+        want_reduces = 0 if group.world == 1 else (
+            2 + algo.num_learning_epochs * algo.num_mini_batches + 1)
+        if group.world > 1 and want_reduces != RANK_ALLREDUCES:
+            raise AssertionError(f"the recipe's iteration has {want_reduces} all-reduces")
 
         def one_iteration(runner):
             """learn(1) with the counters zeroed just before and read just after."""
@@ -2798,12 +2835,16 @@ def _phase13_rank(work: str, role: str) -> int:
             t = time.perf_counter()
             runner.learn(1)
             torch.cuda.synchronize()
+            it = runner._train_iter
+            if not isinstance(it, CapturedTrainIter) or it.graph is None:
+                raise AssertionError(f"rank {group.rank}: learn ran no captured iteration")
             rec = {"wall_ms": (time.perf_counter() - t) * 1e3,
                    "iter_ms": runner.last_scalars["Perf/iter_time"] * 1e3,
                    "mega": MG.mega_kernel_launch.launches,
                    "other_launches": MG.mega_kernel_launch.terrain_launches
                    + sum(c.launches for c in counters[1:]),
                    "collectives": group.collectives - n0,
+                   "cuts": len(it.graph.buffers), "capture_s": it.capture_seconds,
                    "scalars": {k: v for k, v in runner.last_scalars.items()
                                if not k.startswith("Perf/")}}
             for k in ("Loss/value_function", "Loss/surrogate", "Loss/entropy", "Loss/kl",
@@ -2813,6 +2854,9 @@ def _phase13_rank(work: str, role: str) -> int:
             if rec["mega"] != T_STEPS or rec["other_launches"]:
                 raise AssertionError(f"rank {group.rank}: {rec['mega']} mega launches "
                                      f"(and {rec['other_launches']} others) in one iteration")
+            if rec["collectives"] != want_reduces or rec["cuts"] != want_reduces:
+                raise AssertionError(f"rank {group.rank}: {rec['collectives']} all-reduces and "
+                                     f"{rec['cuts']} cuts in one iteration, not {want_reduces}")
             rec["train_state_equal"] = _same_on_every_rank(
                 _digest(_train_state_tensors(runner.train_state)), group)
             rec["metrics_equal"] = _same_on_every_rank(
@@ -2883,6 +2927,19 @@ def _phase13_rank(work: str, role: str) -> int:
             out.update(_sharded_update_check(group, cfg, tcfg))
             if not out["sharded_equal"] or out.get("sharded_vs_single", 0.0) > SHARDED_UPDATE_TOL:
                 raise AssertionError(f"rank {group.rank}: sharded update: {out}")
+
+            # the captured iteration against the eager one on the two ranks,
+            # flat and with the command curriculum on (one cut more a step)
+            del runner, env
+            torch.cuda.empty_cache()
+            for key, horizon, curriculum in (("captured", T_STEPS, None),
+                                             ("curriculum", CUT_T_STEPS, True)):
+                t = time.perf_counter()
+                rec = _captured_against_eager("humanoid_ppo", group.device, horizon=horizon,
+                                              group=group, curriculum=curriculum)
+                rec["ranks_equal"] = _same_on_every_rank(rec.pop("train_digest"), group)
+                rec["seconds"] = time.perf_counter() - t
+                out[key] = rec
     finally:
         with open(os.path.join(work, f"{role}_rank{group.rank}.json"), "w") as f:
             json.dump(out, f)
@@ -2943,9 +3000,11 @@ def _sharded_update_check(group, cfg, tcfg):
 def _phase13_ranks(card):
     """Phase 13: `humanoid_ppo` at 4096 envs, T=60, solver mega, as 2 ranks
     x 2048 envs sharing the card over gloo, each through registry.make_env
-    -> OnPolicyRunner.learn; then 2 fresh ranks resuming from the shards
-    beside 1 nccl rank at world size 1. Returns the launches per rank of
-    the timed iterations."""
+    -> OnPolicyRunner.learn, captured (graphs cut at each all-reduce); the
+    captured iteration against the eager one on the two ranks, flat and
+    with the command curriculum on; then 2 fresh ranks resuming from the
+    shards beside 1 nccl rank at world size 1. Returns the launches per
+    rank of the timed iterations."""
     from humanoid_gym_tpu_torch.parallel.launch import RankJob
 
     argv = [sys.executable, os.path.abspath(__file__), "--phase13-rank"]
@@ -2984,11 +3043,14 @@ def _phase13_ranks(card):
                                   for it in its[r]) for r in range(RANKS))
     _log(f"phase 13 two ranks: humanoid_ppo {N_ENVS} envs as {RANKS} gloo ranks x "
          f"{N_ENVS // RANKS} on one card, T={T_STEPS} solver mega, through registry.make_env -> "
-         f"OnPolicyRunner.learn | env built in {ms(t['env_build_s'] for t in train)} s, warm-up "
+         f"OnPolicyRunner.learn, replays of its capture cut at each all-reduce "
+         f"({train[0]['warmup']['cuts']} cuts; capture "
+         f"{ms(t['warmup']['capture_s'] for t in train)} s) | env built in "
+         f"{ms(t['env_build_s'] for t in train)} s, warm-up "
          f"{ms(t['warmup_s'] for t in train)} s | iteration ms per rank (learn(1) with its "
          f"checkpoint; dispatch to dispatch) {per_rank} | mega launches per rank per iteration "
-         f"{[it['mega'] for t in its for it in t]} | all-reduces per iteration {sorted(col)}, one "
-         f"per minibatch of {train[0]['allreduce_bytes']} bytes in "
+         f"{[it['mega'] for t in its for it in t]} (from the replays) | all-reduces per iteration "
+         f"{sorted(col)}, one per minibatch of {train[0]['allreduce_bytes']} bytes in "
          f"{train[0]['allreduce_ms']:.3f} ms | train state, Adam moments, lr and logged metrics "
          f"bit-equal across ranks after every iteration | value_loss "
          f"{its[0][-1]['scalars']['Loss/value_function']:.4g} | peak mem "
@@ -3010,9 +3072,43 @@ def _phase13_ranks(card):
          f"the update moved a parameter by up to {train[0]['params_moved']:.3e}), ranks bit-equal | "
          f"gae + update ms sharded {ms(t['sharded_update_ms'] for t in train)}, one process "
          f"{train[0]['single_update_ms']:.1f} | {card}")
+    for horizon, key, reduces in ((T_STEPS, "captured", RANK_ALLREDUCES),
+                                  (CUT_T_STEPS, "curriculum", RANK_ALLREDUCES + CUT_T_STEPS)):
+        recs = [t[key] for t in train]
+        want = [horizon * CAPTURE_ITERS, 0, 0, 0, 0]
+        worst = max(recs, key=lambda x: x["worst_rel"])
+        _log(f"phase 13 captured vs eager: humanoid_ppo {N_ENVS} envs as {RANKS} gloo ranks x "
+             f"{N_ENVS // RANKS}, T={horizon}, command curriculum "
+             f"{'on' if key == 'curriculum' else 'off'}, {CAPTURE_ITERS} iterations a side from "
+             f"one snapshot | capture s per rank {ms(x['capture_s'] for x in recs)} | iteration "
+             f"ms per rank, eager (events) "
+             + "; ".join(ms(x["eager_ms"]) for x in recs) + " | replayed (events) "
+             + "; ".join(ms(x["replay_ms"]) for x in recs) + " (host "
+             + "; ".join(ms(x["replay_host_ms"]) for x in recs) + ") | one profiled replay per "
+             f"rank: device busy {ms(x['replay_busy_ms'] for x in recs)} ms | cuts "
+             f"{[x['cuts'] for x in recs]}, all-reduces per replay "
+             f"{[x['allreduces_per_replay'] for x in recs]} (= {reduces}) | mega launches a side "
+             f"eager {[x['launches_eager'][0] for x in recs]}, replayed "
+             f"{[x['launches_replayed'][0] for x in recs]} (= {horizon} x {CAPTURE_ITERS}) | "
+             f"largest difference {worst['worst_rel']:.3g} relative"
+             + (f" ({worst['where']})" if worst["where"] else " (bit-equal)")
+             + f", ranks bit-equal {all(x['ranks_equal'] for x in recs)} | "
+             f"{ms(x['seconds'] for x in recs)} s | {card}")
+        for r, x in enumerate(recs):
+            if x["launches_eager"] != want or x["launches_replayed"] != want:
+                raise AssertionError(f"phase 13 {key}: rank {r} launches eager "
+                                     f"{x['launches_eager']}, replayed {x['launches_replayed']}")
+            if x["cuts"] != reduces or x["allreduces_per_replay"] != reduces:
+                raise AssertionError(f"phase 13 {key}: rank {r} has {x['cuts']} cuts and "
+                                     f"{x['allreduces_per_replay']} all-reduces a replay")
+            if x["worst_rel"] > CAPTURE_REL_TOL or not x["ranks_equal"]:
+                raise AssertionError(f"phase 13 {key}: rank {r} captured against eager "
+                                     f"{x['worst_rel']:.3g} relative at {x['where']}, ranks "
+                                     f"equal {x['ranks_equal']}")
     _log(f"phase 13 resume: {RANKS} fresh gloo ranks read model_{final}.ckpt.envshard0-"
          f"{RANKS - 1}: env state, obs and train state equal the saved ones, iteration "
-         f"{final} ok ({res[0]['iterations'][0]['wall_ms']:.1f} ms); nccl at world size 1: "
+         f"{final} ok, replayed from a capture of the restored shards "
+         f"({res[0]['iterations'][0]['wall_ms']:.1f} ms); nccl at world size 1: "
          f"all-reduce and broadcast on the card, one iteration of {N_ENVS} envs in "
          f"{one['iterations'][0]['wall_ms']:.1f} ms with {one['iterations'][0]['mega']} mega "
          f"launches | {second_s:.1f} s | {card}")

@@ -10,8 +10,9 @@ CapturedStep(step, net, state, obs, priv, generator): a step captured as
     one CUDA graph, the port's counterpart of `jax.jit`.
 dryrun_multichip(n, device=None): one full PPO training iteration (rollout,
     GAE, minibatch updates) with the env axis sharded over n ranks of
-    `parallel/` and the parameters replicated, on tiny shapes (at one rank
-    on the card, captured as one CUDA graph, `algo.capture`).
+    `parallel/` and the parameters replicated, on tiny shapes (on the card
+    captured, `algo.capture`: one CUDA graph at one rank, graphs cut at
+    each all-reduce under several).
 
     python graft_entry_torch.py                 # on the card: capture entry()'s step, replay it
     python graft_entry_torch.py --device cpu    # the same step, eager, on the CPU
@@ -151,7 +152,7 @@ def _dryrun_rank(work: str, device_type: str) -> int:
     from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
     from humanoid_gym_tpu_torch.algo.capture import compiled_train_iter
-    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, check_minibatch_split, init_train_state
     from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
     from humanoid_gym_tpu_torch.parallel.mesh import make_env_group, replicate
     from humanoid_gym_tpu_torch.parallel.multihost import rank_seed
@@ -182,6 +183,7 @@ def _dryrun_rank(work: str, device_type: str) -> int:
         gen.manual_seed(rank_seed(1, group))
         train_iter = compiled_train_iter(env, net, algo, num_envs, group, perm_seed=0)
         ts, state, obs, priv, metrics = train_iter(ts, state, obs, priv, gen)
+        check_minibatch_split(metrics)
         out = {
             "rank": group.rank,
             "value_loss": float(metrics["value_loss"]),

@@ -1,5 +1,5 @@
-"""The PPO training iteration as one CUDA graph: the port's counterpart of
-`jax.jit(make_train_iter(...), donate_argnums=(0, 1))`.
+"""The PPO training iteration as CUDA graphs: the port's counterpart of
+`jax.jit(make_train_iter(...), donate_argnums=(0, 1))`, at every world size.
 
 `CapturedTrainIter(env, net, cfg, num_envs, group=None, perm_seed=None)`
 takes `make_train_iter`'s arguments and is called as its train_iter is:
@@ -7,9 +7,17 @@ takes `make_train_iter`'s arguments and is called as its train_iter is:
 metrics). Its first call captures one whole iteration of
 `make_train_pieces`'s `iteration_body` (the T env steps with their kernel
 launches, GAE, the advantage normalisation, the minibatch updates with
-their backward passes and Adam) as one CUDA graph; every call, the first
-included, replays it:
+their backward passes and Adam); every call, the first included, replays
+it:
 
+- Cuts. At world size 1 no collective runs and the iteration is one CUDA
+  graph. Under several ranks each `all_reduce_sum` (the advantage
+  statistics, each minibatch's gradients, the metrics, and with the
+  command curriculum on one a step) cuts the capture (`CutGraphs`): the
+  graph recorded so far ends with the packing of the all-reduce's buffer,
+  the next begins in the same memory pool, and a replay runs graph 0,
+  all-reduce, graph 1, ... in the order of capture. The flat recipe has 11
+  cuts an iteration (2 + 2 epochs x 4 minibatches + 1).
 - Warm-up. Before the capture the iteration runs once on a side stream
   (the kernel library loads, cuBLAS and autograd make their handles and
   streams), and then everything it changed is put back: the parameters,
@@ -17,8 +25,9 @@ included, replays it:
   priv_obs, and the state of every generator the iteration draws from. The
   warm-up does not move the training trajectory.
 - Generators. `gen` (the action noise) and the env's own (`env.generators()`,
-  one per sub-env of a joint env) are registered with the graph, so each
-  replay draws the next numbers of each stream, as an eager iteration would.
+  one per sub-env of a joint env) are registered with every graph, so each
+  replay draws the next numbers of each stream, as an eager iteration would,
+  also where the draws of one iteration spread over several graphs.
 - Donation. The env state, obs and priv_obs live in static tensors: the
   graph reads them and, at its end, overwrites them with the new ones. The
   returned env state, obs and priv_obs are those tensors, valid until the
@@ -31,27 +40,26 @@ included, replays it:
   (`draw_permutation`, the eager iteration's numbers) into a static index
   tensor that the graph reads.
 - The metrics are copied after each replay, so a caller may keep them.
-- Launch counts. The kernel wrappers count launches on the host, so they
-  count the warm-up's launches and the capture's recording only; both are
-  taken back, and each replay adds the launches the capture recorded.
+- Counts. The kernel wrappers count launches, and the group its
+  collectives and their bytes, on the host, so they count the warm-up and
+  the recording; both are taken back, each replay adds the launches the
+  capture recorded, and each all-reduce between two graphs counts itself.
 
 There is no fallback: a capture or a replay that fails raises, and on a
-CPU device or under several ranks the constructor raises.
-`compiled_train_iter` picks the captured iteration on the card at world
-size 1 and the eager one elsewhere (under several ranks the command
-curriculum's all-reduce and `minibatch_rows`' host read sit in the
-iteration).
+CPU device the constructor raises. `compiled_train_iter` picks the captured
+iteration on the card and the eager one on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Optional
 
 import torch
 
-from ..parallel.mesh import EnvGroup
+from ..parallel.mesh import EnvGroup, all_reduce_flat
 from ..physics.mega import mega_kernel_launch
 from ..physics.solve import apgd_solve_kernel, fused_dense_solve, fused_solve
 from .networks import ActorCritic
@@ -138,26 +146,122 @@ def warm_up(run, ts: TrainState, inputs, generators) -> None:
         g.set_state(s)
 
 
-def captures(device, group: Optional[EnvGroup]) -> bool:
-    """Whether the training iteration on `device` under `group` runs
-    captured: on a CUDA device with no group or a group of one rank."""
-    return torch.device(device).type == "cuda" and (group is None or group.world == 1)
+def captures(device, group: Optional[EnvGroup] = None) -> bool:
+    """Whether the training iteration on `device` runs captured: on a CUDA
+    device, under any group (a collective cuts the capture, `CutGraphs`);
+    never on the CPU, which has no graphs."""
+    return torch.device(device).type == "cuda"
+
+
+def _group_counts(group: Optional[EnvGroup]):
+    return None if group is None else (group.collectives, group.reduced_bytes)
+
+
+def _set_group_counts(group: Optional[EnvGroup], counts) -> None:
+    if group is not None:
+        group.collectives, group.reduced_bytes = counts
+
+
+class CutGraphs:
+    """A body recorded as a chain of CUDA graphs, cut at each collective.
+
+    While `record(body)` runs, each `all_reduce_sum` of `group` ends the
+    graph being recorded (its last work packs the all-reduce's buffer),
+    keeps the buffer and begins the next graph in the same memory pool.
+    `replay()` replays the graphs in their order of capture, with each
+    buffer's all-reduce (`all_reduce_flat`) on the stream between two of
+    them: gloo stages it through the host and makes the stream wait for
+    its copy back before the next graph runs, NCCL enqueues it. The
+    buffers stay referenced here for the object's life: the next graph
+    reads what the all-reduce wrote into them, and no allocation of a
+    later graph may take their memory. Every graph registers `generators`,
+    so draws spread over several graphs advance each Philox stream as one
+    eager run does. No autograd edge crosses a cut: a minibatch's backward
+    ends before its gradients are packed.
+
+    With `graphs=False` nothing is captured: `record` runs the body once,
+    eagerly, each collective all-reduced at its cut (the cut plan on the
+    CPU), and there is nothing to replay. `buffers` then holds the cuts as
+    well."""
+
+    def __init__(self, group: Optional[EnvGroup], generators=(), graphs: bool = True):
+        self.group, self.generators, self.graphs = group, list(generators), graphs
+        self.segments, self.buffers = [], []
+        self._pool = torch.cuda.graph_pool_handle() if graphs else None
+
+    def _begin(self) -> None:
+        if self.graphs:
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
+            graph.capture_begin(pool=self._pool)
+            self.segments.append(graph)
+
+    def _end(self) -> None:
+        if self.graphs:
+            self.segments[-1].capture_end()
+
+    def _cut(self, flat: torch.Tensor, group: EnvGroup) -> None:
+        self._end()
+        self.buffers.append((flat, group))
+        if not self.graphs:
+            all_reduce_flat(flat, group)
+        self._begin()
+
+    def record(self, body):
+        """Run `body()` with the group's collectives cut here; returns what
+        it returns. On the card the graphs are recorded on a side stream
+        after a synchronisation, as `torch.cuda.graph` records one."""
+        if self.segments or self.buffers:
+            raise RuntimeError("CutGraphs records once")
+        if self.group is not None:
+            self.group.on_collective = self._cut
+        try:
+            if not self.graphs:
+                return body()
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                self._begin()
+                try:
+                    out = body()
+                finally:
+                    self._end()
+            torch.cuda.current_stream().wait_stream(stream)
+            return out
+        finally:
+            if self.group is not None:
+                self.group.on_collective = None
+
+    def replay(self) -> None:
+        """The graphs in their order of capture, each cut's all-reduce
+        after the graph that packed its buffer."""
+        if not self.graphs:
+            raise RuntimeError("nothing was captured (graphs=False)")
+        for i, graph in enumerate(self.segments):
+            graph.replay()
+            if i < len(self.buffers):
+                all_reduce_flat(*self.buffers[i])
 
 
 class CapturedTrainIter:
-    """The training iteration captured as one CUDA graph; see the module
-    docstring. `capture_seconds` is the last capture's time (warm-up
-    included), None before the first call."""
+    """The training iteration captured as CUDA graphs cut at each
+    collective (one graph at world size 1); see the module docstring.
+    `graph` is the `CutGraphs` of the capture (None before the first call),
+    `capture_seconds` the last capture's time (warm-up included)."""
 
     def __init__(self, env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                  group: Optional[EnvGroup] = None, perm_seed: Optional[int] = None):
         device = next(net.parameters()).device
         if not captures(device, group):
-            raise ValueError(f"the training iteration is captured on a CUDA device at world size "
-                             f"1, not on {device} with {group.world if group else 1} rank(s)")
+            raise ValueError(f"the training iteration is captured on a CUDA device, "
+                             f"not on {device}")
         pieces = make_train_pieces(env, net, cfg, num_envs, group, perm_seed)
         self._body, self._draw = pieces["iteration_body"], pieces["draw_permutation"]
         self._env_generators = env.generators()
+        self._group = group
         self.capture_seconds = None
         self.reset()
 
@@ -180,16 +284,14 @@ class CapturedTrainIter:
         self._inputs = clone_tree((env_state, obs, priv_obs))
         self._perm = self._draw(ts, gen)
         generators = list({id(g): g for g in [gen, *self._env_generators]}.values())
-        before = launch_counts()
+        before, collectives = launch_counts(), _group_counts(self._group)
         warm_up(self._run, ts, self._inputs, generators)
         warm = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            graph.register_generator_state(g)
-        with torch.cuda.graph(graph):
-            self._metrics = self._run()
+        graph = CutGraphs(self._group, generators)
+        self._metrics = graph.record(self._run)
         self._replay_launches = [a - b for a, b in zip(launch_counts(), warm)]
         _set_launch_counts(before)
+        _set_group_counts(self._group, collectives)
         self.graph = graph
         torch.cuda.synchronize()
         self.capture_seconds = time.perf_counter() - t0
@@ -213,7 +315,7 @@ class CapturedTrainIter:
 def compiled_train_iter(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                         group: Optional[EnvGroup] = None, perm_seed: Optional[int] = None):
     """The training iteration of a caller that the JAX package jit-compiles:
-    `CapturedTrainIter` where `captures(device, group)`, else the eager
-    `make_train_iter` (the CPU, several ranks)."""
+    `CapturedTrainIter` on the card (at any world size), the eager
+    `make_train_iter` on the CPU."""
     make = CapturedTrainIter if captures(next(net.parameters()).device, group) else make_train_iter
     return make(env, net, cfg, num_envs, group, perm_seed)

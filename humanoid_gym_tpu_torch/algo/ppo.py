@@ -26,14 +26,16 @@ sharding (`group=`) the batch-global means are sums over the ranks
 
 The iteration's body (`iteration_body`, everything after the permutation
 is drawn) updates the train state's tensors in place and reads no host
-value that changes from one iteration to the next, so on the card it is
-captured as one CUDA graph (`algo/capture.py`); the eager iteration is the
-same body.
+value that changes from one iteration to the next, at any world size, so
+on the card it is captured (`algo/capture.py`: one CUDA graph at world size
+1, a chain of graphs cut at each all-reduce under several ranks); the eager
+iteration is the same body.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -155,6 +157,42 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float):
     return adv, adv + values
 
 
+# standard deviations above its mean of the fixed minibatch split
+# (`split_rows`): a rank's count of own rows in a minibatch exceeds it with a
+# probability of about 6e-16 (the normal tail at 8 sigma)
+SPLIT_SIGMAS = 8.0
+
+
+def split_rows(batch: int, num_mini_batches: int, own: int) -> int:
+    """C, the rows a rank gathers for each minibatch under several ranks:
+    the count of its own rows in a minibatch of m = batch / num_mini_batches
+    rows drawn without replacement from the global batch, of which it holds
+    `own`, is hypergeometric with mean m own / batch and variance
+    m (own / batch) (1 - own / batch) (batch - m) / (batch - 1); C is that
+    mean plus SPLIT_SIGMAS standard deviations, rounded up, and at most m
+    and `own` (so exact when the minibatch is the whole batch)."""
+    m = batch // num_mini_batches
+    p = own / batch
+    var = m * p * (1.0 - p) * (batch - m) / (batch - 1)
+    return min(m, own, math.ceil(m * own / batch + SPLIT_SIGMAS * math.sqrt(var)))
+
+
+def check_minibatch_split(metrics: dict) -> None:
+    """Raise if an iteration's padded minibatch split overflowed: under
+    several ranks, a minibatch held more of this rank's rows than the
+    split's fixed size, so rows beyond it were left out of that update.
+    Reads `minibatch_own_rows` and `minibatch_split_rows` of the iteration's
+    metrics on the host (the runner calls it where it reads the metrics);
+    metrics of world size 1 carry no split and pass."""
+    own = metrics.get("minibatch_own_rows")
+    if own is None:
+        return
+    split = int(metrics["minibatch_split_rows"])
+    if int(own.max()) > split:
+        raise RuntimeError(f"this rank's rows in the minibatches, {own.tolist()}, exceed the "
+                           f"padded split of {split} rows; the update left rows out")
+
+
 def permutation_seed(seed: int, iteration: int) -> int:
     """The seed of the minibatch permutation of train iteration `iteration`
     in a run seeded `seed`: the same on every rank, and apart from the
@@ -183,7 +221,10 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
     iteration)` (`perm_seed` defaults to the seed of train_iter's `gen`),
     identically on every rank; each rank updates on the rows of each
     minibatch whose env it holds, so the ranks together take the update of
-    one process over the whole batch."""
+    one process over the whole batch. Each rank gathers the same fixed
+    number of rows for each minibatch, `split_rows(...)`, its own rows
+    first and then padding rows of weight 0 (`minibatch_rows`), so no step
+    of the iteration waits for the host."""
     use_full_f32_matmul()
     T = cfg.num_steps_per_env
     batch = T * num_envs
@@ -203,27 +244,36 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         local_of_global = torch.full((num_envs,), -1, dtype=torch.long, device=dev)
         local_of_global[ids] = torch.arange(len(ids), device=dev)
         n_local = len(ids)
+        split = split_rows(batch, n_mb, T * n_local)
+        split_index = torch.arange(split, device=dev)
+        split_size = torch.full((), split, dtype=torch.long, device=dev)
 
     def minibatch_rows(perm: torch.Tensor):
-        """(rows, counts): this rank's flat rollout rows (t * n_local +
-        local env) of the minibatches of the global permutation `perm`, in
-        minibatch order, and how many fall in each minibatch. A global row
-        t * num_envs + e belongs to the rank that holds env e."""
-        used = perm[:n_mb * mb_size]
+        """(rows, weight, own) of the minibatches of the global permutation
+        `perm`: rows (num_mini_batches, width) are this rank's flat rollout
+        rows (t * n_local + local env) of each minibatch; a global row t *
+        num_envs + e belongs to the rank that holds env e. At world size 1
+        the width is mb_size and weight and own are None. Under several
+        ranks the width is the fixed split C (`split_rows`): a minibatch's
+        own rows first, in the permutation's order, then padding rows (row
+        0) up to C; weight (num_mini_batches, C) float32 is 1 on own rows
+        and 0 on padding, own (num_mini_batches,) counts the own rows. A
+        minibatch with more than C own rows keeps its first C, and its
+        count in own makes `check_minibatch_split` raise."""
+        used = perm[:n_mb * mb_size].view(n_mb, mb_size)
         if not sharded:
-            return used, [mb_size] * n_mb
+            return used, None, None
         loc = local_of_global[used % num_envs]
         keep = loc >= 0
-        # The one host read of an iteration, and only under several ranks:
-        # how many of this rank's rows fall in each minibatch depends on the
-        # permutation drawn on the device, and torch.split (permute_batch)
-        # needs those sizes on the host. It waits for the rollout and GAE
-        # before the update is dispatched. The kept rows are then taken by
-        # a stable sort (not a boolean mask, which would read the host again).
-        counts = keep.view(n_mb, mb_size).sum(dim=1).tolist()
-        order = torch.argsort((~keep).to(torch.uint8), stable=True)[:sum(counts)]
-        rows = ((used // num_envs) * n_local + loc)[order]
-        return rows, counts
+        pos = torch.cumsum(keep, dim=1) - 1
+        own = pos[:, -1] + 1
+        # each own row to its place in the split, every other (and any
+        # beyond C) to a spare last column that is cut off
+        dest = torch.where(keep & (pos < split), pos, split)
+        rows = torch.zeros((n_mb, split + 1), dtype=torch.long, device=used.device)
+        rows.scatter_(1, dest, (used // num_envs) * n_local + loc)
+        weight = (split_index < own[:, None]).to(torch.float32)
+        return rows[:, :split], weight, own
 
     @torch.no_grad()
     def rollout_phase(ts: TrainState, env_state, obs, priv_obs, gen):
@@ -282,8 +332,14 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
     def make_sum_loss_fn(mb):
         """loss_fn(net) -> (total, sums): the loss and its terms as sums
         over the minibatch rows given (surrogate, value, entropy, KL,
-        estimator); the caller divides by the global row count."""
-        obs, priv, act, old_logp, old_v, adv, ret, old_mu, old_sigma = mb
+        estimator), each row weighted by the minibatch's tenth element
+        where it has one (the padded split); the caller divides by the
+        global row count."""
+        obs, priv, act, old_logp, old_v, adv, ret, old_mu, old_sigma, *weight = mb
+
+        def row_sum(x):
+            """The sum over the rows; a padding row (weight 0) adds 0."""
+            return torch.sum(weight[0] * x) if weight else torch.sum(x)
 
         def loss_fn(net: ActorCritic):
             mean, std = actor_apply(net, obs)
@@ -295,26 +351,27 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                     - 0.5,
                     dim=-1,
                 )
-                kl_sum = kl.sum().detach()
+                kl_sum = row_sum(kl).detach()
             else:
                 kl_sum = torch.zeros((), device=obs.device)
             logp = normal_log_prob(mean, std, act)
             ratio = torch.exp(torch.clamp(logp - old_logp, -20.0, 20.0))
             surr = -adv * ratio
             surr_clipped = -adv * torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param)
-            surrogate_loss = torch.sum(torch.maximum(surr, surr_clipped))
+            surrogate_loss = row_sum(torch.maximum(surr, surr_clipped))
             if cfg.use_clipped_value_loss:
                 v_clipped = old_v + torch.clamp(value - old_v, -cfg.clip_param, cfg.clip_param)
-                value_loss = torch.sum(
+                value_loss = row_sum(
                     torch.maximum(torch.square(value - ret), torch.square(v_clipped - ret))
                 )
             else:
-                value_loss = torch.sum(torch.square(ret - value))
-            entropy = normal_entropy(std, logp.shape).sum()
+                value_loss = row_sum(torch.square(ret - value))
+            entropy = row_sum(normal_entropy(std, logp.shape))
             total = surrogate_loss + cfg.value_loss_coef * value_loss - cfg.entropy_coef * entropy
             if cfg.estimator_coef > 0.0 and net.estimator_dim > 0:
                 lo, hi = cfg.estimator_slice
-                est_loss = torch.square(net.estimate(obs) - priv[:, lo:hi].detach()).mean(-1).sum()
+                est = torch.square(net.estimate(obs) - priv[:, lo:hi].detach())
+                est_loss = row_sum(est.mean(-1))
                 total = total + cfg.estimator_coef * est_loss
             else:
                 est_loss = torch.zeros((), device=obs.device)
@@ -349,7 +406,8 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         # an estimator head that the loss does not use (coef 0) gets zero
         # gradients, as under jax.grad
         grads = torch.autograd.grad(total, params, materialize_grads=True)
-        rows = torch.full((), float(mb[0].shape[0]), device=sums.device)
+        rows = mb[9].sum() if len(mb) > 9 else torch.full((), float(mb[0].shape[0]),
+                                                          device=sums.device)
         *grads, sums, rows = all_reduce_sum([*grads, sums, rows], group)
         grads = {k: g / rows for k, g in zip(names, grads)}
         surr_l, val_l, ent, kl_mean, est_l = (sums / rows).unbind()
@@ -379,17 +437,25 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
             "estimator_loss": est_l,
         }
 
-    def minibatches(roll: Rollout, adv, ret, perm: torch.Tensor):
-        """The minibatches of the global permutation `perm`: this rank's
-        rows of each, gathered from the rollout, as num_mini_batches tuples
-        (obs, priv, actions, log_probs, values, adv, ret, mu, sigma)."""
+    def gather(roll: Rollout, adv, ret, rows, weight):
+        """The minibatches of `minibatch_rows`' rows and weights, gathered
+        from the rollout: num_mini_batches tuples (obs, priv, actions,
+        log_probs, values, adv, ret, mu, sigma), under several ranks with
+        the rows' weights appended."""
         flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))  # noqa: E731
-        rows, counts = minibatch_rows(perm)
-        data = [torch.split(flat(x)[rows], counts) for x in (
+        data = [torch.split(flat(x)[rows.reshape(-1)], rows.shape[1]) for x in (
             roll.obs, roll.priv_obs, roll.actions, roll.log_probs, roll.values, adv, ret,
             roll.mu, roll.sigma,
         )]
-        return [tuple(x[i] for x in data) for i in range(n_mb)]
+        mbs = [tuple(x[i] for x in data) for i in range(n_mb)]
+        if weight is not None:
+            mbs = [mb + (w,) for mb, w in zip(mbs, weight)]
+        return mbs
+
+    def minibatches(roll: Rollout, adv, ret, perm: torch.Tensor):
+        """The minibatches of the global permutation `perm`: this rank's
+        rows of each, gathered from the rollout (`gather`)."""
+        return gather(roll, adv, ret, *minibatch_rows(perm)[:2])
 
     def permute_batch(roll: Rollout, adv, ret, perm_gen):
         """The minibatches of one update phase: a permutation of the global
@@ -397,10 +463,10 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         perm = torch.randperm(batch, generator=perm_gen, device=adv.device)
         return minibatches(roll, adv, ret, perm)
 
-    def update_on(ts: TrainState, roll: Rollout, adv, ret, perm: torch.Tensor):
-        """num_learning_epochs x num_mini_batches updates over the global
-        permutation `perm`; returns the mean metrics."""
-        mbs = minibatches(roll, adv, ret, perm)
+    def update_split(ts: TrainState, roll: Rollout, adv, ret, rows, weight):
+        """num_learning_epochs x num_mini_batches updates over the
+        minibatches of `minibatch_rows`; returns the mean metrics."""
+        mbs = gather(roll, adv, ret, rows, weight)
         metrics_acc = None
         for _ in range(cfg.num_learning_epochs):
             for mb in mbs:
@@ -410,6 +476,10 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                 }
         n_updates = cfg.num_learning_epochs * n_mb
         return ts, {k: v / n_updates for k, v in metrics_acc.items()}
+
+    def update_on(ts: TrainState, roll: Rollout, adv, ret, perm: torch.Tensor):
+        """`update_split` over the global permutation `perm`."""
+        return update_split(ts, roll, adv, ret, *minibatch_rows(perm)[:2])
 
     def update_phase(ts: TrainState, roll: Rollout, adv, ret, perm_gen):
         """`update_on` a permutation of the global flattened batch drawn
@@ -434,7 +504,8 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         and learning rate of `ts` in place and leaves `ts.iteration` alone."""
         env_state, obs, priv_obs, roll, infos = rollout_phase(ts, env_state, obs, priv_obs, gen)
         adv, ret = compute_gae(ts, roll, priv_obs)
-        ts, metrics = update_on(ts, roll, adv, ret, perm)
+        rows, weight, own = minibatch_rows(perm)
+        ts, metrics = update_split(ts, roll, adv, ret, rows, weight)
         stack = lambda f: torch.stack([getattr(tr, f) for tr in infos])  # noqa: E731
         (reward_sum, ep_term_sums, ep_reset_count, ep_len_sum, ep_reward_sum, nonfinite,
          level_sum) = all_reduce_sum([
@@ -454,6 +525,8 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
             lr=ts.lr.clone(),
             action_std_mean=ts.net.std.detach().abs().mean(),
         )
+        if sharded:  # this rank's split, for check_minibatch_split
+            metrics.update(minibatch_own_rows=own, minibatch_split_rows=split_size)
         return env_state, obs, priv_obs, metrics
 
     def train_iter(ts: TrainState, env_state, obs, priv_obs, gen):

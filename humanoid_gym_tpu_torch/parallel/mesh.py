@@ -11,8 +11,12 @@ the collectives itself:
     grads = all_reduce_sum(grads, group)          # one collective for the list
 
 `all_reduce_sum` packs its tensors into one float32 buffer and runs a single
-all-reduce, so a PPO minibatch costs one collective: the gradients, the KL
-sum, the metric sums and the row count travel together. Backends: `nccl`
+all-reduce (`all_reduce_flat`), so a PPO minibatch costs one collective: the
+gradients, the KL sum, the metric sums and the row count travel together.
+It is the one place where a collective of the training iteration runs, so
+it is where a captured iteration is cut: while `EnvGroup.on_collective` is
+set (`algo/capture.py` `CutGraphs`, recording), the packed buffer goes to it
+in place of the all-reduce. Backends: `nccl`
 when every rank has a card of its own; `gloo` for CPU ranks and for several
 ranks on one card (NCCL puts no two ranks on one device). The installed
 `gloo` takes CUDA tensors for `all_reduce` and `broadcast` (checked on the
@@ -28,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -40,7 +44,8 @@ class EnvGroup:
     """One rank's view of the run: its rank, the world size, the device its
     envs live on and the backend of the process group. `collectives` and
     `reduced_bytes` count the all-reduces and their payload since the
-    group was made."""
+    group was made. `on_collective(flat, group)`, where set, takes the
+    packed buffer of each `all_reduce_sum` in place of its all-reduce."""
 
     rank: int
     world: int
@@ -48,6 +53,7 @@ class EnvGroup:
     backend: str
     collectives: int = 0
     reduced_bytes: int = 0
+    on_collective: Optional[Callable] = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def is_main(self) -> bool:
@@ -103,15 +109,24 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], group: Optional[EnvGroup]
     if _single(group):
         return list(tensors)
     flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
-    torch.distributed.all_reduce(flat)
-    group.collectives += 1
-    group.reduced_bytes += flat.numel() * 4
+    if group.on_collective is None:
+        all_reduce_flat(flat, group)
+    else:
+        group.on_collective(flat, group)
     out, off = [], 0
     for t in tensors:
         n = t.numel()
         out.append(flat[off:off + n].reshape(t.shape).to(t.dtype))
         off += n
     return out
+
+
+def all_reduce_flat(flat: torch.Tensor, group: EnvGroup) -> None:
+    """All-reduce (sum) the float32 buffer `flat` in place over the group,
+    counted in `collectives` and `reduced_bytes`."""
+    torch.distributed.all_reduce(flat)
+    group.collectives += 1
+    group.reduced_bytes += flat.numel() * 4
 
 
 @torch.no_grad()

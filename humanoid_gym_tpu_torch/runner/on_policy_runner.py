@@ -5,12 +5,13 @@ Port of humanoid_gym_tpu/runner/on_policy_runner.py: the same scalar names
 on TensorBoard and in metrics.jsonl, the same console line, a checkpoint
 every save_interval, resumable. The per-iteration work (rollout + GAE +
 update) is `algo.ppo.make_train_iter`; the runner adds no arithmetic. On a
-CUDA device at world size 1 it runs as one CUDA graph
-(`algo.capture.CapturedTrainIter`, the JAX runner's `jax.jit(...,
-donate_argnums=(0, 1))`), captured at the first iteration of `learn`, so a
-checkpoint loaded before it is in place; a `load` drops the graph and the
-next `learn` captures anew. On the CPU and under several ranks the
-iteration runs eagerly.
+CUDA device it runs captured (`algo.capture.CapturedTrainIter`, the JAX
+runner's `jax.jit(..., donate_argnums=(0, 1))`): one CUDA graph at world
+size 1, under several ranks a chain of graphs cut at each all-reduce, on
+every rank. The capture is made at the first iteration of `learn`, so a
+checkpoint loaded before it is in place; a `load` drops the graphs and the
+next `learn` captures anew, each rank from its restored shard. On the CPU
+the iteration runs eagerly.
 
 Under env sharding the env's group (`env.group`, from `registry.make_env(
 ..., group=)`) makes this process one rank: the parameters are broadcast
@@ -22,7 +23,9 @@ checkpoint directory. The final checkpoint's env state is one file per
 rank, `<path>.envshard<rank>`, which `load` reads back, raising on another
 world size or env count.
 
-Metrics stay on the device until they are logged. Logging is double
+Metrics stay on the device until they are logged; where they are read,
+`check_minibatch_split` raises if a rank's padded minibatch split
+overflowed. Logging is double
 buffered: iteration i+1 is enqueued before iteration i's metrics are read,
 and on the card the read waits on an event recorded after a non-blocking
 copy into pinned memory, so it never waits for the newer iteration.
@@ -55,7 +58,7 @@ import torch
 
 from ..algo.capture import CapturedTrainIter, compiled_train_iter
 from ..algo.networks import actor_critic_from_cfg, dtype_name, resolve_compute_dtype
-from ..algo.ppo import PPOConfig, init_train_state
+from ..algo.ppo import PPOConfig, check_minibatch_split, init_train_state
 from ..envs.state import EnvState
 from ..parallel.mesh import replicate
 from ..parallel.multihost import broadcast_str, rank_seed, shard_path
@@ -260,6 +263,7 @@ class OnPolicyRunner:
         def consume(p_it, p_dt, metrics, event):
             if event is not None:
                 event.synchronize()
+            check_minibatch_split(metrics)
             self.tot_timesteps += steps_per_iter
             self.tot_time += p_dt
             n_resets = float(metrics["ep_reset_count"])

@@ -4,10 +4,10 @@ scripts/config4_dryrun.py).
 
 `humanoid_joint_deploy` (8,192 XBot-L + 8,192 XBot-S envs, the recipe's
 nets with the estimator head) through the registry's `make_env` and
-`make_train_iter` (on the card at one rank as one CUDA graph,
-`algo.capture.compiled_train_iter`, the JAX script's `jax.jit`; the graph
-is captured in the warm-up iteration, and its memory pool is in the
-peak): one warm-up iteration, then one timed one with the mega
+`make_train_iter` (captured on the card, `algo.capture.compiled_train_iter`,
+the JAX script's `jax.jit`: one CUDA graph at one rank, graphs cut at each
+all-reduce under several; captured in the warm-up iteration, and the
+graphs' memory pool is in the peak): one warm-up iteration, then one timed one with the mega
 launch counters zeroed just before it and read just after. The JAX script
 ran T = 4 on 8 emulated CPU devices and projected T = 60; the card holds
 the production horizon itself, so `--horizon` defaults to 60 there (8 on
@@ -102,7 +102,7 @@ def run_rank(envs: int, horizon: int, device, group=None) -> dict:
     from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
     from humanoid_gym_tpu_torch.algo.capture import compiled_train_iter
-    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, check_minibatch_split, init_train_state
     from humanoid_gym_tpu_torch.parallel.mesh import replicate
     from humanoid_gym_tpu_torch.physics.mega import mega_kernel_launch
     from humanoid_gym_tpu_torch.utils.platform import synchronize
@@ -145,6 +145,7 @@ def run_rank(envs: int, horizon: int, device, group=None) -> dict:
     ts, state, obs, priv, metrics = train_iter(ts, state, obs, priv, gen)
     value_loss = float(metrics["value_loss"])
     iter_s = time.perf_counter() - t0
+    check_minibatch_split(metrics)
     launches = {"flat": mega_kernel_launch.launches, "terrain": mega_kernel_launch.terrain_launches}
     return {
         "rank": group.rank if group is not None else 0,

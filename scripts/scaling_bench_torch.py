@@ -19,6 +19,11 @@ Three protocols, as the JAX script's:
   control     the same total batch over max_ranks ranks against 1 process,
               on the same cores: a ratio below 1 is what sharding costs
               (collectives, per-rank launches), compute parallelism cancels.
+              The iteration runs eagerly (launch by launch from the host);
+              on the card the same pair runs again captured
+              (`algo.capture.compiled_train_iter`: one CUDA graph for the
+              one process, graphs cut at each all-reduce for the ranks),
+              so each pair compares like with like.
 
 On the card every rank time-shares the one H100 (the GPU machine has one),
 so the weak-scaling sweep measures time-sharing, not scaling; only
@@ -49,9 +54,10 @@ JAX_ARTIFACT = os.path.join(REPO, "docs", "scaling_emulated.json")
 
 
 def _rank_worker(work: str, envs_per_rank: int, iters: int, T: int, device_name: str,
-                 threads: int, pin: bool) -> int:
-    """One rank: build the env and the iteration, warm up, time `iters`
-    iterations between two barriers, write rank<r>.json into `work`."""
+                 threads: int, pin: bool, captured: bool = False) -> int:
+    """One rank: build the env and the iteration (eager, or with `captured`
+    the captured one on the card), warm up, time `iters` iterations
+    between two barriers, write rank<r>.json into `work`."""
     import torch
 
     rank = int(os.environ["RANK"])
@@ -60,8 +66,14 @@ def _rank_worker(work: str, envs_per_rank: int, iters: int, T: int, device_name:
     torch.set_num_threads(threads)
 
     from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo.capture import compiled_train_iter
     from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
-    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
+    from humanoid_gym_tpu_torch.algo.ppo import (
+        PPOConfig,
+        check_minibatch_split,
+        init_train_state,
+        make_train_iter,
+    )
     from humanoid_gym_tpu_torch.parallel.mesh import make_env_group, replicate
     from humanoid_gym_tpu_torch.utils.platform import synchronize
 
@@ -84,7 +96,8 @@ def _rank_worker(work: str, envs_per_rank: int, iters: int, T: int, device_name:
         state = env.init_state()
         obs = torch.zeros((env.num_envs, cfg.env.num_observations), device=device)
         priv = torch.zeros((env.num_envs, cfg.env.num_privileged_obs), device=device)
-        train_iter = make_train_iter(env, net, algo, num_envs, group, perm_seed=0)
+        make = compiled_train_iter if captured else make_train_iter
+        train_iter = make(env, net, algo, num_envs, group, perm_seed=0)
         gen = torch.Generator(device=device)
         gen.manual_seed(1 + group.rank)
         ts, state, obs, priv, _ = train_iter(ts, state, obs, priv, gen)
@@ -96,6 +109,7 @@ def _rank_worker(work: str, envs_per_rank: int, iters: int, T: int, device_name:
         synchronize(device)
         group.barrier()
         seconds = time.perf_counter() - t0
+        check_minibatch_split(metrics)
         out = {"rank": group.rank, "seconds": seconds, "value_loss": float(metrics["value_loss"])}
     finally:
         group.close()
@@ -109,21 +123,25 @@ def _threads(ranks: int, pin: bool) -> int:
 
 
 def measure(ranks: int, envs_per_rank: int, iters: int, T: int, device="cuda", pin: bool = False,
-            timeout_s: float = 1800.0) -> float:
+            timeout_s: float = 1800.0, captured: bool = False) -> float:
     """Env steps per second of `ranks` gloo ranks x `envs_per_rank` envs,
-    horizon T, over `iters` timed iterations (the slowest rank's window)."""
+    horizon T, over `iters` timed iterations (the slowest rank's window);
+    with `captured`, the captured iteration (on the card)."""
     from humanoid_gym_tpu_torch.parallel.launch import RankJob
     from humanoid_gym_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device(device)
     if pin and device.type != "cpu":
         raise ValueError("the pinned protocol runs CPU ranks only")
+    if captured and device.type != "cuda":
+        raise ValueError("the captured iteration runs on the card only")
     threads = _threads(ranks, pin)
     with tempfile.TemporaryDirectory(prefix="hgt_scaling_") as work:
         argv = [sys.executable, os.path.abspath(__file__), "--rank-worker", work,
                 "--envs_per_rank", str(envs_per_rank), "--iters", str(iters),
                 "--horizon", str(T), "--device", "cuda:0" if device.type == "cuda" else "cpu",
-                "--threads", str(threads)] + (["--pin"] if pin else [])
+                "--threads", str(threads)] + (["--pin"] if pin else []) + (
+                    ["--captured"] if captured else [])
         env = dict(os.environ, OMP_NUM_THREADS=str(threads))
         RankJob(argv, ranks, env).wait(timeout_s)
         seconds = []
@@ -133,9 +151,10 @@ def measure(ranks: int, envs_per_rank: int, iters: int, T: int, device="cuda", p
     return T * ranks * envs_per_rank * iters / max(seconds)
 
 
-def measure_stats(ranks, envs_per_rank, iters, T, repeats, device, pin=False):
+def measure_stats(ranks, envs_per_rank, iters, T, repeats, device, pin=False, captured=False):
     """Median of `repeats` measurements, with their spread."""
-    vals = [measure(ranks, envs_per_rank, iters, T, device, pin) for _ in range(repeats)]
+    kw = {"captured": True} if captured else {}
+    vals = [measure(ranks, envs_per_rank, iters, T, device, pin, **kw) for _ in range(repeats)]
     med = statistics.median(vals)
     return {
         "steps_per_sec": med,
@@ -166,19 +185,27 @@ def run_sweep(args, pin=False):
 
 
 def run_control(args):
-    """The same total envs over max_ranks ranks against 1 process."""
+    """The same total envs over max_ranks ranks against 1 process, eager;
+    on the card the same pair captured as well (`captured`)."""
+    from humanoid_gym_tpu_torch.utils.platform import resolve_device
+
     n = args.max_ranks
     total = n * args.envs_per_rank
-    unsharded = measure_stats(1, total, args.iters, args.horizon, args.repeats, args.device)
-    sharded = measure_stats(n, args.envs_per_rank, args.iters, args.horizon, args.repeats,
-                            args.device)
-    out = {
-        "total_envs": total,
-        "ranks_sharded": n,
-        "unsharded_steps_per_sec": unsharded,
-        "sharded_steps_per_sec": sharded,
-        "sharded_over_unsharded": sharded["steps_per_sec"] / unsharded["steps_per_sec"],
-    }
+
+    def pair(captured):
+        unsharded = measure_stats(1, total, args.iters, args.horizon, args.repeats, args.device,
+                                  captured=captured)
+        sharded = measure_stats(n, args.envs_per_rank, args.iters, args.horizon, args.repeats,
+                                args.device, captured=captured)
+        return {
+            "unsharded_steps_per_sec": unsharded,
+            "sharded_steps_per_sec": sharded,
+            "sharded_over_unsharded": sharded["steps_per_sec"] / unsharded["steps_per_sec"],
+        }
+
+    out = {"total_envs": total, "ranks_sharded": n, **pair(False)}
+    if resolve_device(args.device).type == "cuda":
+        out["captured"] = pair(True)
     print(json.dumps(out), flush=True)
     return out
 
@@ -199,10 +226,11 @@ def main(argv=None):
     p.add_argument("--rank-worker", type=str, default=None, help=argparse.SUPPRESS)
     p.add_argument("--threads", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--pin", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--captured", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.rank_worker:
         sys.exit(_rank_worker(args.rank_worker, args.envs_per_rank, args.iters, args.horizon,
-                              args.device, args.threads, args.pin))
+                              args.device, args.threads, args.pin, args.captured))
 
     from humanoid_gym_tpu_torch.utils.platform import card_line, resolve_device
 
@@ -229,8 +257,9 @@ def main(argv=None):
                 "control": "same total envs over max_ranks ranks against 1 process on the same "
                            "hardware: compute parallelism cancels; a ratio below 1 is what "
                            "sharding costs" + ("; on the card at 2 ranks, what two processes "
-                                               "feeding one card cost against one" if on_card
-                                               else ""),
+                                               "feeding one card cost against one, eager and "
+                                               "(under 'captured') both sides captured"
+                                               if on_card else ""),
             },
             "fixed_host": run_sweep(args),
             "control": run_control(args),

@@ -1,9 +1,11 @@
-"""The training iteration's capture as one CUDA graph (`algo/capture.py`),
+"""The training iteration's capture as CUDA graphs (`algo/capture.py`),
 in the parts that run on the CPU: the iteration's body reads no host data,
 the Adam step with its device count against the JAX package's, the warm-up
-that leaves no trace, the refusal to capture on the CPU, and which
-iteration the runner picks. The captured iteration against the eager one
-runs on the card (`tests/test_torch_cuda.py`, `chip_smoke.py` phase 24)."""
+that leaves no trace, the cut plan without graphs, the refusal to capture
+on the CPU, and which iteration the runner picks. The cut plan on two
+ranks is in `tests/test_torch_parallel.py`; the captured iteration against
+the eager one runs on the card (`tests/test_torch_cuda.py`, `chip_smoke.py`
+phases 13 and 24)."""
 
 import copy
 
@@ -148,20 +150,61 @@ def test_copy_into_reads_no_source_it_already_overwrote():
 
 def test_captured_train_iter_raises_on_the_cpu():
     env, ts, _, _, _ = _setup("humanoid_ppo", "apgd", n=2)
-    with pytest.raises(ValueError, match="CUDA device at world size 1"):
+    with pytest.raises(ValueError, match="captured on a CUDA device, not on cpu"):
         CP.CapturedTrainIter(env, ts.net, TP.PPOConfig(num_steps_per_env=T), 2)
 
 
 @pytest.mark.parametrize("device, world, want", [
     ("cpu", None, False), ("cpu", 1, False), ("cuda", None, True), ("cuda", 1, True),
-    ("cuda", 2, False)])
+    ("cuda", 2, True), ("cpu", 2, False)])
 def test_which_iteration_runs(device, world, want):
-    """Captured on a CUDA device with no group or one rank; eager on the CPU
-    and under two ranks (gloo), where the command curriculum's all-reduce
-    and minibatch_rows' host read sit in the iteration."""
+    """Captured on a CUDA device at any world size (under two ranks, gloo,
+    cut at each all-reduce); eager on the CPU, which has no graphs."""
     group = None if world is None else EnvGroup(rank=0, world=world, device=torch.device(device),
                                                 backend="gloo")
     assert CP.captures(torch.device(device), group) is want
+
+
+def test_cut_plan_of_one_process_is_one_segment():
+    """`CutGraphs` without graphs at world size 1: the body runs once,
+    eagerly, with no cut (no collective runs), its result bit-equal to the
+    plain body's from the same snapshot; nothing to replay."""
+    env, ts, pieces, inputs, gen = _setup("humanoid_ppo", "apgd")
+    generators = [gen, *env.generators()]
+    snap = [t.clone() for t in CP.train_state_tensors(ts)], [g.get_state() for g in generators]
+    perm = pieces["draw_permutation"](ts, gen)
+
+    def side(run):
+        with torch.no_grad():
+            for t, s in zip(CP.train_state_tensors(ts), snap[0]):
+                t.copy_(s)
+        for g, s in zip(generators, snap[1]):
+            g.set_state(s)
+        *new, mets = run(lambda: pieces["iteration_body"](ts, *CP.clone_tree(inputs), gen, perm))
+        return ([t.clone() for t in CP.train_state_tensors(ts) + CP.tensor_leaves(new)]
+                + [mets[k] for k in sorted(mets)])
+
+    plain = side(lambda body: body())
+    cuts = CP.CutGraphs(None, generators, graphs=False)
+    assert all(torch.equal(a, b) for a, b in zip(plain, side(cuts.record)))
+    assert cuts.buffers == [] and cuts.segments == []
+    with pytest.raises(RuntimeError, match="nothing was captured"):
+        cuts.replay()
+
+
+def test_cut_plan_releases_the_group_when_the_body_raises():
+    """The group's collectives go back to running at once after a
+    recording, also one whose body raised."""
+    group = EnvGroup(rank=0, world=2, device=torch.device("cpu"), backend="gloo")
+    cuts = CP.CutGraphs(group, graphs=False)
+
+    def body():
+        assert group.on_collective == cuts._cut
+        raise KeyError("body")
+
+    with pytest.raises(KeyError, match="body"):
+        cuts.record(body)
+    assert group.on_collective is None
 
 
 def test_runner_runs_the_eager_iteration_on_the_cpu():

@@ -146,6 +146,27 @@ def test_phase13_is_wired_and_its_digests(smoke):
     assert one != smoke._digest([torch.ones(2, 3), torch.ones(2, 4)])
 
 
+def test_phase13_holds_the_captured_iteration(smoke):
+    """Phase 13: every `learn` iteration of its ranks must be a
+    replay with RANK_ALLREDUCES all-reduces and cuts (11: 2 advantage
+    statistics, 2 epochs x 4 minibatches, 1 metrics), and the train role
+    holds the captured iteration against the eager one on the two ranks
+    through phase 24's comparison, flat at T = 60 and with the command
+    curriculum at T = CUT_T_STEPS (T more cuts), bit-equal or within
+    CAPTURE_REL_TOL, the ranks bit-equal."""
+    src = open(SCRIPT).read()
+    assert smoke.RANK_ALLREDUCES == 11 and smoke.CUT_T_STEPS == 10
+    assert 'raise AssertionError(f"rank {group.rank}: learn ran no captured iteration")' in src
+    assert 'if rec["collectives"] != want_reduces or rec["cuts"] != want_reduces:' in src
+    assert 'for key, horizon, curriculum in (("captured", T_STEPS, None),' in src
+    assert '("curriculum", CUT_T_STEPS, True)):' in src
+    assert "group=group, curriculum=curriculum)" in src
+    assert '(CUT_T_STEPS, "curriculum", RANK_ALLREDUCES + CUT_T_STEPS)' in src
+    assert 'if x["cuts"] != reduces or x["allreduces_per_replay"] != reduces:' in src
+    assert 'if x["worst_rel"] > CAPTURE_REL_TOL or not x["ranks_equal"]:' in src
+    assert "captured = CapturedTrainIter(env, net, pc, n_envs, group)" in src
+
+
 def test_phases_14_15_and_5c_are_wired(smoke):
     """Phase 5c runs after phase 5b, phases 14 and 15 after phase 13; the B1
     and B2 records carry their launches; phase 14's card-vs-CPU tolerances

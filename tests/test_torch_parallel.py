@@ -77,10 +77,10 @@ if case == "update":
     pieces = TP.make_train_pieces(None, net, cfg, N, group)
     out["mb_rows"], out["mb_metrics"] = [], []
     for mb_np, perm in zip(inp["minibatches"], inp["perms"]):
-        rows, counts = pieces["minibatch_rows"](torch.from_numpy(perm))
-        mb = tuple(block(x).reshape((-1,) + x.shape[2:])[rows] for x in mb_np)
+        rows, weight, _ = pieces["minibatch_rows"](torch.from_numpy(perm))
+        mb = tuple(block(x).reshape((-1,) + x.shape[2:])[rows[0]] for x in mb_np) + (weight[0],)
         ts, mets = pieces["minibatch_update"](ts, mb)
-        out["mb_rows"].append(rows)
+        out["mb_rows"].append(rows[0][weight[0] > 0])
         out["mb_metrics"].append({k: float(v) for k, v in mets.items()})
     out["mb_params"] = {k: v.clone() for k, v in net.state_dict().items()}
     out["mb_lr"] = float(ts.lr)
@@ -104,6 +104,10 @@ if case == "update":
 
     out["adv"], out["ret"], out["upd_params"], mets = phases(group, block)
     out["upd_metrics"] = {k: float(v) for k, v in mets.items()}
+    # the padded split of that update phase's permutation
+    perm = torch.randperm(T * N, generator=torch.Generator().manual_seed(inp["perm_seed"]))
+    split_of = TP.make_train_pieces(None, fresh_net(), cfg, N, group)["minibatch_rows"]
+    out["upd_split"] = split_of(perm)
     if r == 0:
         _, _, out["single_params"], mets = phases(None, torch.from_numpy)
         out["single_metrics"] = {k: float(v) for k, v in mets.items()}
@@ -140,6 +144,65 @@ elif case == "hostcalls":
     ts, state, obs, priv, mets = train_iter(ts, state, obs, priv, gen)
     out["counts"] = counts
     out["value_loss"] = float(mets["value_loss"])
+
+elif case == "cuts":
+    # the iteration of 8 global envs (4 a rank, T = 2, the recipe's 2 epochs
+    # x 4 minibatches) as CutGraphs' eager segments against the plain body,
+    # from one snapshot, with the command curriculum off and on; then with
+    # the split forced to 1 row, the overflow's error
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo import capture as CP
+    from humanoid_gym_tpu_torch.algo import ppo as TP
+    from humanoid_gym_tpu_torch.algo.networks import ActorCritic
+
+    def build(curriculum):
+        def ov(c):
+            c.sim.solver.solver_type = "apgd"
+            c.commands.curriculum = curriculum
+        env, _ = registry.make_env("humanoid_ppo", num_envs=8, device="cpu", seed=0, group=group,
+                                   cfg_overrides=ov)
+        net = ActorCritic(705, 219, 12, seed=0)
+        cfg = TP.PPOConfig(num_steps_per_env=2)
+        pieces = TP.make_train_pieces(env, net, cfg, 8, group, perm_seed=5)
+        gen = torch.Generator().manual_seed(r)
+        ts = TP.init_train_state(net, cfg.learning_rate)
+        return env, pieces, ts, gen, [gen, *env.generators()]
+
+    for curriculum in (False, True):
+        env, pieces, ts, gen, gens = build(curriculum)
+        inputs = env.reset_all()
+        snap_ts = [t.detach().clone() for t in CP.train_state_tensors(ts)]
+        snap_gens = [g.get_state() for g in gens]
+        perm = pieces["draw_permutation"](ts, gen)
+
+        def side(run):
+            with torch.no_grad():
+                for t, s in zip(CP.train_state_tensors(ts), snap_ts):
+                    t.copy_(s)
+            for g, s in zip(gens, snap_gens):
+                g.set_state(s)
+            n0 = group.collectives
+            body = pieces["iteration_body"]
+            *new, mets = run(lambda: body(ts, *CP.clone_tree(inputs), gen, perm))
+            kept = [t.detach().clone() for t in CP.train_state_tensors(ts) + CP.tensor_leaves(new)]
+            return kept + [mets[k] for k in sorted(mets)], group.collectives - n0
+
+        plain, n_plain = side(lambda body: body())
+        cuts = CP.CutGraphs(group, gens, graphs=False)
+        segmented, n_seg = side(cuts.record)
+        out[f"curriculum{int(curriculum)}"] = {
+            "cuts": len(cuts.buffers), "collectives": [n_plain, n_seg],
+            "equal": len(plain) == len(segmented) and all(
+                torch.equal(a, b) for a, b in zip(plain, segmented)),
+            "train_state": segmented[:len(snap_ts)]}
+
+    TP.split_rows = lambda *a: 1
+    env, pieces, ts, gen, _ = build(False)
+    mets = pieces["train_iter"](ts, *env.reset_all(), gen)[-1]
+    try:
+        TP.check_minibatch_split(mets)
+    except RuntimeError as e:
+        out["overflow"] = str(e)
 
 elif case in ("train", "resume"):
     from humanoid_gym_tpu_torch import registry
@@ -222,7 +285,8 @@ def test_joint_env_rank_blocks_and_minibatch_rows():
     2: a block of each robot (global envs 2-3 of the L half and 6-7 of the
     S half), each sub-env's generator seeded by sub_env_seed(rank_seed(seed,
     group), index); the minibatch membership rule takes exactly the rows of
-    those envs, at their local positions."""
+    those envs, at their local positions, each minibatch's own rows
+    first (the split is the whole minibatch here: C = 12)."""
     from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, make_train_pieces
     from humanoid_gym_tpu_torch.envs.joint import sub_env_seed
 
@@ -238,12 +302,86 @@ def test_joint_env_rank_blocks_and_minibatch_rows():
     T = 3
     pieces = make_train_pieces(env, None, PPOConfig(num_steps_per_env=T, num_mini_batches=2), 8, g)
     perm = torch.from_numpy(np.random.default_rng(0).permutation(T * 8))
-    rows, counts = pieces["minibatch_rows"](perm)
+    rows, weight, own = pieces["minibatch_rows"](perm)
     local = {2: 0, 3: 1, 6: 2, 7: 3}
     want = [(int(x) // 8) * 4 + local[int(x) % 8] for x in perm if int(x) % 8 in local]
-    assert rows.tolist() == want and sum(counts) == len(want) == T * 4
-    assert counts == [sum(int(x) % 8 in local for x in perm[:12]),
-                      sum(int(x) % 8 in local for x in perm[12:])]
+    assert rows.shape == weight.shape == (2, 12)
+    assert rows[weight > 0].tolist() == want and int(own.sum()) == len(want) == T * 4
+    assert own.tolist() == [sum(int(x) % 8 in local for x in perm[:12]),
+                            sum(int(x) % 8 in local for x in perm[12:])]
+
+
+@pytest.mark.parametrize("world, rank, T, N, n_mb", [
+    (2, 0, 8, 8, 2), (2, 1, 8, 8, 4), (4, 3, 5, 8, 4), (2, 1, 60, 16, 4)])
+def test_padded_split_keeps_each_minibatchs_rows(world, rank, T, N, n_mb):
+    """The padded split of a random permutation, on rank `rank` of `world`
+    (contiguous env blocks): each minibatch's kept rows are the rows the
+    membership rule gives it (a global row's env on this rank, at its local
+    position), in the permutation's order; every row after them points at
+    row 0 with weight 0; the width is `split_rows` of the batch."""
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, make_train_pieces, split_rows
+
+    g = EnvGroup(rank=rank, world=world, device=torch.device("cpu"), backend="gloo")
+    pieces = make_train_pieces(None, None, PPOConfig(num_steps_per_env=T, num_mini_batches=n_mb),
+                               N, g)
+    perm = np.random.default_rng(T * N + rank).permutation(T * N)
+    rows, weight, own = pieces["minibatch_rows"](torch.from_numpy(perm))
+    n_local, m = N // world, T * N // n_mb
+    split = split_rows(T * N, n_mb, T * n_local)
+    assert rows.shape == weight.shape == (n_mb, split) and weight.dtype == torch.float32
+    for i in range(n_mb):
+        mine = [x for x in perm[i * m:(i + 1) * m] if x % N // n_local == rank]
+        want = [(x // N) * n_local + x % N - rank * n_local for x in mine]
+        assert int(own[i]) == len(want) <= split
+        assert rows[i, :len(want)].tolist() == want
+        assert weight[i, :len(want)].eq(1).all() and weight[i, len(want):].eq(0).all()
+        assert rows[i, len(want):].eq(0).all()
+    if (T, N) == (60, 16):  # the bound pads here: 174 rows for 240-row minibatches
+        assert split == 174 and int(own.max()) < split
+
+
+def test_split_rows_is_the_hypergeometric_bound():
+    """C = mean + 8 standard deviations of the hypergeometric count of a
+    rank's rows in a minibatch, clamped to min(m, own): 31,579 at 4096 envs,
+    T = 60, 4 minibatches and 2 ranks (mean 30,720, sigma 107.3); the whole
+    minibatch or the rank's rows where the bound passes them (tiny sizes);
+    the moments behind it within 1% of 200,000 numpy draws."""
+    from humanoid_gym_tpu_torch.algo.ppo import split_rows
+
+    assert split_rows(60 * 4096, 4, 60 * 2048) == 31579
+    assert split_rows(64, 1, 32) == 32  # one minibatch: exactly the rank's rows
+    assert split_rows(64, 2, 32) == 32  # the bound (33) clamped
+    assert split_rows(16, 4, 8) == 4  # the bound (10) clamped to m
+    assert split_rows(960, 4, 480) == 174
+    batch, m, own = 960, 240, 480
+    draws = np.random.default_rng(0).hypergeometric(own, batch - own, m, size=200_000)
+    p = own / batch
+    assert abs(draws.mean() / (m * p) - 1) < 0.01
+    assert abs(draws.var() / (m * p * (1 - p) * (batch - m) / (batch - 1)) - 1) < 0.01
+
+
+def test_split_overflow_raises_and_names_the_counts(monkeypatch):
+    """With the split forced below the rows a minibatch holds, the first C
+    own rows are kept, `own` counts them all, and `check_minibatch_split`
+    on the iteration's split raises with the counts; a split that holds
+    them, and metrics of world size 1, pass."""
+    from humanoid_gym_tpu_torch.algo import ppo as TP
+
+    g = EnvGroup(rank=0, world=2, device=torch.device("cpu"), backend="gloo")
+    cfg = TP.PPOConfig(num_steps_per_env=4, num_mini_batches=2)
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(32))
+    full = TP.make_train_pieces(None, None, cfg, 8, g)["minibatch_rows"](perm)
+    monkeypatch.setattr(TP, "split_rows", lambda *a: 3)
+    rows, weight, own = TP.make_train_pieces(None, None, cfg, 8, g)["minibatch_rows"](perm)
+    assert rows.shape == (2, 3) and weight.eq(1).all() and torch.equal(own, full[2])
+    assert torch.equal(rows, full[0][:, :3])
+    counts = r"\[%d, %d\]" % tuple(own.tolist())
+    with pytest.raises(RuntimeError, match=counts + ".*padded split of 3 rows"):
+        TP.check_minibatch_split({"minibatch_own_rows": own,
+                                  "minibatch_split_rows": torch.tensor(3)})
+    TP.check_minibatch_split({"minibatch_own_rows": own,
+                              "minibatch_split_rows": torch.tensor(int(own.max()))})
+    TP.check_minibatch_split({"value_loss": torch.tensor(1.0)})
 
 
 @pytest.fixture(scope="module")
@@ -362,19 +500,34 @@ def test_sharded_update_phase_equals_one_process(update_run):
                                        err_msg=k)
 
 
+def test_sharded_update_phase_pads_its_minibatches(update_run):
+    """The update phase held to one process above ran on the padded split:
+    each rank gathered C = 32 rows for each of the 2 minibatches of 32 rows
+    (T = 8, N = 8, the bound clamped to the minibatch), its own rows
+    weighing 1 and the rest 0; the ranks' own rows make up each minibatch
+    once."""
+    outs, _ = update_run
+    splits = [o["upd_split"] for o in outs]
+    for rows, weight, own in splits:
+        assert rows.shape == weight.shape == (2, 32)
+        assert torch.equal(weight.sum(dim=1), own.to(torch.float32)) and int(own.sum()) == 32
+        assert weight.eq(0).any()
+    assert (splits[0][2] + splits[1][2]).tolist() == [32, 32]
+
+
 @pytest.mark.parametrize("world", [1, WORLD])
 def test_train_iter_builds_no_tensor_from_host_data(world, tmp_path, monkeypatch):
     """After a warm-up iteration, one `train_iter` (T = 2, 2 minibatches)
-    calls none of torch.tensor, torch.as_tensor, Tensor.item, Tensor.cpu
-    and Tensor.to(device), at world size 1 and on each of two gloo ranks:
-    no index is built on the host and copied over. Its only host read is
-    under several ranks: the one Tensor.tolist of `minibatch_rows`, the
-    sizes of this rank's share of each minibatch, which torch.split needs
-    on the host."""
+    calls none of torch.tensor, torch.as_tensor, Tensor.tolist,
+    Tensor.item, Tensor.cpu and Tensor.to(device), at world size 1 and on
+    each of two gloo ranks: no index is built on the host and copied over,
+    and nothing is read back; under several ranks each minibatch is a
+    fixed number of rows with weights (`minibatch_rows`), so no size waits
+    for the host."""
     if world == WORLD:
         outs = _spawn(tmp_path, "hostcalls", "hostcalls")
         for o in outs:
-            assert o["counts"] == {"tolist": 1}, o["counts"]
+            assert o["counts"] == {}, o["counts"]
             assert np.isfinite(o["value_loss"])
         assert outs[0]["value_loss"] == outs[1]["value_loss"]
         return
@@ -406,6 +559,39 @@ def test_train_iter_builds_no_tensor_from_host_data(world, tmp_path, monkeypatch
     monkeypatch.undo()
     assert counts == {}
     assert np.isfinite(float(mets["value_loss"]))
+
+
+@pytest.fixture(scope="module")
+def cuts_run(tmp_path_factory):
+    """The ranks' results of the `cuts` case."""
+    return _spawn(tmp_path_factory.mktemp("cuts"), "cuts", "cuts")
+
+
+@pytest.mark.parametrize("curriculum, want", [(False, 11), (True, 11 + 2)])
+def test_cut_plan_runs_as_segments_bit_equal_to_the_body(cuts_run, curriculum, want):
+    """The iteration's cut plan on two gloo ranks (8 envs, T = 2, the
+    recipe's 2 epochs x 4 minibatches), run eagerly as `CutGraphs`'
+    segments: 11 cuts (2 for the advantage statistics, 8 minibatches, 1
+    for the metrics), and T more with the command curriculum on (one
+    all-reduce a step); every cut one all-reduce, as many as the plain
+    body runs; parameters, Adam moments, count, lr, env state, obs and
+    metrics bit-equal to the plain eager body from the same snapshot, and
+    the ranks' train states bit-equal to each other."""
+    got = [o[f"curriculum{int(curriculum)}"] for o in cuts_run]
+    for o in got:
+        assert o["cuts"] == want and o["collectives"] == [want, want]
+        assert o["equal"]
+    assert all(torch.equal(a, b) for a, b in zip(got[0]["train_state"], got[1]["train_state"]))
+
+
+def test_forced_split_overflow_raises_on_two_ranks(cuts_run):
+    """With the split forced to 1 row, a two-rank iteration's metrics carry
+    this rank's own rows of each of the 4 minibatches, and reading them
+    raises, naming them."""
+    for o in cuts_run:
+        assert "padded split of 1 rows" in o["overflow"], o.get("overflow")
+        counts = json.loads(o["overflow"].split("minibatches, ")[1].split("]")[0] + "]")
+        assert len(counts) == 4 and sum(counts) == 8 and max(counts) > 1
 
 
 def _small_terrain_ov(c):

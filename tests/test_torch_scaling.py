@@ -50,6 +50,32 @@ def test_artifact_keys(tmp_path, monkeypatch):
                      (2, 4, True)]
 
 
+def test_control_adds_a_captured_pair_on_the_card(monkeypatch):
+    """The control on a CUDA device (resolved, with `measure` standing in):
+    the eager pair, then the same pair captured, each with its ratio; on
+    the CPU a captured measurement is refused."""
+    import torch
+
+    from humanoid_gym_tpu_torch.utils import platform
+
+    calls = []
+
+    def fake(ranks, envs_per_rank, iters, T, device, pin=False, captured=False):
+        calls.append((ranks, envs_per_rank, captured))
+        return (300.0 if captured else 100.0) * ranks * envs_per_rank
+
+    monkeypatch.setattr(SB, "measure", fake)
+    monkeypatch.setattr(platform, "resolve_device", lambda d: torch.device("cuda"))
+    out = SB.main(["--control", "--max_ranks", "2", "--envs_per_rank", "4", "--iters", "1",
+                   "--horizon", "2", "--repeats", "1"])
+    assert calls == [(1, 8, False), (2, 4, False), (1, 8, True), (2, 4, True)]
+    assert out["sharded_over_unsharded"] == out["captured"]["sharded_over_unsharded"] == 1.0
+    assert out["captured"]["unsharded_steps_per_sec"]["steps_per_sec"] == 2400.0
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="card only"):
+        SB.measure(1, 4, 1, 2, device="cpu", captured=True)
+
+
 def test_never_writes_the_jax_artifact():
     with pytest.raises(SystemExit, match="JAX package's artifact"):
         SB.main(["--artifact", SB.JAX_ARTIFACT, "--device", "cpu"])

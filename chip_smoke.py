@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels-only   # phases 1-4, 4t, 10, 10t, 6 and 7, then the records; no contract line
     python3 chip_smoke.py --train TASK ITERS SEED   # phases 1-2, then a training run as phase 22's, no gate
     python3 chip_smoke.py --roll POLICY.npz N_ENVS STEPS [STEPS ...]   # phases 1-2, then phase 12 (a)'s roll
+    python3 chip_smoke.py --nonfinite CKPT STEPS [ACTOR.npz]   # phases 1-2, then the non-finite probe
+    python3 chip_smoke.py --curve METRICS.jsonl [ROBOTS]   # a run's learning curve; needs no card
 
 Phases (each prints one line of its numbers; any failure raises, so the
 script exits non-zero):
@@ -165,6 +167,18 @@ script exits non-zero):
      median distance at least 0.8 m), checkpoint 100 reported; the
      training metrics at iterations 1, 50, 100, 150 and 200, the seconds an
      iteration and the phase's wall time printed;
+ 22j. the production joint recipe through the same path: `train` of
+     `humanoid_joint_deploy` (2048 XBot-L + 2048 XBot-S envs on the deploy
+     field, the estimator head, the survival curriculum) for 10 iterations
+     in its own process, in a temporary directory: exit 0, 10 metrics
+     lines, finite losses, no non-finite reset, 2 x 60 x 10 terrain
+     launches plus the reset step of each robot and no flat one (the
+     expectation read from the env the registry builds, not from the
+     task's name), checkpoints 0 and 10; checkpoint 10 exported and rolled
+     as XBot-L (phase 12 (a)) and XBot-S (phase 12 (b)), reported; then a
+     second process resumed from checkpoint 10 for 2 iterations, its
+     metrics numbered 10-11, its launches as many; the phase's wall time
+     beside its prediction;
  23. the random draw sites of the training path, each held to the
      closed-form law of its config at 4096 envs with the env's CUDA
      generator (the checks of tests/test_torch_random_paths.py, whose
@@ -180,21 +194,25 @@ script exits non-zero):
      initial episode lengths. One line a site; a miss fails the run;
  24. the training iteration captured as one CUDA graph against the eager
      one (`algo/capture.py`), at 4096 envs and T=60 for humanoid_ppo,
-     humanoid_ppo_terrain_robust and humanoid_joint_ppo (2048 + 2048): 3
-     iterations a side from one snapshot (train state, env state, obs,
-     every generator), parameters, Adam moments, count, learning rate, env
-     state, obs and metrics bit-equal (a difference up to CAPTURE_REL_TOL
-     relative passes only with its tensor named); the task's mega kernel
-     launched T (joint: 2 T) times an iteration on each side, counted from
-     the replays, and as often in one profiled replay where the profiler
-     lists a graph's kernels; capture seconds, eager and replayed
-     iteration ms on CUDA events and on the host clock, the replay's
-     device idle share, the peak memory with the graph's pool;
+     humanoid_ppo_terrain_robust, humanoid_joint_ppo (2048 + 2048) and
+     humanoid_joint_deploy (2048 + 2048 on the deploy field, the survival
+     curriculum): 3 iterations a side from one snapshot (train state, env
+     state, obs, every generator) taken after 2 eager warm-up iterations,
+     parameters, Adam moments, count, learning rate, env state (terrain
+     levels and origins included), obs and metrics bit-equal (a difference
+     up to CAPTURE_REL_TOL relative passes only with its tensor named); the
+     env's kernel kind launched T times a robot an iteration on each side,
+     counted from the replays, none of the other, and as often in one
+     profiled replay where the profiler lists a graph's kernels; with a
+     terrain curriculum, levels that changed inside the compared window
+     (at least one); capture seconds, eager and replayed iteration ms on
+     CUDA events and on the host clock, the replay's device idle share,
+     the peak memory with the graph's pool;
  25. one JSON line with a record per kernel, the card line, then the
      contract line {"ok": true, "device": {...}}.
 
-Phases 5, 5c, 8, 9, 11, 13, 15, 17, 19, 20 (`dryrun_multichip(1)`), 21
-and 22 train through entry points that run the captured iteration on the
+Phases 5, 5c, 8, 9, 11, 13, 15, 17, 19, 20 (`dryrun_multichip(1)`), 21,
+22 and 22j train through entry points that run the captured iteration on the
 card (phase 13's two gloo ranks as graphs cut at each all-reduce), as the
 JAX package jit-compiles them; phase 16's stages run eagerly.
 
@@ -1735,44 +1753,81 @@ WALK_VX = 0.4
 # policy steps, median forward distance in m
 WALK_GATE = (0.95, 0.8)
 # the child process: scripts/train_torch.py's train() on the command line's
-# flags, then the mega kernel's launch counts of the whole process
+# flags, then the process's peak device memory in GiB and, on the last
+# line, the mega kernel's launch counts of the whole process
 TRAIN_CHILD = """
-import json, sys
+import json, sys, torch
 sys.path.insert(0, "scripts")
 from train_torch import train
 from humanoid_gym_tpu_torch.physics import mega as MG
 from humanoid_gym_tpu_torch.utils.helpers import get_args
 train(get_args(sys.argv[1:]))
+print(json.dumps({"peak_gib": torch.cuda.max_memory_allocated() / 2**30
+                  if torch.cuda.is_available() else None}))
 print(json.dumps({"flat": MG.mega_kernel_launch.launches,
                   "terrain": MG.mega_kernel_launch.terrain_launches}))
 """
+# a run rolls every ROLL_EVERY-th checkpoint and its last; a run longer
+# than LONG_RUN iterations every ROLL_EVERY_LONG-th
+ROLL_EVERY, ROLL_EVERY_LONG, LONG_RUN = 100, 500, 1000
+# what `--train` keeps of a run's checkpoints once they are rolled: the
+# last KEEP_LAST with their nets, every CURVE_EVERY-th with its actor only
+# (all that export and the MuJoCo farm read), no other, so that a
+# 3001-iteration joint run (4.6 MB a net, 2.1 MB an actor) comes back
+# from the GPU machine under 64 MiB
+KEEP_LAST, CURVE_EVERY = 4, 200
 
 
-def _train_and_roll(card, dev, task, iters, seed, root, tag, gate_at=None):
+def _env_kernels(env):
+    """(kind of mega kernel the env's steps launch, "flat" or "terrain";
+    number of robots, one launch each a policy step) of a HumanoidEnv or a
+    JointEnv."""
+    subs = getattr(env, "envs", [env])
+    (kind,) = {"flat" if e.terrain_map is None else "terrain" for e in subs}
+    return kind, len(subs)
+
+
+def _training_launches(task, iters):
+    """The launches a training process of `iters` iterations of `task`
+    makes, read from the env the registry builds for it (2 envs on the
+    CPU) and the task's horizon T: T x robots x iters of its kernel kind
+    plus the runner's reset step (one launch a robot), none of the other
+    kind. Returns ({"flat": n, "terrain": n}, robots)."""
+    from humanoid_gym_tpu_torch import registry
+
+    env, _ = registry.make_env(task, num_envs=2, device="cpu", seed=0)
+    kind, robots = _env_kernels(env)
+    t = registry.get_task(task).make_train_cfg().runner.num_steps_per_env
+    want = {"flat": 0, "terrain": 0}
+    want[kind] = t * robots * iters + robots
+    return want, robots
+
+
+def _train_process(card, task, iters, seed, root, tag, resume=None):
     """`scripts/train_torch.py`'s `train` in a fresh process, `--task task
     --num_envs 4096 --max_iterations iters` (`seed` None: the config's;
-    solver mega on the card, HGT_WANDB=0), the run directory under `root`.
-    Hard checks: exit 0; `iters` lines in metrics.jsonl, every loss finite
-    and no non-finite reset; 60 x iters launches of the task's mega kernel
-    plus the runner's reset step and none of the other; a checkpoint every
-    100 iterations and at `iters`. Then each checkpoint past 0 is exported
-    (`export_checkpoint`) and rolled as phase 12 (a) rolls the walk demo
-    (flat `humanoid_ppo`); the line of checkpoint `gate_at` names
-    WALK_GATE, which the caller holds it to. Returns (run directory,
-    {checkpoint: (survived, median)}, launches, seconds of the training
-    process)."""
+    solver mega on the card, HGT_WANDB=0), the run directory under `root`;
+    `resume` (run directory, checkpoint) adds `--resume --load_run
+    --checkpoint` and the new run directory sits beside it. Hard checks:
+    exit 0; `iters` lines in metrics.jsonl numbered on from the loaded
+    iteration, every loss finite and no non-finite reset; the launches of
+    `_training_launches`; a checkpoint every save_interval iterations and at
+    the end. Returns (run directory, metrics lines, launches, robots,
+    seconds of the process)."""
     import glob
-    import shutil
 
-    from humanoid_gym_tpu_torch.export import export_checkpoint
-    from humanoid_gym_tpu_torch.physics import mega as MG
+    from humanoid_gym_tpu_torch import registry
 
-    shutil.rmtree(root, ignore_errors=True)
     env = dict(os.environ, HGT_WANDB="0")
     for k in ("HGT_SOLVER", "HGT_PROFILE_DIR"):
         env.pop(k, None)
     flags = ["--task", task, "--num_envs", str(N_ENVS), "--max_iterations", str(iters),
              "--log_root", root] + ([] if seed is None else ["--seed", str(seed)])
+    start, before = 0, set(glob.glob(os.path.join(root, "*", "")))
+    if resume is not None:
+        start = resume[1]
+        flags += ["--resume", "--load_run", os.path.basename(os.path.normpath(resume[0])),
+                  "--checkpoint", str(start)]
     t0 = time.perf_counter()
     timeout = TRAIN_TIMEOUT_S * max(iters, TRAIN_ITERS) // TRAIN_ITERS
     run = subprocess.run([sys.executable, "-c", TRAIN_CHILD] + flags, capture_output=True,
@@ -1781,58 +1836,128 @@ def _train_and_roll(card, dev, task, iters, seed, root, tag, gate_at=None):
     if run.returncode != 0:
         raise AssertionError(f"{tag}: the training process exited {run.returncode}:\n"
                              f"{run.stdout[-3000:]}\n{run.stderr[-6000:]}")
-    launches = json.loads(run.stdout.strip().splitlines()[-1])
-    (run_dir,) = glob.glob(os.path.join(root, "*", ""))
+    peak, launches = map(json.loads, run.stdout.strip().splitlines()[-2:])
+    peak = "not measured" if peak["peak_gib"] is None else f"{peak['peak_gib']:.2f} GiB"
+    (run_dir,) = set(glob.glob(os.path.join(root, "*", ""))) - before
     with open(os.path.join(run_dir, "train_stdout.txt"), "w") as f:
         f.write(run.stdout)
     lines = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
-    ckpts = sorted(os.path.basename(p) for p in glob.glob(os.path.join(run_dir, "model_*.ckpt")))
+    ckpts = sorted((os.path.basename(p) for p in glob.glob(os.path.join(run_dir, "model_*.ckpt"))),
+                   key=lambda p: int(p[6:-5]))
     losses = [v for ln in lines for k, v in ln.items() if k.startswith("Loss/")]
     nonfinite = sum(ln["Train/nonfinite_resets"] for ln in lines)
-    kind, other = ("terrain", "flat") if "terrain" in task else ("flat", "terrain")
-    want = {kind: T_STEPS * iters + 1, other: 0}  # + the runner's reset step
-    dts = [ln["Perf/iter_time"] for ln in lines[1:]]  # after the first (warm-up) iteration
+    want, robots = _training_launches(task, iters)
+    save = registry.get_task(task).make_train_cfg().runner.save_interval
+    saved = {i for i in range(start, start + iters) if i % save == 0} | {start + iters}
+    first = 1 if len(lines) > 1 else 0  # after the first (warm-up) iteration
+    dts = [ln["Perf/iter_time"] for ln in lines[first:]]
     seed_txt = "seed of the config" if seed is None else f"seed {seed}"
+    resumed = "" if resume is None else f", resumed from checkpoint {start}"
+    shown = ckpts if len(ckpts) <= 8 else ckpts[:3] + ["..."] + ckpts[-3:]
     _log(f"{tag} train: scripts/train_torch.py train() in its own process, {task} "
-         f"{N_ENVS} envs, {iters} iterations, {seed_txt}, solver mega | "
-         f"{train_s:.1f} s | s an iteration (dispatch to dispatch, iterations 2-{iters}) "
-         f"median {statistics.median(dts):.3f}, min {min(dts):.3f}, max {max(dts):.3f} | mega "
-         f"launches {launches} (= {T_STEPS} x {iters} + 1 reset step) | metrics lines "
-         f"{len(lines)}, losses finite {all(map(math.isfinite, losses))}, non-finite resets "
-         f"{nonfinite:g} | {', '.join(ckpts)} | {card}")
-    saved = set(range(0, iters, 100)) | {iters}
-    if not (len(lines) == iters and [ln["iter"] for ln in lines] == list(range(iters))
+         f"{N_ENVS} envs ({robots} robot{'s' if robots > 1 else ''}), {iters} iterations, "
+         f"{seed_txt}{resumed}, solver mega | {train_s:.1f} s | s an iteration (dispatch to "
+         f"dispatch, iterations {start + first + 1}-{start + iters}) median "
+         f"{statistics.median(dts):.3f}, min {min(dts):.3f}, max {max(dts):.3f} | mega "
+         f"launches {launches} (expected {want}: T x {robots} x {iters} + {robots} reset "
+         f"step{'s' if robots > 1 else ''}) | peak device memory {peak} | metrics lines "
+         f"{len(lines)}, losses finite "
+         f"{all(map(math.isfinite, losses))}, non-finite resets {nonfinite:g} | {len(ckpts)} "
+         f"checkpoints: {', '.join(shown)} | {card}")
+    _log(f"{tag} curve: {_curve_line(lines, robots)} | {card}")
+    numbered = [ln["iter"] for ln in lines] == list(range(start, start + iters))
+    if not (len(lines) == iters and numbered
             and all(map(math.isfinite, losses)) and nonfinite == 0 and launches == want
             and {f"model_{i}.ckpt" for i in saved} <= set(ckpts)):
         raise AssertionError(f"{tag}: {len(lines)} metrics lines, non-finite resets "
                              f"{nonfinite}, launches {launches} (expected {want}), {ckpts}")
-    _log(f"{tag} curve: " + " | ".join(
+    return run_dir, lines, launches, robots, train_s
+
+
+def _curve_line(lines, robots):
+    """The learning curve of metrics.jsonl lines: mean reward, mean episode
+    length (and, with two robots, the estimator loss) at the first
+    iteration, every 50th (every 250th past LONG_RUN iterations) and the
+    last; the non-finite resets and the iterations with a non-finite loss
+    or step reward; the last learning rate. Iterations count from 1
+    (metrics.jsonl's `iter` + 1)."""
+    n = len(lines)
+    every = 250 if n > LONG_RUN else 50
+    at = sorted({1, n} | set(range(every, n + 1, every)))
+    bad = [ln["iter"] + 1 for ln in lines if not all(
+        math.isfinite(v) for k, v in ln.items() if k.startswith("Loss/")
+        or k == "Train/mean_step_reward")]
+    resets = [ln["iter"] + 1 for ln in lines if ln["Train/nonfinite_resets"]]
+    return (" | ".join(
         f"iteration {i}: mean_reward {lines[i - 1]['Train/mean_reward']:.4g}, mean_episode_length "
         f"{lines[i - 1]['Train/mean_episode_length']:.1f}"
-        for i in sorted({1} | set(range(50, iters + 1, 50))))
-        + f" | learning rate at iteration {iters} {lines[-1]['Loss/learning_rate']:.3e}"
-        + f" | {card}")
-    rolled = {}
-    for ck in sorted(saved - {0}):
-        with tempfile.TemporaryDirectory() as out:
-            export_checkpoint(os.path.join(run_dir, f"model_{ck}.ckpt"), out)
+        + (f", estimator loss {lines[i - 1]['Loss/estimator']:.4g}" if robots > 1 else "")
+        for i in at)
+        + f" | non-finite resets {sum(ln['Train/nonfinite_resets'] for ln in lines):g} in "
+        f"{len(resets)} iterations (first {resets[:1]}), iterations with a non-finite loss or "
+        f"step reward {bad} | learning rate at the last iteration "
+        f"{lines[-1]['Loss/learning_rate']:.3e}")
+
+
+def _roll_checkpoint(path, robots, dev):
+    """The actor of the checkpoint at `path` exported (`export_checkpoint`)
+    and rolled as phase 12 rolls the demos: XBot-L on `humanoid_ppo` at
+    WALK_VX (12 (a)); for a joint policy (two robots) also XBot-S on
+    `humanoid_s_ppo` at WALK_VX sqrt(s) (12 (b)). Each roll must launch the
+    flat kernel 401 times and the terrain one never. Returns {robot:
+    (survived, median m, vx, seconds)}."""
+    from humanoid_gym_tpu_torch.config.xbots import SCALE
+    from humanoid_gym_tpu_torch.export import export_checkpoint
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    cases = [("L", TRAIN_TASK, WALK_VX)]
+    if robots == 2:
+        cases.append(("S", "humanoid_s_ppo", WALK_VX * math.sqrt(SCALE)))
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        export_checkpoint(path, d)
+        for robot, task, vx in cases:
             MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
             t0 = time.perf_counter()
-            rolled[ck] = _roll_policy(TRAIN_TASK, os.path.join(out, "policy.npz"), WALK_VX, False,
-                                      dev)
+            survived, median = _roll_policy(task, os.path.join(d, "policy.npz"), vx, False, dev)
             n = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
-        gate = (f"gate >= {WALK_GATE[0]} and >= {WALK_GATE[1]} m" if ck == gate_at
-                else "reported, not gated")
-        _log(f"{tag} checkpoint {ck}: export_checkpoint -> policy.npz, rolled as phase 12 (a): "
-             f"{N_ENVS} envs, vx {WALK_VX} m/s, 400 steps in {time.perf_counter() - t0:.1f} s | "
-             f"survived {rolled[ck][0]:.4f}, median forward distance {rolled[ck][1]:.3f} m ({gate})"
-             f" | mega launches (flat, terrain) {n} | {card}")
-        if n != (401, 0):
-            raise AssertionError(f"{tag} (checkpoint {ck}): kernel launches (flat, terrain) {n}")
-    # model_0 is the untrained net; dropping it keeps the run directory
-    # under 60 MiB (the last checkpoint carries the 4096 envs' state: ~45 MB)
+            if n != (401, 0):
+                raise AssertionError(f"{path} on {task}: kernel launches (flat, terrain) {n}")
+            out[robot] = (survived, median, vx, time.perf_counter() - t0)
+    return out
+
+
+def _train_and_roll(card, dev, task, iters, seed, root, tag, gate_at=None):
+    """`_train_process` of `task` under a fresh `root`, then every
+    ROLL_EVERY-th saved checkpoint past 0 (ROLL_EVERY_LONG-th past LONG_RUN
+    iterations) and the last rolled by `_roll_checkpoint` (XBot-L; XBot-S
+    too for a joint task); the line of
+    checkpoint `gate_at` names WALK_GATE, which the caller holds its
+    XBot-L roll to. model_0 (the untrained net) is removed. Returns (run
+    directory, {checkpoint: {robot: (survived, median, vx, s)}}, launches,
+    robots, seconds of the training process)."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    run_dir, lines, launches, robots, train_s = _train_process(card, task, iters, seed, root, tag)
+    saved = sorted(int(p[6:-5]) for p in os.listdir(run_dir)
+                   if p.startswith("model_") and p.endswith(".ckpt"))
+    roll_every = ROLL_EVERY_LONG if iters > LONG_RUN else ROLL_EVERY
+    rolled = {}
+    for ck in [c for c in saved if c and (c % roll_every == 0 or c == saved[-1])]:
+        rolled[ck] = _roll_checkpoint(os.path.join(run_dir, f"model_{ck}.ckpt"), robots, dev)
+        for robot, (survived, median, vx, seconds) in rolled[ck].items():
+            gate = (f"gate >= {WALK_GATE[0]} and >= {WALK_GATE[1]} m"
+                    if ck == gate_at and robot == "L" else "reported, not gated")
+            _log(f"{tag} checkpoint {ck}: export_checkpoint -> policy.npz, XBot-{robot} rolled as "
+                 f"phase 12 ({'a' if robot == 'L' else 'b'}): {N_ENVS} envs, vx {vx:.4f} m/s, 400 "
+                 f"steps in {seconds:.1f} s | survived {survived:.4f}, median forward distance "
+                 f"{median:.3f} m ({gate}) | mega launches (flat, terrain) (401, 0) | {card}")
+    # model_0 is the untrained net; dropping it keeps phase 22's run
+    # directory under 60 MiB (the last checkpoint carries the 4096 envs'
+    # state: ~45 MB)
     os.remove(os.path.join(run_dir, "model_0.ckpt"))
-    return run_dir, rolled, launches, train_s
+    return run_dir, rolled, launches, robots, train_s
 
 
 def _phase22_train_from_scratch(card, dev):
@@ -1841,39 +1966,113 @@ def _phase22_train_from_scratch(card, dev):
     WALK_GATE, checkpoint 100 reported. Returns the launches of the
     training process."""
     t_phase = time.perf_counter()
-    run_dir, rolled, launches, train_s = _train_and_roll(
+    run_dir, rolled, launches, _, train_s = _train_and_roll(
         card, dev, TRAIN_TASK, TRAIN_ITERS, None, TRAIN_ROOT, "phase 22", gate_at=TRAIN_ITERS)
     _log(f"phase 22 wall time {time.perf_counter() - t_phase:.1f} s (training process "
          f"{train_s:.1f} s) | run directory {os.path.relpath(run_dir, HERE)} | {card}")
-    survived, median = rolled[TRAIN_ITERS]
+    survived, median = rolled[TRAIN_ITERS]["L"][:2]
     if not (survived >= WALK_GATE[0] and median >= WALK_GATE[1]):
         raise AssertionError(f"phase 22: checkpoint {TRAIN_ITERS} survived {survived}, median "
                              f"{median} m (gate {WALK_GATE})")
     return launches
 
 
+# ---- phase 22j: the production joint recipe through `--train`'s path ----
+
+JOINT_TRAIN_TASK = "humanoid_joint_deploy"
+JOINT_TRAIN_ITERS = 10
+JOINT_RESUME_ITERS = 2
+# predicted wall time of phase 22j on the card (two training processes of
+# ~8 s start-up, ~10 s env build and capture each, 12 iterations of ~0.3 s,
+# two checkpoints with the env state; two 400-step rolls of ~8 s)
+JOINT_TRAIN_PREDICTED_S = (50, 90)
+
+
+def _phase22j_joint_train(card, dev):
+    """Phase 22j: `_train_and_roll` of `humanoid_joint_deploy` (2048 XBot-L
+    + 2048 XBot-S envs on the deploy field, the estimator head, the
+    survival curriculum) for JOINT_TRAIN_ITERS iterations, the config's
+    seed, in a temporary directory: every hard check of `_train_process`
+    (B1t 2 x 60 x iters + 2 times, no flat launch), the last checkpoint
+    exported and rolled as XBot-L and XBot-S; then `_train_process` again,
+    resumed from that checkpoint (`--resume --load_run --checkpoint`) for
+    JOINT_RESUME_ITERS iterations, its metrics numbered on from it and the
+    launches as many."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hgt_22j_") as root:
+        run_dir, rolled, launches, robots, train_s = _train_and_roll(
+            card, dev, JOINT_TRAIN_TASK, JOINT_TRAIN_ITERS, None, root, "phase 22j")
+        if robots != 2 or sorted(rolled) != [JOINT_TRAIN_ITERS] or sorted(
+                rolled[JOINT_TRAIN_ITERS]) != ["L", "S"]:
+            raise AssertionError(f"phase 22j: robots {robots}, rolled {rolled}")
+        _, lines, resumed, _, resume_s = _train_process(
+            card, JOINT_TRAIN_TASK, JOINT_RESUME_ITERS, None, root, "phase 22j resume",
+            resume=(run_dir, JOINT_TRAIN_ITERS))
+    wall = time.perf_counter() - t0
+    _log(f"phase 22j wall time {wall:.1f} s (predicted {JOINT_TRAIN_PREDICTED_S[0]}-"
+         f"{JOINT_TRAIN_PREDICTED_S[1]} s; training processes {train_s:.1f} + {resume_s:.1f} s) | "
+         f"launches {launches}; resumed from checkpoint {JOINT_TRAIN_ITERS}: iterations "
+         f"{lines[0]['iter']}-{lines[-1]['iter']}, launches {resumed} | {card}")
+
+
+def _kept_checkpoints(saved):
+    """Of the saved checkpoints (sorted), those `--train` keeps with their
+    nets (the last KEEP_LAST) and those it keeps with their actors only
+    (the other CURVE_EVERY-th)."""
+    nets = saved[-KEEP_LAST:]
+    return nets, [c for c in saved if c not in nets and c % CURVE_EVERY == 0]
+
+
+def _cut_run(run_dir):
+    """Cut a `--train` run directory to what comes back from the card: the
+    checkpoints of `_kept_checkpoints` (the nets, or the actors only; no
+    Adam moments, no env state), no other, no TensorBoard file
+    (metrics.jsonl holds the same scalars). Returns (the checkpoints kept
+    with their nets, those kept with their actors, MiB left)."""
+    import glob
+
+    import torch
+
+    saved = sorted(int(p[6:-5]) for p in os.listdir(run_dir)
+                   if p.startswith("model_") and p.endswith(".ckpt"))
+    nets, actors = _kept_checkpoints(saved)
+    for ck in saved:
+        path = os.path.join(run_dir, f"model_{ck}.ckpt")
+        if ck not in nets + actors:
+            os.remove(path)
+            continue
+        net = torch.load(path, map_location="cpu", weights_only=True)["train_state"]["net"]
+        if ck in actors:
+            net = {k: v for k, v in net.items() if k.startswith("actor.")}
+        torch.save({"train_state": {"net": net}}, path)
+    for p in glob.glob(os.path.join(run_dir, "events.out.tfevents*")):
+        os.remove(p)
+    size = sum(os.path.getsize(os.path.join(run_dir, p)) for p in os.listdir(run_dir))
+    return nets, actors, size / 2**20
+
+
 def _diagnostic_train(task: str, iters: int, seed: int) -> int:
     """`python3 chip_smoke.py --train TASK ITERS SEED`: the card line, the
     kernels' build, then `_train_and_roll` of TASK for ITERS iterations
-    from SEED under chiprun_out/train/<task>_s<seed>/, no gate. The
-    checkpoints are then cut to their nets (no Adam moments, no env
-    state), which is all that export and the MuJoCo farm read: ~4 MB each,
-    so that the run directory of a 300-iteration run stays under ~15 MB.
-    Prints no contract line."""
+    from SEED under chiprun_out/train/<task>_s<seed>/, no gate. Then, also
+    when a check failed, the run directory is cut (`_cut_run`) and the kept
+    checkpoints are printed. Prints no contract line."""
+    import glob
+
     import torch
 
     card = _phase12_card_and_build()
     t0 = time.perf_counter()
     root = os.path.join(HERE, "chiprun_out", "train", f"{task}_s{seed}")
-    run_dir, _, _, train_s = _train_and_roll(card, torch.device("cuda"), task, iters, seed, root,
-                                             f"train {task} seed {seed}")
-    for p in sorted(os.listdir(run_dir)):
-        if p.startswith("model_") and p.endswith(".ckpt"):
-            path = os.path.join(run_dir, p)
-            net = torch.load(path, map_location="cpu", weights_only=True)["train_state"]["net"]
-            torch.save({"train_state": {"net": net}}, path)
-    _log(f"train {task} seed {seed} wall time {time.perf_counter() - t0:.1f} s (training process "
-         f"{train_s:.1f} s) | run directory {os.path.relpath(run_dir, HERE)} | {card}")
+    try:
+        _train_and_roll(card, torch.device("cuda"), task, iters, seed, root,
+                        f"train {task} seed {seed}")
+    finally:
+        for run_dir in glob.glob(os.path.join(root, "*", "")):
+            nets, actors, mib = _cut_run(run_dir)
+            _log(f"train {task} seed {seed} wall time {time.perf_counter() - t0:.1f} s | run "
+                 f"directory {os.path.relpath(run_dir, HERE)}, {mib:.1f} MiB | kept with their "
+                 f"nets: {nets}; their actors only: {actors} | {card}")
     return 0
 
 
@@ -1893,6 +2092,121 @@ def _diagnostic_roll(npz: str, n_envs: int, horizons) -> int:
         _log(f"roll {npz}: {n_envs} envs, vx {WALK_VX} m/s, {n} steps in "
              f"{time.perf_counter() - t0:.1f} s | survived {survived:.4f}, median forward "
              f"distance {median:.3f} m | {card}")
+    return 0
+
+
+# ---- the non-finite probe: physics inputs of the steps that explode ----
+
+NONFINITE_TASK = "humanoid_joint_deploy"
+NONFINITE_HISTORY = 200  # policy steps of physics inputs kept before an event
+NONFINITE_ROOT = os.path.join(HERE, "chiprun_out", "nonfinite")
+
+
+NONFINITE_KEPT = 16  # events whose inputs are kept; every event is counted
+
+
+def _nonfinite_events(ckpt, steps, dev, n_envs=N_ENVS, actor_npz=None):
+    """NONFINITE_TASK at n_envs envs on `dev` with its training config (DR,
+    noise, pushes, the curriculum; solver mega) driven for `steps` policy
+    steps by the net of the checkpoint `ckpt` (actions drawn from its
+    Gaussian as the rollout draws them), its actor replaced by
+    `actor_npz`'s where one is given (an exported policy keeps no std).
+    Every sub-env's physics step is wrapped: an env whose state leaves the
+    step non-finite, or whose reward is non-finite with a finite state, is
+    an event. Returns ({(robot, kind): count}, the first NONFINITE_KEPT events,
+    each with its robot, kind, step, env, terrain level and type, episode
+    length, the physics inputs (PhysicsState rows and targets) of its last
+    NONFINITE_HISTORY steps and the step's outputs)."""
+    import collections
+    import dataclasses
+
+    import torch
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo.convert import actor_critic_from_npz
+    from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
+
+    env, cfg = registry.make_env(NONFINITE_TASK, num_envs=n_envs, cfg_overrides=_solver_mega,
+                                 device=dev, seed=0)
+    tcfg = registry.get_task(NONFINITE_TASK).make_train_cfg()
+    net = actor_critic_from_cfg(cfg.env, tcfg.policy, seed=0).to(dev)
+    net.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True)
+                        ["train_state"]["net"])
+    if actor_npz is not None:
+        actor_critic_from_npz(net, actor_npz)
+    subs = getattr(env, "envs", [env])
+    offsets = [0]
+    for e in subs[:-1]:
+        offsets.append(offsets[-1] + e.num_envs)
+    history = [collections.deque(maxlen=NONFINITE_HISTORY) for _ in subs]
+    last_out = [None] * len(subs)
+
+    def rows(ps, i):
+        return {f.name: getattr(ps, f.name)[i].detach().cpu().clone()
+                for f in dataclasses.fields(ps)}
+
+    def wrap(k, real):
+        def step(phys, targets):
+            out = real(phys, targets)
+            history[k].append((phys, targets.clone()))
+            last_out[k] = out
+            return out
+        return step
+
+    for k, e in enumerate(subs):
+        e._phys_step = wrap(k, e._phys_step)
+    events, counts = [], collections.Counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    state, obs, _ = env.reset_all()
+    with torch.no_grad():
+        for t in range(steps):
+            mean, std = net.act(obs)
+            action = mean + std * torch.randn(mean.shape, generator=gen, device=dev)
+            prev = state if isinstance(state, list) else [state]
+            state, tr = env.step(state, action)
+            bad_rew = ~torch.isfinite(tr.reward)
+            for k, e in enumerate(subs):
+                out = last_out[k]
+                exploded = ~(torch.isfinite(out.qpos).all(1) & torch.isfinite(out.qvel).all(1))
+                reward = bad_rew[offsets[k]:offsets[k] + e.num_envs] & ~exploded
+                for kind, mask in (("state", exploded), ("reward", reward)):
+                    for i in mask.nonzero()[:, 0].tolist():
+                        counts[(k, kind)] += 1
+                        if len(events) < NONFINITE_KEPT:
+                            events.append({
+                                "robot": k, "kind": kind, "step": t, "env": i,
+                                "terrain_level": float(prev[k].terrain_level[i]),
+                                "terrain_type": float(prev[k].terrain_type[i]),
+                                "episode_length": int(prev[k].episode_length[i]),
+                                "inputs": [(rows(p, i), tg[i].cpu()) for p, tg in history[k]],
+                                "out": rows(out, i)})
+            obs = tr.obs
+    return counts, events
+
+
+def _diagnostic_nonfinite(ckpt: str, steps: int, actor_npz=None) -> int:
+    """`python3 chip_smoke.py --nonfinite CKPT STEPS [ACTOR_NPZ]`: the card
+    line, the kernels' build, then `_nonfinite_events` at 4096 envs; the
+    events are saved to chiprun_out/nonfinite/events_<CKPT or ACTOR_NPZ's
+    name>.pt for a replay on the CPU (tests/test_torch_nonfinite.py).
+    Prints one JSON line of the counts and the events and no contract
+    line."""
+    import torch
+
+    card = _phase12_card_and_build()
+    t0 = time.perf_counter()
+    counts, events = _nonfinite_events(ckpt, steps, torch.device("cuda"), actor_npz=actor_npz)
+    os.makedirs(NONFINITE_ROOT, exist_ok=True)
+    tag = os.path.splitext(os.path.basename(actor_npz or ckpt))[0]
+    torch.save({"task": NONFINITE_TASK, "ckpt": ckpt, "actor": actor_npz, "steps": steps,
+                "events": events}, os.path.join(NONFINITE_ROOT, f"events_{tag}.pt"))
+    print(json.dumps({
+        "task": NONFINITE_TASK, "ckpt": ckpt, "actor": actor_npz, "envs": N_ENVS,
+        "steps": steps, "seconds": round(time.perf_counter() - t0, 1),
+        "counts": {f"robot {k} {kind}": n for (k, kind), n in sorted(counts.items())},
+        "events": [{k: v for k, v in ev.items() if k not in ("inputs", "out")} for ev in events],
+        "card": card}), flush=True)
     return 0
 
 
@@ -2188,8 +2502,12 @@ def _phase23_laws(card, dev, n_envs=N_ENVS):
 
 # ---- phase 24: the training iteration captured as one CUDA graph ----
 
-CAPTURE_TASKS = ("humanoid_ppo", TERRAIN_TASK, JOINT_TASK)
+CAPTURE_TASKS = ("humanoid_ppo", TERRAIN_TASK, JOINT_TASK, "humanoid_joint_deploy")
 CAPTURE_ITERS = 3  # compared iterations a side, then as many timed replays
+# eager iterations before the snapshot, so that the untrained robots fall
+# and reset inside the compared window (and a terrain curriculum moves
+# their levels there)
+CAPTURE_WARM_ITERS = 2
 # captured against eager: the same kernels on the same inputs and generator
 # offsets, so bit-equal is expected; a difference up to this (relative to
 # the tensor's largest magnitude) passes only with the tensor named
@@ -2209,20 +2527,23 @@ def _leaf_names(tree, prefix):
 
 
 def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAPTURE_ITERS,
-                            group=None, curriculum=None):
+                            group=None, curriculum=None, warm=0):
     """`task` at n_envs (global) envs, T = horizon, solver mega, on this
     rank of `group` (None: one process), the command curriculum forced to
-    `curriculum` where given: from one snapshot (train state, env state,
-    obs, every generator), `iters` iterations of the eager
-    `make_train_iter`, then `iters` of `CapturedTrainIter`, with the launch
-    counters zeroed before each side; then `iters` more replays timed and
-    one under torch.profiler. Returns the record: the largest relative
-    difference and the tensor it is in, the launches of each side, the
-    capture seconds, the iteration ms (CUDA events and host clock) of each
-    side, the replay's device busy ms, the profiler's count of
-    hgt_mega_kernel in one replay, the peak memory of each side, and under
-    a group the capture's cuts, the all-reduces of a timed replay and the
-    digest of the final train state."""
+    `curriculum` where given: after `warm` eager iterations from the
+    reset, one snapshot (train state, env state, obs, every generator),
+    then `iters` iterations of the eager `make_train_iter` from it, then
+    `iters` of `CapturedTrainIter`, with the launch counters zeroed before
+    each side; then `iters` more replays timed and one under
+    torch.profiler. Returns the record: the env's kernel kind and robots,
+    whether its terrain curriculum is on, the terrain levels that changed
+    inside the eager window (summed over its iterations), the largest
+    relative difference and the tensor it is in, the launches of each
+    side, the capture seconds, the iteration ms (CUDA events and host
+    clock) of each side, the replay's device busy ms, the profiler's count
+    of hgt_mega_kernel in one replay, the peak memory of each side, and
+    under a group the capture's cuts, the all-reduces of a timed replay and
+    the digest of the final train state."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2254,7 +2575,12 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
     gen = torch.Generator(device=dev)
     gen.manual_seed(rank_seed(1, group))
     generators = [gen, *env.generators()]
-    snap_inputs = clone_tree(env.reset_all())
+    inputs = env.reset_all()
+    eager_iter = make_train_iter(env, net, pc, n_envs, group)
+    for _ in range(warm):
+        _, *inputs, _ = eager_iter(ts, *inputs, gen)
+    snap_inputs, snap_iteration = clone_tree(inputs), ts.iteration
+    del inputs
     snap_ts = [t.detach().clone() for t in train_state_tensors(ts)]
     snap_gens = [g.get_state() for g in generators]
     names = ([f"param {k}" for k, _ in net.named_parameters()] + [f"mu {k}" for k in ts.opt_mu]
@@ -2262,11 +2588,18 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
              + _leaf_names(snap_inputs, "(state, obs, priv)"))
 
     metric_names = []
+    levels_moved = [0]
+
+    def levels(inputs):
+        state = inputs[0]
+        return torch.cat([s.terrain_level for s in (state if isinstance(state, list) else [state])])
 
     def timed(train_iter, inputs, n):
         """n calls from inputs: (per-call outputs, event ms, host ms, inputs after)."""
         outs, ev_ms, host_ms = [], [], []
+        levels_moved[0] = 0
         for _ in range(n):
+            before = levels(inputs).clone()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2279,13 +2612,14 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
             metric_names[:] = [f"metric {k}" for k in sorted(metrics)]
             kept = train_state_tensors(ts) + tensor_leaves(inputs)
             outs.append([t.detach().clone() for t in kept] + [metrics[k] for k in sorted(metrics)])
+            levels_moved[0] += int((levels(inputs) != before).sum())
         return outs, ev_ms, host_ms, inputs
 
     def side(train_iter):
         with torch.no_grad():
             for t, s in zip(train_state_tensors(ts), snap_ts):
                 t.copy_(s)
-        ts.iteration = 0
+        ts.iteration = snap_iteration
         for g, s in zip(generators, snap_gens):
             g.set_state(s)
         torch.cuda.synchronize()
@@ -2295,7 +2629,8 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
         launches = [a - b for a, b in zip(launch_counts(), before)]
         return res, launches, torch.cuda.max_memory_allocated() / 2**30
 
-    (eager, e_ev, e_host, _), e_launch, e_peak = side(make_train_iter(env, net, pc, n_envs, group))
+    (eager, e_ev, e_host, _), e_launch, e_peak = side(eager_iter)
+    moved = levels_moved[0]
     captured = CapturedTrainIter(env, net, pc, n_envs, group)
     (got, c_ev, c_host, inputs), c_launch, c_peak = side(captured)
     names += metric_names
@@ -2320,7 +2655,10 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == cuda]
     span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 if spans else None
-    rec = {"task": task, "envs": n_envs, "T": horizon, "worst_rel": worst, "where": where,
+    kind, robots = _env_kernels(env)
+    rec = {"task": task, "envs": n_envs, "T": horizon, "kind": kind, "robots": robots,
+           "curriculum": bool(cfg.terrain.curriculum) and kind == "terrain", "warm": warm,
+           "levels_moved": moved, "worst_rel": worst, "where": where,
            "launches_eager": e_launch, "launches_replayed": c_launch,
            "capture_s": captured.capture_seconds, "eager_ms": e_ev, "eager_host_ms": e_host,
            "captured_ms": c_ev, "captured_host_ms": c_host, "replay_ms": r_ev,
@@ -2341,23 +2679,27 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
 def _phase24_captured(card, dev):
     """Phase 24: the training iteration captured as one CUDA graph against
     the eager one, at 4096 envs and T = 60, for flat `humanoid_ppo` (B1),
-    `humanoid_ppo_terrain_robust` (B1t) and `humanoid_joint_ppo` (B1 twice a
-    step, 2048 + 2048 envs): 3 iterations a side from one snapshot, bit-equal
-    (a difference within CAPTURE_REL_TOL passes with its tensor named); the
-    task's kernel launched T (joint: 2 T) times an iteration on each side,
-    counted from the replays, and named as often in one profiled replay
-    where the profiler lists a graph's kernels; capture seconds, eager and
-    replayed iteration ms on CUDA events and on the host clock, the
-    replay's device idle share, the peak memory with the graph's pool.
-    Returns the records."""
+    `humanoid_ppo_terrain_robust` (B1t), `humanoid_joint_ppo` (B1 twice a
+    step, 2048 + 2048 envs) and the production recipe
+    `humanoid_joint_deploy` (B1t twice a step, 2048 + 2048 envs on the
+    deploy field, the survival curriculum): the snapshot taken after
+    CAPTURE_WARM_ITERS eager iterations, then 3 iterations a side from it,
+    bit-equal (a difference within CAPTURE_REL_TOL passes with its tensor
+    named); the kernel kind the env runs launched T times a robot an
+    iteration on each side, counted from the replays, none of the other,
+    and named as often in one profiled replay where the profiler lists a
+    graph's kernels; on a task with a terrain curriculum some levels must
+    change inside the compared window (their count printed); capture
+    seconds, eager and replayed iteration ms on CUDA events and on the
+    host clock, the replay's device idle share, the peak memory with the
+    graph's pool. Returns the records."""
     records = []
     for task in CAPTURE_TASKS:
         t0 = time.perf_counter()
-        r = _captured_against_eager(task, dev)
-        joint, terrain = task == JOINT_TASK, "terrain" in task
-        own = 1 if terrain else 0  # launch_counts(): flat, terrain, then the solvers
+        r = _captured_against_eager(task, dev, warm=CAPTURE_WARM_ITERS)
+        own = 1 if r["kind"] == "terrain" else 0  # launch_counts(): flat, terrain, the solvers
         want = [0] * 5
-        want[own] = (2 if joint else 1) * T_STEPS * CAPTURE_ITERS
+        want[own] = r["robots"] * T_STEPS * CAPTURE_ITERS
         per_iter = want[own] // CAPTURE_ITERS
         replay_ms = statistics.median(r["replay_host_ms"])
         span = r["replay_span_ms"]
@@ -2367,8 +2709,12 @@ def _phase24_captured(card, dev):
             f"{1.0 - r['replay_busy_ms'] / replay_ms:.3f} of the unprofiled replays' median "
             f"{replay_ms:.1f} ms")
         ms = lambda xs: ", ".join(f"{x:.1f}" for x in xs)  # noqa: E731
-        _log(f"phase 24 captured iteration: {task} {r['envs']} envs T={r['T']} solver mega | "
-             f"capture {r['capture_s']:.2f} s | eager ms {ms(r['eager_ms'])} (host "
+        levels = (f"terrain levels changed in the compared window {r['levels_moved']} (env x "
+                  f"iteration, after {r['warm']} warm-up iterations)" if r["curriculum"]
+                  else "no terrain curriculum")
+        _log(f"phase 24 captured iteration: {task} {r['envs']} envs ({r['robots']} robot"
+             f"{'s' if r['robots'] > 1 else ''}, {r['kind']} kernel) T={r['T']} solver mega | "
+             f"{levels} | capture {r['capture_s']:.2f} s | eager ms {ms(r['eager_ms'])} (host "
              f"{ms(r['eager_host_ms'])}) | captured ms {ms(r['captured_ms'])} (host "
              f"{ms(r['captured_host_ms'])}; the first holds the capture) | replayed ms "
              f"{ms(r['replay_ms'])} (host {ms(r['replay_host_ms'])}) | one profiled replay: device "
@@ -2385,6 +2731,9 @@ def _phase24_captured(card, dev):
         if r["launches_eager"] != want or r["launches_replayed"] != want:
             raise AssertionError(f"phase 24 {task}: launches eager {r['launches_eager']}, "
                                  f"replayed {r['launches_replayed']}, expected {want}")
+        if r["curriculum"] and not r["levels_moved"]:
+            raise AssertionError(f"phase 24 {task}: no terrain level changed in the compared "
+                                 f"window")
         if r["mega_in_trace"] not in (0, per_iter):
             raise AssertionError(f"phase 24 {task}: the profiler names hgt_mega_kernel "
                                  f"{r['mega_in_trace']} times in one replay")
@@ -3159,6 +3508,11 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repo (humanoid_gym_tpu_torch/ not found)",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--curve"]:
+        # a training run's curve from its metrics.jsonl, on any host
+        lines = [json.loads(ln) for ln in open(sys.argv[2])]
+        print(_curve_line(lines, int(sys.argv[3]) if len(sys.argv) > 3 else 1), flush=True)
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -3171,6 +3525,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--train"]:
         task, iters, seed = sys.argv[2:5]
         return _diagnostic_train(task, int(iters), int(seed))
+    if sys.argv[1:2] == ["--nonfinite"]:
+        return _diagnostic_nonfinite(sys.argv[2], int(sys.argv[3]), *sys.argv[4:5])
     if sys.argv[1:2] == ["--roll"]:
         return _diagnostic_roll(sys.argv[2], int(sys.argv[3]), [int(s) for s in sys.argv[4:]])
 
@@ -3303,6 +3659,9 @@ def main() -> int:
 
     # ---- phase 22: the flat recipe trained from scratch on the card ----
     _phase22_train_from_scratch(card, dev)
+
+    # ---- phase 22j: the production joint recipe through the training process ----
+    _phase22j_joint_train(card, dev)
 
     # ---- phase 23: the random draw sites held to their laws on the card ----
     _phase23_laws(card, dev)

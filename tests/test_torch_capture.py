@@ -52,7 +52,7 @@ def _setup(task, solver, n=4):
 
 @pytest.mark.parametrize("solver", ["mega", "apgd"])
 @pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain_robust",
-                                  "humanoid_joint_ppo"])
+                                  "humanoid_joint_ppo", "humanoid_joint_deploy"])
 def test_train_iter_reads_no_host_data(task, solver, monkeypatch):
     """After one warm-up iteration, a whole world-size-1 train_iter (the
     permutation, the rollout with the env's draws and resets, GAE, the

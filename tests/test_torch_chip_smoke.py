@@ -10,6 +10,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "chip_smoke.py")
@@ -270,11 +271,12 @@ def test_phase22_is_wired(smoke):
     leaves as it was: scripts/train_torch.py's `train` in a fresh process on
     the recipe's flags (4096 envs, 200 iterations, the config's seed, the
     default solver, HGT_WANDB=0) with its run directory under chiprun_out/,
-    60 x 200 flat launches plus the reset step and no terrain launch;
-    checkpoints 100 and 200 exported and rolled as phase 12 (a), checkpoint
-    200 held to the walk demo's gate. Phase 20's sync-free steps take the
-    joint env too. The training and the rolls live in `_train_and_roll`,
-    which `--train` also runs."""
+    60 x 200 flat launches plus the reset step and no terrain launch (the
+    expectation read from the env the registry builds); checkpoints 100
+    and 200 exported and rolled as phase 12 (a), checkpoint 200 held to the
+    walk demo's gate. Phase 20's sync-free steps take the joint env too.
+    The training and the rolls live in `_train_and_roll`, which `--train`
+    and phase 22j also run."""
     src = open(SCRIPT).read()
     order = [src.index(s) for s in (
         "launches_bench = _phase21_bench(card)", "    _phase22_train_from_scratch(card, dev)",
@@ -291,13 +293,18 @@ def test_phase22_is_wired(smoke):
     assert '"--max_iterations", str(iters),' in src and '"--log_root", root]' in src
     assert '([] if seed is None else ["--seed", str(seed)])' in src
     assert 'env = dict(os.environ, HGT_WANDB="0")' in src
-    assert 'want = {kind: T_STEPS * iters + 1, other: 0}' in src
-    assert 'kind, other = ("terrain", "flat") if "terrain" in task else ("flat", "terrain")' in src
-    assert "saved = set(range(0, iters, 100)) | {iters}" in src
-    assert "for ck in sorted(saved - {0}):" in src
-    assert "_roll_policy(TRAIN_TASK, os.path.join(out, \"policy.npz\"), WALK_VX, False," in src
+    assert "want, robots = _training_launches(task, iters)" in src and "launches == want" in src
+    assert '"terrain" in task' not in src
+    assert smoke._training_launches(smoke.TRAIN_TASK, smoke.TRAIN_ITERS) == (
+        {"flat": 60 * 200 + 1, "terrain": 0}, 1)
+    assert ("saved = {i for i in range(start, start + iters) if i % save == 0} | "
+            "{start + iters}") in src
+    assert "c % roll_every == 0 or c == saved[-1]" in src and smoke.ROLL_EVERY == 100
+    assert "roll_every = ROLL_EVERY_LONG if iters > LONG_RUN else ROLL_EVERY" in src
+    assert 'cases = [("L", TRAIN_TASK, WALK_VX)]' in src
     assert "survived, median = _roll_policy(task, npz, vx, terrain, dev)" in src  # phase 12
     assert "n != (401, 0)" in src and "survived >= WALK_GATE[0] and median >= WALK_GATE[1]" in src
+    assert 'survived, median = rolled[TRAIN_ITERS]["L"][:2]' in src
     assert 'for task in ("humanoid_ppo", TERRAIN_TASK, JOINT_TASK):' in src
     assert smoke.JOINT_TASK == "humanoid_joint_ppo"
     assert "\n 22. the flat recipe trained from scratch" in smoke.__doc__
@@ -375,10 +382,13 @@ def test_phase23_misses_a_wrong_law(smoke, monkeypatch):
 def test_phase24_is_wired(smoke):
     """Phase 24 runs after phase 23 and before the kernels line, which it
     leaves as it was: the captured iteration against the eager one for
-    the flat, terrain and joint tasks at 4096 envs and T = 60, 3 iterations
-    a side, a difference above 1e-5 relative failing the run, the launch
-    counts T (joint: 2 T) an iteration on both sides. The main path of
-    phase 5 replays the captured iteration."""
+    the flat, terrain and joint tasks and the production recipe
+    `humanoid_joint_deploy` at 4096 envs and T = 60, 3 iterations a side
+    after 2 warm-up iterations, a difference above 1e-5 relative failing
+    the run, the launch counts T an iteration a robot of the env's kernel
+    kind on both sides, and a window with no level change failing a task
+    with a terrain curriculum. The main path of phase 5 replays the
+    captured iteration."""
     src = open(SCRIPT).read()
     order = [src.index(s) for s in (
         "    _phase23_laws(card, dev)", "    _phase24_captured(card, dev)",
@@ -386,10 +396,13 @@ def test_phase24_is_wired(smoke):
     assert order == sorted(order)
     assert src.count('route="cuda"') == 5 and "captured_launches" not in src
     assert smoke.CAPTURE_TASKS == ("humanoid_ppo", "humanoid_ppo_terrain_robust",
-                                   "humanoid_joint_ppo")
+                                   "humanoid_joint_ppo", "humanoid_joint_deploy")
     assert (smoke.CAPTURE_ITERS, smoke.CAPTURE_REL_TOL, smoke.N_ENVS, smoke.T_STEPS) == (
         3, 1e-5, 4096, 60)
-    assert "want[own] = (2 if joint else 1) * T_STEPS * CAPTURE_ITERS" in src
+    assert smoke.CAPTURE_WARM_ITERS == 2
+    assert "r = _captured_against_eager(task, dev, warm=CAPTURE_WARM_ITERS)" in src
+    assert 'want[own] = r["robots"] * T_STEPS * CAPTURE_ITERS' in src
+    assert 'if r["curriculum"] and not r["levels_moved"]:' in src
     assert 'r["launches_eager"] != want or r["launches_replayed"] != want' in src
     assert 'if r["worst_rel"] > CAPTURE_REL_TOL:' in src
     assert "train_iter = CapturedTrainIter(env, net, pcfg, N_ENVS)" in src
@@ -411,3 +424,137 @@ def test_phase24_names_every_compared_tensor(smoke):
     assert "x[0][0].phys.qpos" in names and "x[0][1].phys.qpos" in names
     assert names[-2:] == ["x[1]", "x[2]"]
     assert all(isinstance(t, torch.Tensor) for t in tensor_leaves(tree))
+
+
+_LAUNCH_TASKS = {"humanoid_ppo": ("flat", 1), "humanoid_ppo_terrain_robust": ("terrain", 1),
+                 "humanoid_joint_ppo": ("flat", 2), "humanoid_joint_deploy": ("terrain", 2)}
+
+
+@pytest.mark.parametrize("task", list(_LAUNCH_TASKS))
+def test_train_launches_match_the_env_the_registry_builds(smoke, task, monkeypatch):
+    """`_training_launches` (what `_train_and_roll` expects of a training
+    process) against the env the registry builds for the task: the mega
+    step's plain version, counted by kind on the CPU, runs once a robot
+    in the runner's reset (`reset_all`) and once a robot in each env step,
+    so a process of `iters` iterations of T steps launches T x that x
+    iters + the reset's of the one kind and none of the other."""
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    calls = {"flat": 0, "terrain": 0}
+    real = MG.mega_step_plain
+
+    def counted(*a, terrain=None, **k):
+        calls["flat" if terrain is None else "terrain"] += 1
+        return real(*a, terrain=terrain, **k)
+
+    monkeypatch.setattr(MG, "mega_step_plain", counted)
+
+    def ov(c):
+        c.sim.solver.solver_type = "mega"
+        c.sim.solver.solver_iterations = 2
+
+    env, _ = registry.make_env(task, num_envs=2, cfg_overrides=ov, device="cpu", seed=0)
+    state, _, _ = env.reset_all()
+    reset = dict(calls)
+    env.step(state, torch.zeros((2, env.num_actions)))
+    step = {k: calls[k] - reset[k] for k in calls}
+    kind, robots = _LAUNCH_TASKS[task]
+    assert reset == step == {"flat": 0, "terrain": 0, kind: robots}
+    t = registry.get_task(task).make_train_cfg().runner.num_steps_per_env
+    assert t == 60
+    want = {k: t * step[k] * 7 + reset[k] for k in calls}
+    assert smoke._training_launches(task, 7) == (want, robots)
+
+
+def test_phase22j_is_wired(smoke):
+    """Phase 22j runs after phase 22 and before phase 23, leaving the
+    kernels line as it was: `_train_and_roll` of humanoid_joint_deploy for
+    10 iterations in a temporary directory (the rolls of XBot-L and XBot-S
+    on its last checkpoint), then `_train_process` resumed from it for 2
+    more; its wall time printed beside the prediction. `--train` rolls
+    every 500th checkpoint of a run past 1000 iterations and keeps the
+    last four checkpoints' nets and every 200th one's actor."""
+    src = open(SCRIPT).read()
+    order = [src.index(s) for s in (
+        "    _phase22_train_from_scratch(card, dev)", "    _phase22j_joint_train(card, dev)",
+        "    _phase23_laws(card, dev)", 'print(json.dumps({"kernels"')]
+    assert order == sorted(order)
+    assert src.count('route="cuda"') == 5
+    assert (smoke.JOINT_TRAIN_TASK, smoke.JOINT_TRAIN_ITERS, smoke.JOINT_RESUME_ITERS) == (
+        "humanoid_joint_deploy", 10, 2)
+    assert smoke._training_launches(smoke.JOINT_TRAIN_TASK, smoke.JOINT_TRAIN_ITERS) == (
+        {"flat": 0, "terrain": 2 * 60 * 10 + 2}, 2)
+    body = inspect.getsource(smoke._phase22j_joint_train)
+    assert "tempfile.TemporaryDirectory" in body and "resume=(run_dir, JOINT_TRAIN_ITERS)" in body
+    assert 'rolled[JOINT_TRAIN_ITERS]) != ["L", "S"]' in body
+    assert "JOINT_TRAIN_PREDICTED_S" in body
+    roll = inspect.getsource(smoke._roll_checkpoint)
+    assert 'cases.append(("S", "humanoid_s_ppo", WALK_VX * math.sqrt(SCALE)))' in roll
+    assert '"--resume", "--load_run"' in inspect.getsource(smoke._train_process)
+    assert "\n 22j. the production joint recipe" in smoke.__doc__
+    assert (smoke.ROLL_EVERY, smoke.ROLL_EVERY_LONG, smoke.LONG_RUN) == (100, 500, 1000)
+    saved = list(range(100, 3001, 100)) + [3001]
+    nets, actors = smoke._kept_checkpoints(saved)
+    assert nets == [2800, 2900, 3000, 3001] and actors == list(range(200, 2601, 200))
+    assert smoke._kept_checkpoints([100, 200, 300]) == ([100, 200, 300], [])
+    assert '"ok"' not in inspect.getsource(smoke._diagnostic_train)
+
+
+def test_nonfinite_probe_records_an_injected_explosion(smoke, tmp_path, monkeypatch):
+    """`_nonfinite_events` (the probe behind `--nonfinite`) on the CPU at
+    4 envs: an XBot-S env whose physics step returns a non-finite velocity
+    at the second policy step is one event of robot 1, with the physics
+    inputs of every step before it (the reset step included) and the
+    step's non-finite output; nothing else counts. `--nonfinite` prints no
+    contract line."""
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
+
+    env, cfg = registry.make_env(smoke.NONFINITE_TASK, num_envs=4, device="cpu", seed=0)
+    tcfg = registry.get_task(smoke.NONFINITE_TASK).make_train_cfg()
+    net = actor_critic_from_cfg(cfg.env, tcfg.policy, seed=0)
+    ckpt = str(tmp_path / "model_1.ckpt")
+    torch.save({"train_state": {"net": net.state_dict()}}, ckpt)
+    real_make, calls = registry.make_env, [0]
+
+    def make(*a, **k):
+        env, cfg = real_make(*a, **k)
+        real = env.envs[1]._phys_step
+
+        def exploding(phys, targets):
+            out = real(phys, targets)
+            calls[0] += 1
+            if calls[0] == 3:  # the reset step, then policy steps 0 and 1
+                out = out.replace(qvel=out.qvel.index_fill(0, torch.tensor([1]), float("nan")))
+            return out
+
+        env.envs[1]._phys_step = exploding
+        return env, cfg
+
+    monkeypatch.setattr(registry, "make_env", make)
+    counts, events = smoke._nonfinite_events(ckpt, 3, "cpu", n_envs=4)
+    assert dict(counts) == {(1, "state"): 1}
+    (ev,) = events
+    assert (ev["robot"], ev["kind"], ev["step"], ev["env"]) == (1, "state", 1, 1)
+    assert len(ev["inputs"]) == 3 and ev["inputs"][-1][1].shape == (12,)
+    assert set(ev["inputs"][0][0]) >= {"qpos", "qvel", "contact_lam", "slope_bias"}
+    assert not torch.isfinite(ev["out"]["qvel"]).all()
+    assert 'sys.argv[1:2] == ["--nonfinite"]' in open(SCRIPT).read()
+    assert '"ok"' not in inspect.getsource(smoke._diagnostic_nonfinite)
+
+
+def test_curve_line_reads_the_committed_production_run(smoke):
+    """`--curve` (`_curve_line`) on the committed metrics of the port's
+    3001-iteration `humanoid_joint_deploy` run (seed 5): the curve every
+    250 iterations, the non-finite resets and the one iteration whose
+    step reward was non-finite, as docs/standings_torch/RESULTS.md quotes
+    them; it runs without a card."""
+    path = os.path.join(ROOT, "docs", "standings_torch", "joint_deploy_s5_metrics.jsonl")
+    run = subprocess.run([sys.executable, SCRIPT, "--curve", path, "2"], capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    line = run.stdout.strip()
+    assert line.count("iteration ") >= 14 and "iteration 3001: mean_reward" in line
+    assert "non-finite resets 84 in 82 iterations (first [376])" in line
+    assert "iterations with a non-finite loss or step reward [2954]" in line

@@ -58,12 +58,12 @@ def _load_script(name):
     return mod
 
 
-def _make_run_dir(tmp_path_factory, npz):
-    """A port run directory holding model_1.ckpt, whose actor is `npz`'s;
-    returns (its path, the runner's net)."""
-    env, _ = registry.make_env("humanoid_ppo", num_envs=1, device="cpu",
+def _make_run_dir(tmp_path_factory, npz, task="humanoid_ppo", num_envs=1):
+    """A port run directory of `task` holding model_1.ckpt, whose actor is
+    `npz`'s; returns (its path, the runner's net)."""
+    env, _ = registry.make_env(task, num_envs=num_envs, device="cpu",
                                cfg_overrides=lambda c: setattr(c.sim.solver, "solver_type", "apgd"))
-    runner = OnPolicyRunner(env, registry.get_task("humanoid_ppo").make_train_cfg(), log_dir=None)
+    runner = OnPolicyRunner(env, registry.get_task(task).make_train_cfg(), log_dir=None)
     actor_critic_from_npz(runner.net, npz)
     d = tmp_path_factory.mktemp("run")
     runner.save(str(d / "model_1.ckpt"))
@@ -78,6 +78,13 @@ def run_dir(tmp_path_factory):
 @pytest.fixture(scope="module")
 def footing_run_dir(tmp_path_factory):
     return _make_run_dir(tmp_path_factory, FOOTING_NPZ)
+
+
+@pytest.fixture(scope="module")
+def joint_run_dir(tmp_path_factory):
+    """A run directory of the production joint recipe (XBot-L + XBot-S,
+    the estimator head in its net) whose actor is the footing demo's."""
+    return _make_run_dir(tmp_path_factory, FOOTING_NPZ, "humanoid_joint_deploy", num_envs=2)
 
 
 # ------------------------------------------------------------ sim2sim loop
@@ -335,6 +342,29 @@ def test_eval_hfield_script_on_a_port_run(footing_run_dir):
     jax_script = _load_script("eval_hfield")
     assert {k: v for k, v in rec.items() if k != "ckpt"} == jax_script.eval_policy_path(
         FOOTING_NPZ, 2, 2.0, procs=1)
+
+
+def test_eval_hfield_script_scores_xbot_s_of_a_joint_run(joint_run_dir):
+    """scripts/eval_hfield_torch.py --run_dir --ckpt N --robot s on a port
+    joint run directory (the checkpoint's net holds the estimator head
+    too): one line, protocol spawn_v4_gated_xbots_v2 with the Froude-scaled
+    duration and commands, equal to the JAX script's
+    `eval_policy_path(..., robot="s")` on the same actor's npz, 2 rollouts
+    of 2 s."""
+    d, net = joint_run_dir
+    assert any(k.startswith("estimator.") for k in net.state_dict())
+    _load_script("eval_hfield_torch").main(
+        ["--run_dir", d, "--ckpt", "1", "--robot", "s", "--rollouts", "2", "--duration", "2",
+         "--procs", "1"])
+    lines = [json.loads(ln) for ln in open(os.path.join(d, "hfield_curve.jsonl"))]
+    assert len(lines) == 1
+    rec = lines[0]
+    assert rec["ckpt"] == 1 and rec["rollouts"] == 2 and rec["robot"] == "s"
+    assert rec["protocol"] == "spawn_v4_gated_xbots_v2"
+    assert rec["duration_s"] == pytest.approx(2.0 * (1.2 / 1.65) ** 0.5)
+    jax_script = _load_script("eval_hfield")
+    assert {k: v for k, v in rec.items() if k != "ckpt"} == jax_script.eval_policy_path(
+        FOOTING_NPZ, 2, 2.0, procs=1, robot="s")
 
 
 def test_robustness_curve_script_on_a_port_run(run_dir):

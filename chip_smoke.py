@@ -6,7 +6,7 @@
     python3 chip_smoke.py --train TASK ITERS SEED   # phases 1-2, then a training run as phase 22's, no gate
     python3 chip_smoke.py --roll POLICY.npz N_ENVS STEPS [STEPS ...]   # phases 1-2, then phase 12 (a)'s roll
     python3 chip_smoke.py --nonfinite CKPT STEPS [ACTOR.npz]   # phases 1-2, then the non-finite probe
-    python3 chip_smoke.py --curve METRICS.jsonl [ROBOTS]   # a run's learning curve; needs no card
+    python3 chip_smoke.py --curve METRICS.jsonl[.gz] [ROBOTS]   # a run's learning curve; needs no card
 
 Phases (each prints one line of its numbers; any failure raises, so the
 script exits non-zero):
@@ -190,7 +190,13 @@ script exits non-zero):
      observation noise; through B1t on `humanoid_ppo_terrain_robust`, the
      base xy about the origin, the contact stiffness, offset, compliance
      and slope bias and the initial level and type, then the re-entry level
-     and reset pose after a time-out on the top row; the runner's random
+     and reset pose after a time-out on the top row; through B1t on
+     `humanoid_joint_deploy` (2048 + 2048 on the deploy field), for XBot-L
+     and XBot-S each, the initial level over 0..20, the type spread, the
+     deploy origins and the spawn, the contact DR (friction, added mass,
+     stiffness, offset, compliance), the slope bias and the commands of
+     `init_state`, then the re-entry level and reset pose after a time-out
+     on or past the top row (one launch a robot); the runner's random
      initial episode lengths. One line a site; a miss fails the run;
  24. the training iteration captured as one CUDA graph against the eager
      one (`algo/capture.py`), at 4096 envs and T=60 for humanoid_ppo,
@@ -2329,8 +2335,12 @@ def _phase23_laws(card, dev, n_envs=N_ENVS):
     `init_state`: the base xy about the origin, the contact stiffness,
     offset and compliance, the slope bias, the initial level and type; from
     a time-out step on the top row: the re-entry level and the reset pose.
-    Then the runner's random initial episode lengths. Prints one line a
-    site; a miss fails the run."""
+    The production recipe `humanoid_joint_deploy` (B1t, each robot): from
+    `init_state` the initial level, type, origin and spawn, the contact DR,
+    the slope bias and the commands; from a time-out step on or past the
+    top row the re-entry level and the reset pose. Then the runner's
+    random initial episode lengths. Prints one line a site; a miss fails
+    the run."""
     import numpy as np
     import torch
     from scipy import stats
@@ -2475,6 +2485,67 @@ def _phase23_laws(card, dev, n_envs=N_ENVS):
         + _hold("reset base y - origin", xy1[:, 1], uniform(-1.0, 1.0)))
     del tenv, st, st1
 
+    # the production recipe: each robot's sites on the deploy field
+    # (tests/test_torch_random_paths_deploy.py holds them to the JAX package)
+    MG.mega_kernel_launch.launches = MG.mega_kernel_launch.terrain_launches = 0
+    denv, _ = registry.make_env(JOINT_TRAIN_TASK, num_envs=n_envs, cfg_overrides=_solver_mega,
+                                device=dev, seed=23)
+    step_in = []
+    for sub, st in zip(denv.envs, denv.init_state()):
+        robot, sdr, sc, scr = sub.cfg.asset.name, sub.cfg.domain_rand, sub.cfg.terrain, \
+            sub.cfg.commands.ranges
+        m, origins = st.terrain_level.shape[0], npy(sub.terrain_origins)
+        lvl, ty = npy(st.terrain_level).astype(int), npy(st.terrain_type).astype(int)
+        hi = sc.max_init_terrain_level
+        xy = npy(st.phys.qpos[:, :2]) - npy(st.env_origin[:, :2])
+        sites[f"{robot} deploy level, origin and spawn"] = (
+            _hold("terrain_level", lvl, stats.randint(0, hi + 1), support=np.arange(hi + 1))
+            + _exact("terrain_type", ty, np.arange(m) * sc.num_cols // m, 0.0)
+            + _exact("env_origin", npy(st.env_origin),
+                     origins[np.minimum(lvl, sc.num_rows - 1), ty])
+            + _hold("base x - origin", xy[:, 0], uniform(-1.0, 1.0))
+            + _hold("base y - origin", xy[:, 1], uniform(-1.0, 1.0))
+            + _hold("joint offset", npy(st.phys.qpos[:, 7:]) - npy(sub.default_dof_pos),
+                    uniform(-0.1, 0.1)))
+        sites[f"{robot} deploy contact DR"] = (
+            _hold("env_friction", npy(st.env_friction), uniform(*sdr.friction_range))
+            + _hold("added base mass (kg)",
+                    (npy(st.phys.base_mass_scale) - 1) * float(sub.model.body_mass[0]),
+                    uniform(*sdr.added_mass_range))
+            + sum((_hold(f, npy(getattr(st.phys, f)), stats.loguniform(*rng)) for f, rng in (
+                ("contact_stiffness", sdr.contact_stiffness_range),
+                ("contact_offset", sdr.contact_offset_range),
+                ("contact_compliance", sdr.contact_compliance_range))), []))
+        sites[f"{robot} deploy slope bias"] = sum(
+            (_hold(f"slope_bias {ax}", npy(st.phys.slope_bias[:, a]),
+                   uniform(*sdr.contact_slope_range)) for a, ax in ((0, "x"), (1, "y"))), [])
+        cs = npy(st.commands)
+        sites[f"{robot} deploy commands at init"] = (
+            _dead_zone("command", cs, scr.lin_vel_x, scr.lin_vel_y)
+            + _hold("heading", cs[:, 3], uniform(*scr.heading)))
+        # on the top row (19) or past it (20), timing out with no command
+        past = torch.where(torch.arange(m, device=dev) % 2 == 0, sc.num_rows - 1, sc.num_rows)
+        past = past.to(st.terrain_level.dtype)
+        step_in.append(st.replace(
+            episode_length=torch.full_like(st.episode_length, sub.max_episode_length),
+            terrain_level=past, env_origin=sub.terrain_origin(past, st.terrain_type),
+            commands=torch.zeros_like(st.commands)))
+    dst1, dtr1 = denv.step(step_in, torch.zeros((n_envs, 12), device=dev))
+    deploy_launches = (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches)
+    for sub, st1 in zip(denv.envs, dst1):
+        rows, origins = sub.cfg.terrain.num_rows, npy(sub.terrain_origins)
+        lvl1, ty1 = npy(st1.terrain_level).astype(int), npy(st1.terrain_type).astype(int)
+        xy1 = npy(st1.phys.qpos[:, :2]) - npy(st1.env_origin[:, :2])
+        sites[f"{sub.cfg.asset.name} deploy re-entry and reset pose"] = (
+            _hold("re-entry level", lvl1, stats.randint(0, rows), support=np.arange(rows))
+            + _exact("reset origin", npy(st1.env_origin), origins[lvl1, ty1])
+            + _hold("reset joint offset", npy(st1.phys.qpos[:, 7:]) - npy(sub.default_dof_pos),
+                    uniform(-0.1, 0.1))
+            + _hold("reset base x - origin", xy1[:, 0], uniform(-1.0, 1.0))
+            + _hold("reset base y - origin", xy1[:, 1], uniform(-1.0, 1.0)))
+    sites["deploy time-outs"] = _exact("every env timed out", npy(dtr1.time_out), 1.0, 0.0)
+    del denv, step_in, dst1
+
     from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
 
     runner = OnPolicyRunner(env, XBotLCfgPPO(), log_dir=None)
@@ -2491,13 +2562,16 @@ def _phase23_laws(card, dev, n_envs=N_ENVS):
         misses += [f"{site}: {lab} {s:.4g} > {lim:.4g}" for lab, s, lim in bad]
         _log(f"phase 23 {site}: {len(checks)} checks, {len(bad)} missed | closest: {label} "
              f"{stat:.4g} (limit {limit:.4g}) | {n_envs} envs | {card}")
-    want = ((3, 0), (0, 2)) if on_card else ((0, 0), (0, 0))
+    want = ((3, 0), (0, 2), (0, 2)) if on_card else ((0, 0), (0, 0), (0, 0))
+    got = (flat_launches, terrain_launches, deploy_launches)
     _log(f"phase 23 wall time {time.perf_counter() - t_phase:.1f} s | mega launches (flat, "
-         f"terrain): flat steps {flat_launches}, terrain steps {terrain_launches} | {card}")
-    if misses or (flat_launches, terrain_launches) != want:
+         f"terrain): flat steps {flat_launches}, terrain steps {terrain_launches}, deploy step "
+         f"{deploy_launches} | {card}")
+    if misses or got != want:
         raise AssertionError("phase 23: " + "; ".join(misses)
-                             + f" | launches {flat_launches}, {terrain_launches} (expected {want})")
-    return {"flat": flat_launches[0], "terrain": terrain_launches[1]}
+                             + f" | launches {got} (expected {want})")
+    return {"flat": flat_launches[0], "terrain": terrain_launches[1],
+            "deploy": deploy_launches[1]}
 
 
 # ---- phase 24: the training iteration captured as one CUDA graph ----
@@ -3509,8 +3583,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--curve"]:
-        # a training run's curve from its metrics.jsonl, on any host
-        lines = [json.loads(ln) for ln in open(sys.argv[2])]
+        # a training run's curve from its metrics.jsonl (or its gzip), on any host
+        import gzip
+
+        path = sys.argv[2]
+        with (gzip.open(path, "rt") if path.endswith(".gz") else open(path)) as f:
+            lines = [json.loads(ln) for ln in f]
         print(_curve_line(lines, int(sys.argv[3]) if len(sys.argv) > 3 else 1), flush=True)
         return 0
     import torch

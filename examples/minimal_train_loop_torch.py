@@ -29,6 +29,7 @@ def main(num_envs=8, iterations=3, horizon=8, device="cuda"):
     from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
     from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
     from humanoid_gym_tpu_torch.envs import make_env
+    from humanoid_gym_tpu_torch.parallel.multihost import stream_seed
     from humanoid_gym_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device(device)
@@ -36,16 +37,17 @@ def main(num_envs=8, iterations=3, horizon=8, device="cuda"):
     cfg.env.num_envs = num_envs
     cfg.sim.solver.solver_type = "mega" if device.type == "cuda" else "apgd"
 
+    # one seed, three streams (the JAX example's k_env, k_init and the rest)
     env = make_env(cfg, num_envs=num_envs, device=device, seed=0)
     net = ActorCritic(cfg.env.num_observations, cfg.env.num_privileged_obs,
-                      cfg.env.num_actions, seed=0).to(device)
+                      cfg.env.num_actions, seed=stream_seed(0, "net_init")).to(device)
     algo = PPOConfig()
     algo.num_steps_per_env = horizon
 
     ts = init_train_state(net, algo.learning_rate)
     state, obs, priv = env.reset_all()
     gen = torch.Generator(device=device)
-    gen.manual_seed(0)
+    gen.manual_seed(stream_seed(0, "action_noise"))
 
     train_iter = compiled_train_iter(env, net, algo, num_envs)
     history = []

@@ -11,9 +11,9 @@ runs.
 """
 
 from .mesh import EnvGroup, all_reduce_sum, make_env_group, replicate
-from .multihost import broadcast_str, local_env_slice, rank_seed, shard_path
+from .multihost import broadcast_str, local_env_slice, rank_seed, shard_path, stream_seed
 
 __all__ = [
     "EnvGroup", "all_reduce_sum", "broadcast_str", "local_env_slice", "make_env_group",
-    "rank_seed", "replicate", "shard_path",
+    "rank_seed", "replicate", "shard_path", "stream_seed",
 ]

@@ -30,14 +30,34 @@ def local_env_slice(num_envs: int, group: Optional[EnvGroup]) -> Tuple[int, int]
 
 
 def rank_seed(seed: int, group: Optional[EnvGroup]) -> int:
-    """The seed of this rank's own draws (env generators, action noise):
-    `seed` itself at world size 1, else derived from (seed, rank) as
-    `envs/joint.py` `sub_env_seed` derives a sub-env's. Draws that must agree
-    on every rank (the minibatch permutation, the terrain map) take the
-    shared seed instead."""
+    """The seed of this rank's env generators: `seed` itself at world size
+    1, else derived from (seed, rank) as `envs/joint.py` `sub_env_seed`
+    derives a sub-env's. Draws that must agree on every rank (the
+    minibatch permutation, the terrain map) take the shared seed instead;
+    the runner's own streams take `stream_seed`."""
     if group is None or group.world == 1:
         return seed
     return int(np.random.SeedSequence([seed, group.rank]).generate_state(1)[0])
+
+
+# The runner's own random streams, each apart from the env's and from every
+# other: the tag of each in `stream_seed`'s spawn key.
+STREAMS = {"action_noise": 1, "episode_length": 2, "net_init": 3}
+
+
+def stream_seed(seed: int, stream: str, group: Optional[EnvGroup] = None) -> int:
+    """The seed of stream `stream` (a key of STREAMS) of a run seeded
+    `seed`, on this rank (rank 0 without a group; a stream that must agree
+    on every rank passes no group), as the JAX runner splits one key into
+    independent streams. Layout: `SeedSequence(seed, spawn_key=(tag,
+    rank))`. Its entropy is seed, three zero words (the 4-word pool's
+    padding), tag and rank: six words, where `rank_seed`, `sub_env_seed`
+    and `algo/ppo.py` `permutation_seed` hash at most four, and a zero word
+    inside the pool adds nothing (`SeedSequence([5, 0])` equals
+    `SeedSequence(5)`), so no tag or rank makes one of their states."""
+    rank = 0 if group is None else group.rank
+    return int(np.random.SeedSequence(seed, spawn_key=(STREAMS[stream], rank))
+               .generate_state(1)[0])
 
 
 def shard_path(path: str, rank: int) -> str:

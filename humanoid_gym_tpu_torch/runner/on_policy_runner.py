@@ -15,11 +15,11 @@ the iteration runs eagerly.
 
 Under env sharding the env's group (`env.group`, from `registry.make_env(
 ..., group=)`) makes this process one rank: the parameters are broadcast
-from rank 0 at start; the action noise draws from the rank's own seed, the
-minibatch permutation and the random episode lengths from the run's seed
-on every rank; TensorBoard, metrics.jsonl, the console and the model
-checkpoints are rank 0's, while every rank keeps rank 0's (broadcast)
-checkpoint directory. The final checkpoint's env state is one file per
+from rank 0 at start; the action noise draws from the rank's own stream,
+the minibatch permutation and the random episode lengths from streams
+that are the same on every rank; TensorBoard, metrics.jsonl, the console
+and the model checkpoints are rank 0's, while every rank keeps rank 0's
+(broadcast) checkpoint directory. The final checkpoint's env state is one file per
 rank, `<path>.envshard<rank>`, which `load` reads back, raising on another
 world size or env count.
 
@@ -61,7 +61,7 @@ from ..algo.networks import actor_critic_from_cfg, dtype_name, resolve_compute_d
 from ..algo.ppo import PPOConfig, check_minibatch_split, init_train_state
 from ..envs.state import EnvState
 from ..parallel.mesh import replicate
-from ..parallel.multihost import broadcast_str, rank_seed, shard_path
+from ..parallel.multihost import broadcast_str, shard_path, stream_seed
 
 
 def _atomic_save(obj, path: str) -> None:
@@ -178,7 +178,10 @@ class OnPolicyRunner:
         self.num_steps_per_env = train_cfg.runner.num_steps_per_env
         self.save_interval = train_cfg.runner.save_interval
 
-        self.net = actor_critic_from_cfg(env.cfg.env, train_cfg.policy, seed=self.seed).to(self.device)
+        # the run's streams, each its own (parallel/multihost.py stream_seed),
+        # as the JAX runner splits its key into k_init, k_env and the rest
+        self.net = actor_critic_from_cfg(env.cfg.env, train_cfg.policy,
+                                         seed=stream_seed(self.seed, "net_init")).to(self.device)
         replicate(list(self.net.parameters()), self.group)
         algo_cfg = PPOConfig.from_cfg(train_cfg.algorithm)
         algo_cfg.num_steps_per_env = self.num_steps_per_env
@@ -186,10 +189,10 @@ class OnPolicyRunner:
         self.train_state = init_train_state(self.net, algo_cfg.learning_rate)
 
         # the action noise of this rank's envs; the minibatch permutation
-        # and the random episode lengths draw from the run's seed, the same
+        # and the random episode lengths draw from streams that are the same
         # on every rank, and the env from its own generator
         self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(rank_seed(self.seed, self.group))
+        self.gen.manual_seed(stream_seed(self.seed, "action_noise", self.group))
 
         # env state + first obs (reference on_policy_runner.py:91 env.reset())
         self.env_state, self.obs, self.priv_obs = env.reset_all()
@@ -238,9 +241,10 @@ class OnPolicyRunner:
     def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = False):
         if init_at_random_ep_len:
             # (reference on_policy_runner.py:103-106): drawn for the global
-            # batch from the run's seed, each rank taking its envs' lengths
+            # batch from a stream the same on every rank, each rank taking
+            # its envs' lengths
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.seed)
+            gen.manual_seed(stream_seed(self.seed, "episode_length"))
             ep_len = torch.randint(
                 0, self.env.max_episode_length, (self.num_envs,), generator=gen,
                 device=self.device, dtype=torch.int32,

@@ -9,7 +9,9 @@ JAX package (seed 5, 16 envs, T = 60, 12 iterations: late step reward
 0.0132, late episode length 138, value loss 0.066 -> 0.015); each lower
 bound sits ~35% under the healthy run and well above a torque-broken one.
 The port's random streams are not the JAX package's, so its run is another
-draw of the same training. The CPU test runs it with solver apgd, the card
+draw of the same training; the net and the action noise draw from the
+runner's streams (`parallel/multihost.py` `stream_seed`), the env from the
+seed itself, as `OnPolicyRunner` seeds them. The CPU test runs it with solver apgd, the card
 (chip_smoke.py) with solver mega.
 """
 
@@ -23,6 +25,7 @@ from ..algo.capture import compiled_train_iter
 from ..algo.ppo import PPOConfig, init_train_state
 from ..config.xbotl import XBotLCfg, XBotLCfgPPO
 from ..envs import make_env
+from ..parallel.multihost import stream_seed
 
 LATE_FROM = 4  # iterations from which the late means are taken
 
@@ -36,14 +39,15 @@ def learning_curve(device="cpu", solver="apgd", seed=5, n=16, T=60, iters=12) ->
     cfg.sim.solver.solver_type = solver
     tcfg = XBotLCfgPPO()
     env = make_env(cfg, device=device, seed=seed)
-    net = actor_critic_from_cfg(cfg.env, tcfg.policy, seed=seed).to(device)
+    net = actor_critic_from_cfg(cfg.env, tcfg.policy,
+                                seed=stream_seed(seed, "net_init")).to(device)
     acfg = PPOConfig.from_cfg(tcfg.algorithm)
     acfg.num_steps_per_env = T
     ts = init_train_state(net, acfg.learning_rate)
     state, obs, priv = env.reset_all()
     train_iter = compiled_train_iter(env, net, acfg, n, perm_seed=seed)
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen.manual_seed(stream_seed(seed, "action_noise"))
     step_rew, ep_len, vloss, nonfinite = [], [], [], 0
     term_sums = np.zeros(env.n_reward_terms)
     late_resets = 0.0

@@ -356,13 +356,16 @@ def test_phase23_law_checks_are_the_random_path_tests(smoke):
 
 def test_phase23_rehearsal_on_the_cpu(smoke):
     """Phase 23 at 256 envs on the CPU through the plain mega step: every
-    site within its limits, no launch counted (the plain version)."""
-    assert smoke._phase23_laws("cpu card", "cpu", n_envs=256) == {"flat": 0, "terrain": 0}
+    site within its limits, the deploy task's too, no launch counted (the
+    plain version)."""
+    assert smoke._phase23_laws("cpu card", "cpu", n_envs=256) == {"flat": 0, "terrain": 0,
+                                                                  "deploy": 0}
 
 
 def test_phase23_misses_a_wrong_law(smoke, monkeypatch):
     """A joint jitter of U(-0.2, 0.2) where the config says U(-0.1, 0.1)
-    fails phase 23 at the initial and the reset pose."""
+    fails phase 23 at the initial and the reset pose, on the deploy field
+    too, for both robots."""
     from humanoid_gym_tpu_torch.envs.env import HumanoidEnv
 
     real = HumanoidEnv._uniform
@@ -377,6 +380,9 @@ def test_phase23_misses_a_wrong_law(smoke, monkeypatch):
         smoke._phase23_laws("cpu card", "cpu", n_envs=256)
     assert "initial joint pose: joint offset" in str(err.value)
     assert "reset pose and level: reset joint offset" in str(err.value)
+    for robot in ("XBot-L", "XBot-S"):
+        assert f"{robot} deploy level, origin and spawn: joint offset" in str(err.value)
+        assert f"{robot} deploy re-entry and reset pose: reset joint offset" in str(err.value)
 
 
 def test_phase24_is_wired(smoke):
@@ -558,3 +564,18 @@ def test_curve_line_reads_the_committed_production_run(smoke):
     assert line.count("iteration ") >= 14 and "iteration 3001: mean_reward" in line
     assert "non-finite resets 84 in 82 iterations (first [376])" in line
     assert "iterations with a non-finite loss or step reward [2954]" in line
+
+
+def test_curve_line_reads_a_gzipped_run(smoke):
+    """`--curve` reads a gzipped metrics file: the seed-5 rerun on the
+    repaired streams, committed as `joint_deploy_s5_rerun_metrics.jsonl.gz`,
+    gives its 3001 iterations, its non-finite resets and no non-finite
+    step reward, as docs/standings_torch/RESULTS.md quotes them."""
+    path = os.path.join(ROOT, "docs", "standings_torch", "joint_deploy_s5_rerun_metrics.jsonl.gz")
+    run = subprocess.run([sys.executable, SCRIPT, "--curve", path, "2"], capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    line = run.stdout.strip()
+    assert line.count("iteration ") >= 14 and "iteration 3001: mean_reward 77.06" in line
+    assert "non-finite resets 52 in 51 iterations (first [570])" in line
+    assert "iterations with a non-finite loss or step reward []" in line

@@ -131,3 +131,106 @@ def test_joint_deploy_task_builds_as_the_reference():
     assert obs.shape == (4, 705) and torch.isfinite(obs).all() and torch.isfinite(priv).all()
     levels = torch.cat([st.terrain_level for st in state])
     assert int(levels.min()) >= 0 and int(levels.max()) <= 20
+
+
+def test_joint_deploy_env_step_matches_jax():
+    """Both robots of `humanoid_joint_deploy` on the deploy field (20 rows)
+    at 3 + 3 envs, quiet as test_torch_env.py's `_quiet`, from one JAX
+    state carried into the port: each robot's bases over the bilinear
+    ground (0.87 m for XBot-L, x s for XBot-S, so the soles touch it), its
+    envs on levels 0, 19 and 20 (20 stands on the top row). Two joint steps
+    (the port's solver mega, JAX's apgd, both at 200 iterations), then a
+    third in which every env times out at zero command, so the survival
+    curriculum promotes each one: a level below the top moves up, one on
+    or past the top re-enters at a drawn level. The tolerances of
+    `test_terrain_env_step_matches_jax`; levels and origins exact, and the
+    drawn re-entry levels, JAX's injected into the port's curriculum,
+    give the same levels and origins."""
+    import jax
+    import jax.numpy as jnp
+
+    from humanoid_gym_tpu import registry as jreg
+    from humanoid_gym_tpu.terrain.terrain import make_contact_height_fn
+    from humanoid_gym_tpu_torch.algo.convert import env_state_from_jax
+    from humanoid_gym_tpu_torch.config.xbots import SCALE
+
+    n, iters = 6, 200
+
+    def quiet(c, solver):
+        c.noise.add_noise = False
+        c.domain_rand.push_robots = False
+        c.domain_rand.action_delay = 0.0
+        c.domain_rand.action_noise = 0.0
+        c.sim.solver.solver_iterations = iters
+        c.sim.solver.solver_type = solver
+
+    jenv, _ = jreg.make_env("humanoid_joint_deploy", num_envs=n,
+                            cfg_overrides=lambda c: quiet(c, "apgd"))
+    tenv, _ = registry.make_env("humanoid_joint_deploy", num_envs=n,
+                                cfg_overrides=lambda c: quiet(c, "mega"), device="cpu")
+    assert tenv.counts == jenv.counts == [3, 3]
+    js = jenv.init_state(jax.random.split(jax.random.PRNGKey(5), n), jnp.arange(n))
+    origins = []
+    for i, (je, te) in enumerate(zip(jenv.envs, tenv.envs)):
+        np.testing.assert_array_equal(te.terrain_map.height_field, je.terrain_map.height_field)
+        o = np.asarray(je.terrain_origins)
+        np.testing.assert_array_equal(te.terrain_origins.numpy(), o)
+        origins.append(o)
+        rows = te.cfg.terrain.num_rows
+        lvl = np.array([0, rows - 1, rows], np.int32)
+        ttype = np.asarray(js[i].terrain_type)
+        origin = o[np.minimum(lvl, rows - 1), ttype]
+        qpos = np.array(js[i].phys.qpos)
+        qpos[:, :2] += origin[:, :2] - np.asarray(js[i].env_origin)[:, :2]
+        ground = make_contact_height_fn(je.terrain_map)(jnp.asarray(qpos[:, 0]),
+                                                        jnp.asarray(qpos[:, 1]))
+        qpos[:, 2] = np.asarray(ground) + 0.87 * (SCALE if i == 1 else 1.0)
+        js[i] = js[i].replace(phys=js[i].phys.replace(qpos=jnp.asarray(qpos)),
+                              terrain_level=jnp.asarray(lvl), env_origin=jnp.asarray(origin))
+    ts = [env_state_from_jax(s) for s in js]
+    jstep = jax.jit(jenv.step)
+    rng = np.random.default_rng(4)
+    max_force = [0.0, 0.0]
+    for k in range(3):
+        if k == 2:  # every env times out with a zero command: promoted
+            js = [s.replace(episode_length=jnp.full((3,), e.max_episode_length, jnp.int32),
+                            commands=jnp.zeros_like(s.commands))
+                  for s, e in zip(js, jenv.envs)]
+            ts = [env_state_from_jax(s) for s in js]
+        a = rng.uniform(-0.3, 0.3, (n, 12)).astype(np.float32)
+        js_prev, ts_prev = js, ts
+        js, jtr = jstep(js, jnp.asarray(a))
+        ts, ttr = tenv.step(ts, torch.from_numpy(a))
+        np.testing.assert_array_equal(ttr.done.numpy(), np.asarray(jtr.done))
+        if k == 2:
+            assert np.asarray(jtr.done).all() and np.asarray(jtr.time_out).all()
+            break
+        assert not np.asarray(jtr.done).any()
+        for i, (j, t) in enumerate(zip(js, ts)):
+            np.testing.assert_array_equal(t.terrain_level.numpy(), np.asarray(j.terrain_level))
+            np.testing.assert_allclose(t.env_origin.numpy(), j.env_origin, atol=1e-6)
+            np.testing.assert_allclose(t.phys.qpos.numpy(), j.phys.qpos, atol=2e-4)
+            np.testing.assert_allclose(t.phys.qvel.numpy(), j.phys.qvel, atol=5e-3)
+            np.testing.assert_allclose(t.phys.contact_forces.numpy(), j.phys.contact_forces,
+                                       atol=5.0)
+            max_force[i] = max(max_force[i], float(np.abs(np.asarray(j.phys.contact_forces)).max()))
+        np.testing.assert_allclose(ttr.obs.numpy(), jtr.obs, atol=5e-3)
+        np.testing.assert_allclose(ttr.privileged_obs.numpy(), jtr.privileged_obs, atol=5e-3)
+        np.testing.assert_allclose(ttr.reward.numpy(), jtr.reward, atol=1e-4)
+    assert min(max_force) > 20.0, f"a robot never touched the terrain: {max_force}"
+
+    # the promotion: level 0 -> 1 exactly; 19 and 20 re-enter at a drawn level
+    for i, (j, t, jp, tp, te) in enumerate(zip(js, ts, js_prev, ts_prev, tenv.envs)):
+        want_l, want_o = np.asarray(j.terrain_level), np.asarray(j.env_origin)
+        got_l = t.terrain_level.numpy()
+        assert want_l[0] == got_l[0] == 1
+        assert ((got_l[1:] >= 0) & (got_l[1:] < te.cfg.terrain.num_rows)).all()
+        np.testing.assert_allclose(t.env_origin.numpy(),
+                                   origins[i][got_l, t.terrain_type.numpy()], atol=1e-6)
+        np.testing.assert_allclose(t.env_origin.numpy()[0], want_o[0], atol=1e-6)
+        sl = slice(3 * i, 3 * i + 3)
+        level, origin = te._terrain_curriculum(
+            tp, tp.phys.qpos, torch.zeros((3, 4)), ttr.done[sl], ttr.time_out[sl],
+            torch.from_numpy(want_l.astype(np.int64)))
+        np.testing.assert_array_equal(level.numpy(), want_l)
+        np.testing.assert_allclose(origin.numpy(), want_o, atol=1e-6)

@@ -25,6 +25,7 @@ from humanoid_gym_tpu_torch.algo.convert import actor_critic_from_flax, env_stat
 from humanoid_gym_tpu_torch.algo.networks import ActorCritic
 from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state, make_train_iter
 from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
+from humanoid_gym_tpu_torch.parallel.multihost import stream_seed
 from humanoid_gym_tpu_torch.runner import OnPolicyRunner
 
 # The tensors here are tiny: one intra-op thread per process keeps parallel
@@ -57,8 +58,9 @@ def _env(n=8, seed=0, solver="apgd"):
 
 def test_learn_equals_hand_calls_of_train_iter(tmp_path):
     """`learn(2)` leaves exactly the train state, env state and obs that two
-    hand calls of `make_train_iter` from the same seeds leave (bitwise: the
-    same operations in the same order), and the double-buffered fetch logs
+    hand calls of `make_train_iter` from the runner's seeds leave (its
+    streams, `stream_seed`, and the run's seed for the permutations;
+    bitwise: the same operations in the same order), and the double-buffered fetch logs
     iterations 0 and 1 in order."""
     tcfg = _train_cfg()
     runner = OnPolicyRunner(_env(), tcfg, log_dir=str(tmp_path / "run"), seed=5)
@@ -69,14 +71,15 @@ def test_learn_equals_hand_calls_of_train_iter(tmp_path):
     net = ActorCritic(ec.num_observations, ec.num_privileged_obs, ec.num_actions,
                       actor_hidden=tuple(tcfg.policy.actor_hidden_dims),
                       critic_hidden=tuple(tcfg.policy.critic_hidden_dims),
-                      init_noise_std=tcfg.policy.init_noise_std, seed=5)
+                      init_noise_std=tcfg.policy.init_noise_std,
+                      seed=stream_seed(5, "net_init"))
     pcfg = PPOConfig.from_cfg(tcfg.algorithm)
     pcfg.num_steps_per_env = 2
     ts = init_train_state(net, pcfg.learning_rate)
     gen = torch.Generator()
-    gen.manual_seed(5)
+    gen.manual_seed(stream_seed(5, "action_noise"))
     state, obs, priv = env.reset_all()
-    it = make_train_iter(env, net, pcfg, 8)
+    it = make_train_iter(env, net, pcfg, 8, perm_seed=5)
     for _ in range(2):
         ts, state, obs, priv, _ = it(ts, state, obs, priv, gen)
 
@@ -133,9 +136,10 @@ def _assert_env_states_close(t_state, t_obs, t_priv, j_state, j_obs, j_priv):
 
 def test_iteration_and_resume_match_the_jax_runner(tmp_path):
     """Both packages' runners from the same weights (converted from flax),
-    the same env state and the same observations: one `learn(1)` logs the
-    same losses and leaves the same env state within the band of the action
-    noise, and a fresh runner of each package that loads the final
+    the same env state, the same observations and the same action noise
+    (the JAX runner's draws, handed to the port's rollout): one `learn(1)`
+    logs the same losses and leaves the same env state within the band of
+    the action noise, and a fresh runner of each package that loads the final
     checkpoint resumes at the same iteration, learning rate and optimizer
     count with that env state restored."""
     from humanoid_gym_tpu.runner import OnPolicyRunner as JaxRunner
@@ -157,8 +161,25 @@ def test_iteration_and_resume_match_the_jax_runner(tmp_path):
     run_t.obs = torch.from_numpy(np.array(run_j.obs))
     run_t.priv_obs = torch.from_numpy(np.array(run_j.priv_obs))
 
+    # the JAX runner's action noise of its first iteration (its key chain:
+    # the runner's split, train_iter's k_roll, one split a policy step),
+    # drawn by the port's rollout in its place
+    _, k = jax.random.split(run_j.key)
+    k_roll = jax.random.split(k, 3)[1]
+    noise = []
+    for _ in range(ttcfg.runner.num_steps_per_env):
+        k_roll, k_sample = jax.random.split(k_roll)
+        noise.append(torch.from_numpy(np.array(jax.random.normal(k_sample, (n, 12)))))
+    randn = torch.randn
+
+    def jax_noise(*args, generator=None, **kw):
+        return noise.pop(0) if generator is run_t.gen else randn(*args, generator=generator, **kw)
+
     run_j.learn(1)
-    run_t.learn(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "randn", jax_noise)
+        run_t.learn(1)
+    assert noise == []
     line_j = json.loads(open(tmp_path / "j" / "metrics.jsonl").readline())
     line_t = json.loads(open(tmp_path / "t" / "metrics.jsonl").readline())
     assert list(line_t) == list(line_j)

@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-4, 4t, 10, 10t, 6 and 7, then the records; no contract line
-    python3 chip_smoke.py --train TASK ITERS SEED   # phases 1-2, then a training run as phase 22's, no gate
+    python3 chip_smoke.py --train TASK ITERS SEED [--probe C1,C2,...]   # phases 1-2, then a training run as phase 22's, no gate; the update probe at the checkpoints given
     python3 chip_smoke.py --roll POLICY.npz N_ENVS STEPS [STEPS ...]   # phases 1-2, then phase 12 (a)'s roll
     python3 chip_smoke.py --nonfinite CKPT STEPS [ACTOR.npz]   # phases 1-2, then the non-finite probe
     python3 chip_smoke.py --curve METRICS.jsonl[.gz] [ROBOTS]   # a run's learning curve; needs no card
+    python3 chip_smoke.py --compare METRICS.jsonl[.gz] METRICS.jsonl[.gz]   # two runs line by line; needs no card
+    python3 chip_smoke.py --probe-table PROBE.jsonl   # the update probe's lines as a table; needs no card
 
 Phases (each prints one line of its numbers; any failure raises, so the
 script exits non-zero):
@@ -177,8 +179,13 @@ script exits non-zero):
      task's name), checkpoints 0 and 10; checkpoint 10 exported and rolled
      as XBot-L (phase 12 (a)) and XBot-S (phase 12 (b)), reported; then a
      second process resumed from checkpoint 10 for 2 iterations, its
-     metrics numbered 10-11, its launches as many; the phase's wall time
-     beside its prediction;
+     metrics numbered 10-11, its launches as many; then the update probe
+     of `--train ... --probe` on checkpoint 10 (one eager iteration at
+     4096 envs: per minibatch the gradient norm of each parameter group,
+     the clip scale, the learning rate, the KL and the loss terms; the
+     rollout's largest targets and blown-up rows), its line complete and
+     finite and its cut whole; the phase's wall time beside its
+     prediction;
  23. the random draw sites of the training path, each held to the
      closed-form law of its config at 4096 envs with the env's CUDA
      generator (the checks of tests/test_torch_random_paths.py, whose
@@ -1758,15 +1765,38 @@ WALK_VX = 0.4
 # the walk demo's gate (phase 12 (a)): share of envs that never fall in 400
 # policy steps, median forward distance in m
 WALK_GATE = (0.95, 0.8)
-# the child process: scripts/train_torch.py's train() on the command line's
-# flags, then the process's peak device memory in GiB and, on the last
-# line, the mega kernel's launch counts of the whole process
+
+
+def _ckpt_iteration(path):
+    """The iteration of a runner checkpoint, `.../model_<it>.ckpt`."""
+    return int(os.path.basename(path)[len("model_"):-len(".ckpt")])
+
+
+def _saved_checkpoints(run_dir):
+    """The iterations of the runner checkpoints in `run_dir`, sorted."""
+    return sorted(_ckpt_iteration(p) for p in os.listdir(run_dir)
+                  if p.startswith("model_") and p.endswith(".ckpt"))
+
+
+# the child process (run from the checkout's root): scripts/train_torch.py's
+# train() on the command line's flags, then the process's peak device
+# memory in GiB and, on the last line, the mega kernel's launch counts of
+# the whole process
 TRAIN_CHILD = """
-import json, sys, torch
+import json, os, sys, torch
 sys.path.insert(0, "scripts")
+from chip_smoke import _ckpt_iteration
 from train_torch import train
 from humanoid_gym_tpu_torch.physics import mega as MG
+from humanoid_gym_tpu_torch.runner.on_policy_runner import OnPolicyRunner
 from humanoid_gym_tpu_torch.utils.helpers import get_args
+full = {int(c) for c in os.environ.get("HGT_FULL_CKPTS", "").split(",") if c}
+if full:
+    # the checkpoints an update probe starts from carry the env state and
+    # obs, as the run's last one does; what the run computes is unchanged
+    save = OnPolicyRunner.save
+    OnPolicyRunner.save = lambda self, path, include_env_state=False: save(
+        self, path, include_env_state or _ckpt_iteration(path) in full)
 train(get_args(sys.argv[1:]))
 print(json.dumps({"peak_gib": torch.cuda.max_memory_allocated() / 2**30
                   if torch.cuda.is_available() else None}))
@@ -1809,12 +1839,14 @@ def _training_launches(task, iters):
     return want, robots
 
 
-def _train_process(card, task, iters, seed, root, tag, resume=None):
+def _train_process(card, task, iters, seed, root, tag, resume=None, full_ckpts=()):
     """`scripts/train_torch.py`'s `train` in a fresh process, `--task task
     --num_envs 4096 --max_iterations iters` (`seed` None: the config's;
     solver mega on the card, HGT_WANDB=0), the run directory under `root`;
     `resume` (run directory, checkpoint) adds `--resume --load_run
-    --checkpoint` and the new run directory sits beside it. Hard checks:
+    --checkpoint` and the new run directory sits beside it; the checkpoints
+    of the iterations in `full_ckpts` carry the env state and obs as the
+    last one does (HGT_FULL_CKPTS, read by TRAIN_CHILD). Hard checks:
     exit 0; `iters` lines in metrics.jsonl numbered on from the loaded
     iteration, every loss finite and no non-finite reset; the launches of
     `_training_launches`; a checkpoint every save_interval iterations and at
@@ -1825,6 +1857,7 @@ def _train_process(card, task, iters, seed, root, tag, resume=None):
     from humanoid_gym_tpu_torch import registry
 
     env = dict(os.environ, HGT_WANDB="0")
+    env["HGT_FULL_CKPTS"] = ",".join(map(str, full_ckpts))
     for k in ("HGT_SOLVER", "HGT_PROFILE_DIR"):
         env.pop(k, None)
     flags = ["--task", task, "--num_envs", str(N_ENVS), "--max_iterations", str(iters),
@@ -1848,8 +1881,7 @@ def _train_process(card, task, iters, seed, root, tag, resume=None):
     with open(os.path.join(run_dir, "train_stdout.txt"), "w") as f:
         f.write(run.stdout)
     lines = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
-    ckpts = sorted((os.path.basename(p) for p in glob.glob(os.path.join(run_dir, "model_*.ckpt"))),
-                   key=lambda p: int(p[6:-5]))
+    ckpts = [f"model_{i}.ckpt" for i in _saved_checkpoints(run_dir)]
     losses = [v for ln in lines for k, v in ln.items() if k.startswith("Loss/")]
     nonfinite = sum(ln["Train/nonfinite_resets"] for ln in lines)
     want, robots = _training_launches(task, iters)
@@ -1905,6 +1937,37 @@ def _curve_line(lines, robots):
         f"{lines[-1]['Loss/learning_rate']:.3e}")
 
 
+def _read_metrics(path):
+    """The lines of a run's metrics.jsonl, or of its gzip (`.gz`)."""
+    import gzip
+
+    with (gzip.open(path, "rt") if path.endswith(".gz") else open(path)) as f:
+        return [json.loads(ln) for ln in f]
+
+
+# keys of a metrics line that are times, not results
+TIME_KEYS = ("Perf/",)
+
+
+def _compare_runs(a, b):
+    """Two runs' metrics lines side by side, iteration by iteration, every
+    key but the times (TIME_KEYS): "identical through N iterations", or the
+    first iteration (counted from 1) and key at which they differ with both
+    values, and how many lines differ (NaN equal to NaN)."""
+    def same(x, y):
+        return x == y or (isinstance(x, float) and isinstance(y, float)
+                          and math.isnan(x) and math.isnan(y))
+
+    n = min(len(a), len(b))
+    diff = [(i, k) for i in range(n) for k in sorted(set(a[i]) | set(b[i]))
+            if not k.startswith(TIME_KEYS) and not same(a[i].get(k), b[i].get(k))]
+    if not diff:
+        return f"identical through {n} iterations (times {', '.join(TIME_KEYS)} not compared)"
+    i, k = diff[0]
+    return (f"first difference at iteration {i + 1}, key {k}: {a[i].get(k)!r} against "
+            f"{b[i].get(k)!r}; {len({j for j, _ in diff})} of {n} iterations differ")
+
+
 def _roll_checkpoint(path, robots, dev):
     """The actor of the checkpoint at `path` exported (`export_checkpoint`)
     and rolled as phase 12 rolls the demos: XBot-L on `humanoid_ppo` at
@@ -1933,7 +1996,7 @@ def _roll_checkpoint(path, robots, dev):
     return out
 
 
-def _train_and_roll(card, dev, task, iters, seed, root, tag, gate_at=None):
+def _train_and_roll(card, dev, task, iters, seed, root, tag, gate_at=None, full_ckpts=()):
     """`_train_process` of `task` under a fresh `root`, then every
     ROLL_EVERY-th saved checkpoint past 0 (ROLL_EVERY_LONG-th past LONG_RUN
     iterations) and the last rolled by `_roll_checkpoint` (XBot-L; XBot-S
@@ -1941,13 +2004,14 @@ def _train_and_roll(card, dev, task, iters, seed, root, tag, gate_at=None):
     checkpoint `gate_at` names WALK_GATE, which the caller holds its
     XBot-L roll to. model_0 (the untrained net) is removed. Returns (run
     directory, {checkpoint: {robot: (survived, median, vx, s)}}, launches,
-    robots, seconds of the training process)."""
+    robots, seconds of the training process). `full_ckpts` goes to
+    `_train_process`."""
     import shutil
 
     shutil.rmtree(root, ignore_errors=True)
-    run_dir, lines, launches, robots, train_s = _train_process(card, task, iters, seed, root, tag)
-    saved = sorted(int(p[6:-5]) for p in os.listdir(run_dir)
-                   if p.startswith("model_") and p.endswith(".ckpt"))
+    run_dir, lines, launches, robots, train_s = _train_process(card, task, iters, seed, root, tag,
+                                                               full_ckpts=full_ckpts)
+    saved = _saved_checkpoints(run_dir)
     roll_every = ROLL_EVERY_LONG if iters > LONG_RUN else ROLL_EVERY
     rolled = {}
     for ck in [c for c in saved if c and (c % roll_every == 0 or c == saved[-1])]:
@@ -1990,7 +2054,8 @@ JOINT_TRAIN_ITERS = 10
 JOINT_RESUME_ITERS = 2
 # predicted wall time of phase 22j on the card (two training processes of
 # ~8 s start-up, ~10 s env build and capture each, 12 iterations of ~0.3 s,
-# two checkpoints with the env state; two 400-step rolls of ~8 s)
+# two checkpoints with the env state; two 400-step rolls of ~8 s; the
+# update probe: an env build and one eager iteration, ~10 s)
 JOINT_TRAIN_PREDICTED_S = (50, 90)
 
 
@@ -2003,7 +2068,9 @@ def _phase22j_joint_train(card, dev):
     exported and rolled as XBot-L and XBot-S; then `_train_process` again,
     resumed from that checkpoint (`--resume --load_run --checkpoint`) for
     JOINT_RESUME_ITERS iterations, its metrics numbered on from it and the
-    launches as many."""
+    launches as many; then `_update_probe` of the last checkpoint, its line
+    complete and finite (`_probe_problems`) and its cut whole
+    (`_fall_cut_problems`)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="hgt_22j_") as root:
         run_dir, rolled, launches, robots, train_s = _train_and_roll(
@@ -2014,6 +2081,15 @@ def _phase22j_joint_train(card, dev):
         _, lines, resumed, _, resume_s = _train_process(
             card, JOINT_TRAIN_TASK, JOINT_RESUME_ITERS, None, root, "phase 22j resume",
             resume=(run_dir, JOINT_TRAIN_ITERS))
+        # the update probe of `--train --probe` on the run's last checkpoint,
+        # so that it cannot rot: its line complete and finite, its cut whole
+        cut = os.path.join(root, "fall_cut.npz")
+        probe = _update_probe(os.path.join(run_dir, f"model_{JOINT_TRAIN_ITERS}.ckpt"),
+                              JOINT_TRAIN_TASK, None, dev, cut=cut)
+        _log(f"phase 22j probe {_probe_table([probe]).splitlines()[-1]} | {card}")
+        problems = _probe_problems(probe) + _fall_cut_problems(cut)
+        if problems:
+            raise AssertionError(f"phase 22j: the update probe's line or cut: {problems}")
     wall = time.perf_counter() - t0
     _log(f"phase 22j wall time {wall:.1f} s (predicted {JOINT_TRAIN_PREDICTED_S[0]}-"
          f"{JOINT_TRAIN_PREDICTED_S[1]} s; training processes {train_s:.1f} + {resume_s:.1f} s) | "
@@ -2039,8 +2115,7 @@ def _cut_run(run_dir):
 
     import torch
 
-    saved = sorted(int(p[6:-5]) for p in os.listdir(run_dir)
-                   if p.startswith("model_") and p.endswith(".ckpt"))
+    saved = _saved_checkpoints(run_dir)
     nets, actors = _kept_checkpoints(saved)
     for ck in saved:
         path = os.path.join(run_dir, f"model_{ck}.ckpt")
@@ -2057,12 +2132,15 @@ def _cut_run(run_dir):
     return nets, actors, size / 2**20
 
 
-def _diagnostic_train(task: str, iters: int, seed: int) -> int:
-    """`python3 chip_smoke.py --train TASK ITERS SEED`: the card line, the
-    kernels' build, then `_train_and_roll` of TASK for ITERS iterations
-    from SEED under chiprun_out/train/<task>_s<seed>/, no gate. Then, also
-    when a check failed, the run directory is cut (`_cut_run`) and the kept
-    checkpoints are printed. Prints no contract line."""
+def _diagnostic_train(task: str, iters: int, seed: int, probe=()) -> int:
+    """`python3 chip_smoke.py --train TASK ITERS SEED [--probe C1,C2,...]`:
+    the card line, the kernels' build, then `_train_and_roll` of TASK for
+    ITERS iterations from SEED under chiprun_out/train/<task>_s<seed>/, no
+    gate, the checkpoints in `probe` saved with their env state. Then, also
+    when a check failed: `_probe_run` on those checkpoints (probe.jsonl,
+    the last one's fall cut, blow-up traces), then the run directory is
+    cut (`_cut_run`) and the kept checkpoints are printed. Prints no
+    contract line."""
     import glob
 
     import torch
@@ -2070,16 +2148,33 @@ def _diagnostic_train(task: str, iters: int, seed: int) -> int:
     card = _phase12_card_and_build()
     t0 = time.perf_counter()
     root = os.path.join(HERE, "chiprun_out", "train", f"{task}_s{seed}")
+    dev = torch.device("cuda")
     try:
-        _train_and_roll(card, torch.device("cuda"), task, iters, seed, root,
-                        f"train {task} seed {seed}")
+        _train_and_roll(card, dev, task, iters, seed, root, f"train {task} seed {seed}",
+                        full_ckpts=probe)
     finally:
         for run_dir in glob.glob(os.path.join(root, "*", "")):
-            nets, actors, mib = _cut_run(run_dir)
-            _log(f"train {task} seed {seed} wall time {time.perf_counter() - t0:.1f} s | run "
-                 f"directory {os.path.relpath(run_dir, HERE)}, {mib:.1f} MiB | kept with their "
-                 f"nets: {nets}; their actors only: {actors} | {card}")
+            try:
+                if probe:
+                    _probe_run(card, dev, task, seed, run_dir, probe)
+            finally:
+                nets, actors, mib = _cut_run(run_dir)
+                _log(f"train {task} seed {seed} wall time {time.perf_counter() - t0:.1f} s | run "
+                     f"directory {os.path.relpath(run_dir, HERE)}, {mib:.1f} MiB | kept with "
+                     f"their nets: {nets}; their actors only: {actors} | {card}")
     return 0
+
+
+def _train_argv(argv):
+    """(task, iters, seed, probe checkpoints) of `--train TASK ITERS SEED
+    [--probe C1,C2,...]`'s arguments (after `--train`)."""
+    task, iters, seed, *rest = argv
+    probe = ()
+    if rest:
+        if len(rest) != 2 or rest[0] != "--probe":
+            raise SystemExit(f"--train TASK ITERS SEED [--probe C1,C2,...]: got {argv}")
+        probe = tuple(sorted(int(c) for c in rest[1].split(",")))
+    return task, int(iters), int(seed), probe
 
 
 def _diagnostic_roll(npz: str, n_envs: int, horizons) -> int:
@@ -2122,7 +2217,8 @@ def _nonfinite_events(ckpt, steps, dev, n_envs=N_ENVS, actor_npz=None):
     an event. Returns ({(robot, kind): count}, the first NONFINITE_KEPT events,
     each with its robot, kind, step, env, terrain level and type, episode
     length, the physics inputs (PhysicsState rows and targets) of its last
-    NONFINITE_HISTORY steps and the step's outputs)."""
+    NONFINITE_HISTORY steps, the velocities, positions and contact impulses
+    each of those steps returned, and the event step's outputs)."""
     import collections
     import dataclasses
 
@@ -2154,10 +2250,14 @@ def _nonfinite_events(ckpt, steps, dev, n_envs=N_ENVS, actor_npz=None):
     def wrap(k, real):
         def step(phys, targets):
             out = real(phys, targets)
-            history[k].append((phys, targets.clone()))
+            history[k].append((phys, targets.clone(), out))
             last_out[k] = out
             return out
         return step
+
+    def returned(out, i):
+        return {f: getattr(out, f)[i].detach().cpu().clone()
+                for f in ("qpos", "qvel", "contact_lam")}
 
     for k, e in enumerate(subs):
         e._phys_step = wrap(k, e._phys_step)
@@ -2185,7 +2285,8 @@ def _nonfinite_events(ckpt, steps, dev, n_envs=N_ENVS, actor_npz=None):
                                 "terrain_level": float(prev[k].terrain_level[i]),
                                 "terrain_type": float(prev[k].terrain_type[i]),
                                 "episode_length": int(prev[k].episode_length[i]),
-                                "inputs": [(rows(p, i), tg[i].cpu()) for p, tg in history[k]],
+                                "inputs": [(rows(p, i), tg[i].cpu()) for p, tg, _ in history[k]],
+                                "returned": [returned(o, i) for _, _, o in history[k]],
                                 "out": rows(out, i)})
             obs = tr.obs
     return counts, events
@@ -2211,9 +2312,438 @@ def _diagnostic_nonfinite(ckpt: str, steps: int, actor_npz=None) -> int:
         "task": NONFINITE_TASK, "ckpt": ckpt, "actor": actor_npz, "envs": N_ENVS,
         "steps": steps, "seconds": round(time.perf_counter() - t0, 1),
         "counts": {f"robot {k} {kind}": n for (k, kind), n in sorted(counts.items())},
-        "events": [{k: v for k, v in ev.items() if k not in ("inputs", "out")} for ev in events],
+        "events": [{k: v for k, v in ev.items() if k not in ("inputs", "returned", "out")}
+                   for ev in events],
         "card": card}), flush=True)
     return 0
+
+
+# ---- the update probe: what drives the PPO update at a checkpoint ----
+
+# a probe's line (`_update_probe`): its keys, those of its rollout reading
+# and of each minibatch's reading; `_probe_problems` holds a line to them
+PROBE_KEYS = ("checkpoint", "iteration", "envs", "horizon", "lr_before", "opt_count", "rollout",
+              "minibatches", "means", "run_line", "seconds")
+PROBE_ROLLOUT_KEYS = (
+    "mean_step_reward", "max_abs_reward", "max_abs_return", "max_abs_advantage",
+    "max_abs_advantage_normalized", "advantage_mean", "advantage_std",
+    "max_abs_estimator_target", "done_rows", "nonfinite_resets", "nonfinite_envs",
+    "blown_rows", "blown_row_share", "blown_value_loss_share", "blown_estimator_loss_share",
+    "blown_max_abs_reward", "blown_max_abs_return", "blown_max_abs_estimator_target",
+    "blown_events", "observation_clip", "runaway_rows", "runaway_envs", "runaway_row_share",
+    "runaway_value_loss_share", "runaway_estimator_loss_share", "runaway_max_abs_return")
+PROBE_TERMS = ("surrogate_loss", "value_loss", "entropy", "estimator_loss", "kl")
+PROBE_MINIBATCH_KEYS = ("epoch", "minibatch", "grad_norm", "grad_share", "global_norm",
+                        "clip_scale", "lr", "lr_at_floor") + PROBE_TERMS
+# the adaptive learning rate's floor (algo/ppo.py minibatch_update, as the
+# JAX package's)
+LR_FLOOR = 1e-5
+
+
+def _at_lr_floor(lr):
+    """Whether a learning rate sits at LR_FLOOR: within 1e-6 relative, since
+    a decrease from 1.5e-5 lands one float32 spacing above it and the next
+    one clamps to it."""
+    return lr <= LR_FLOOR * (1 + 1e-6)
+PROBE_EVENTS_KEPT = 16  # non-finite resets listed with their last steps
+PROBE_LAST_STEPS = 5  # steps listed of each, its reset step last
+# the run's metrics read beside a probe (the iteration after its checkpoint)
+PROBE_RUN_KEYS = ("Loss/value_function", "Loss/surrogate", "Loss/entropy", "Loss/kl",
+                  "Loss/estimator", "Loss/learning_rate", "Train/mean_step_reward",
+                  "Train/nonfinite_resets", "Episode/terrain_level")
+FALL_CUT_ENVS = 16  # envs of a probed iteration kept for the CPU comparison
+# forks of the cut's iteration tried, in turn, for a rollout that holds a
+# non-finite reset (one in 2 to 3 iterations of seed 7 from 2400 on)
+FALL_CUT_FORKS = 8
+# the blow-up traces (tests/data/joint_deploy_blow_up*.npz): policy steps a
+# trace holds, and what its window must show on the card: the base's
+# angular velocity (rad/s) below the first bound after the first step and
+# past the second within the window, no contact impulse after the last
+TRACE_STEPS = 8
+TRACE_SPIN = (9.0, 66.0)
+PROBE_NONFINITE_STEPS = 1500  # policy steps driven for traces at a probed checkpoint
+PROBE_TRACES = 2  # traces kept a checkpoint
+
+
+def _update_probe(ckpt, task, seed, dev, n_envs=N_ENVS, horizon=None, run_lines=None, cut=None,
+                  fork=0):
+    """One eager training iteration of `task` from the full checkpoint
+    `ckpt` (net, Adam moments and count, learning rate, the env state and
+    obs of its iteration) of a run seeded `seed` (None: the task's config's)
+    at `n_envs` envs (the card's solver mega, apgd on the CPU; `horizon`
+    cuts T), through `make_train_pieces`' stages, the
+    same code the captured iteration replays: a fork of the run, since a
+    checkpoint keeps no generator (`fork` is added to the runner's seed,
+    for another draw of the same iteration). Reads, before the update, the
+    rollout: the largest |reward|, |return|, |advantage| (raw and normalised) and
+    |estimator target|; the non-finite resets, the rows of each blown-up
+    episode in the rollout (from the env's previous done to its reset) and
+    those rows' share of the value-loss and estimator-loss row sums at the
+    checkpoint's net, and of the first PROBE_EVENTS_KEPT resets the last
+    PROBE_LAST_STEPS rewards, returns and values; the runaway rows, whose
+    estimator target (the base's linear velocity) sits at the observation
+    clip (a base moving at clip / scale, 9 m/s in the recipe: a robot
+    spinning up or in flight, as before a blow-up, which this rollout may
+    not reach), and their shares of those sums. Then, for each minibatch
+    of the update (`num_learning_epochs` x `num_mini_batches`): the
+    gradient norm of each parameter group alone (`group_grad_norms`) and
+    its share of the squared global norm, the global norm and clip scale
+    `minibatch_update` applies, the learning rate after the KL rule and
+    whether it sits at LR_FLOOR, the KL and each loss term. `run_lines`
+    (the run's metrics lines) adds the run's own line of that iteration.
+    With `cut` a path, `_write_fall_cut` writes the iteration's cut there.
+    Returns the probe's line (PROBE_KEYS)."""
+    import numpy as np
+    import torch
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo.ppo import group_grad_norms, make_train_pieces
+    from humanoid_gym_tpu_torch.runner.on_policy_runner import OnPolicyRunner
+
+    t0 = time.perf_counter()
+    dev = torch.device(dev)
+
+    def solver(c):
+        c.sim.solver.solver_type = "apgd" if dev.type == "cpu" else "mega"
+
+    payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+    if "env_state" not in payload or payload["obs"].shape[0] != n_envs:
+        raise ValueError(f"{ckpt}: an update probe needs a checkpoint with the env state of "
+                         f"{n_envs} envs")
+    tcfg = registry.get_task(task).make_train_cfg()
+    seed = tcfg.seed if seed is None else seed
+    env, cfg = registry.make_env(task, num_envs=n_envs, cfg_overrides=solver, device=dev,
+                                 seed=seed)
+    clip = cfg.normalization.clip_observations
+    if horizon is not None:
+        tcfg.runner.num_steps_per_env = horizon
+    runner = OnPolicyRunner(env, tcfg, log_dir=None, seed=seed + fork)
+    runner.load(ckpt)
+    ts, net, pcfg = runner.train_state, runner.net, runner.algo_cfg
+    pieces = make_train_pieces(env, net, pcfg, n_envs, perm_seed=runner.seed)
+    lr_before, count_before = float(ts.lr), int(ts.opt_count)
+    net_before = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+
+    perm = pieces["draw_permutation"](ts, runner.gen)
+    _, _, last_priv, roll, infos = pieces["rollout_phase"](
+        ts, runner.env_state, runner.obs, runner.priv_obs, runner.gen)
+    adv_n, ret = pieces["compute_gae"](ts, roll, last_priv)
+    lo, hi = pcfg.estimator_slice
+    with torch.no_grad():
+        adv = ret - roll.values
+        last_value = net.evaluate(last_priv)
+        target = roll.priv_obs[..., lo:hi]
+        if pcfg.estimator_coef > 0.0 and net.estimator_dim > 0:
+            est_rows = torch.stack([torch.square(net.estimate(o) - g).mean(-1)
+                                    for o, g in zip(roll.obs, target)])
+        else:
+            est_rows = torch.zeros_like(ret)
+    np_ = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    rew, r, v, dones = np_(roll.rewards), np_(ret), np_(roll.values), np_(roll.dones)
+    nonfin = np_(torch.stack([tr.nonfinite for tr in infos])) > 0
+    val_rows, est_np = np.square(v - r), np_(est_rows)
+    tgt_max = np_(target.abs().amax(-1))
+    subs = getattr(env, "envs", [env])
+    ends = np.cumsum([e.num_envs for e in subs])
+    blown = np.zeros_like(dones)
+    events = []
+    for t, e in zip(*np.nonzero(nonfin)):
+        prev = np.nonzero(dones[:t, e])[0]
+        start = int(prev[-1]) + 1 if len(prev) else 0
+        blown[start:t + 1, e] = True
+        if len(events) < PROBE_EVENTS_KEPT:
+            steps = slice(max(start, t - PROBE_LAST_STEPS + 1), t + 1)
+            events.append({"step": int(t), "env": int(e),
+                           "robot": int(np.searchsorted(ends, e, side="right")),
+                           "rewards": rew[steps, e].tolist(), "returns": r[steps, e].tolist(),
+                           "values": v[steps, e].tolist()})
+
+    runaway = tgt_max >= clip
+
+    def share(x, rows=blown):
+        total = float(x.sum())
+        return float(x[rows].sum()) / total if total > 0 else 0.0
+
+    def amax(x):
+        return float(np.abs(x).max()) if x.size else 0.0
+
+    adv_np = np_(adv)
+    rollout = {
+        "mean_step_reward": float(torch.stack([tr.reward for tr in infos]).mean()),
+        "max_abs_reward": amax(rew), "max_abs_return": amax(r), "max_abs_advantage": amax(adv_np),
+        "max_abs_advantage_normalized": amax(np_(adv_n)),
+        "advantage_mean": float(adv_np.mean()), "advantage_std": float(adv_np.std()),
+        "max_abs_estimator_target": amax(tgt_max), "done_rows": int(dones.sum()),
+        "nonfinite_resets": int(nonfin.sum()), "nonfinite_envs": int(nonfin.any(0).sum()),
+        "blown_rows": int(blown.sum()), "blown_row_share": float(blown.mean()),
+        "blown_value_loss_share": share(val_rows), "blown_estimator_loss_share": share(est_np),
+        "blown_max_abs_reward": amax(rew[blown]), "blown_max_abs_return": amax(r[blown]),
+        "blown_max_abs_estimator_target": amax(tgt_max[blown]), "blown_events": events,
+        "observation_clip": clip, "runaway_rows": int(runaway.sum()),
+        "runaway_envs": int(runaway.any(0).sum()), "runaway_row_share": float(runaway.mean()),
+        "runaway_value_loss_share": share(val_rows, runaway),
+        "runaway_estimator_loss_share": share(est_np, runaway),
+        "runaway_max_abs_return": amax(r[runaway])}
+    if cut is not None:
+        _write_fall_cut(cut, roll, adv, adv_n, ret, last_value, last_priv, nonfin, perm, tgt_max,
+                        ends, pcfg, net_before, lr_before, count_before, payload["iter"])
+
+    mbs = pieces["minibatches"](roll, adv_n, ret, perm)
+    minibatches = []
+    for epoch in range(pcfg.num_learning_epochs):
+        for i, mb in enumerate(mbs):
+            loss, _ = pieces["make_loss_fn"](mb)(net)
+            norms = {k: float(x) for k, x in group_grad_norms(net, loss).items()}
+            ts, m = pieces["minibatch_update"](ts, mb)
+            g, lr = float(m["grad_norm"]), float(ts.lr)
+            sq = sum(x * x for x in norms.values())
+            minibatches.append({
+                "epoch": epoch, "minibatch": i, "grad_norm": norms,
+                "grad_share": {k: x * x / sq if sq > 0 else 0.0 for k, x in norms.items()},
+                "global_norm": g,
+                "clip_scale": min(1.0, pcfg.max_grad_norm / (g + 1e-12)) if math.isfinite(g)
+                else 0.0,
+                "lr": lr, "lr_at_floor": _at_lr_floor(lr),
+                **{k: float(m[k]) for k in PROBE_TERMS}})
+    means = {k: statistics.fmean(mb[k] for mb in minibatches)
+             for k in PROBE_TERMS + ("global_norm",)}
+    run_line = next(({k: ln.get(k) for k in PROBE_RUN_KEYS} for ln in run_lines or ()
+                     if ln["iter"] == payload["iter"]), None)
+    return {"checkpoint": os.path.basename(ckpt), "iteration": int(payload["iter"]),
+            "envs": n_envs, "horizon": pcfg.num_steps_per_env, "lr_before": lr_before,
+            "opt_count": count_before, "rollout": rollout, "minibatches": minibatches,
+            "means": means, "run_line": run_line,
+            "seconds": round(time.perf_counter() - t0, 1)}
+
+
+def _write_fall_cut(path, roll, adv, adv_n, ret, last_value, last_priv, nonfin, perm, tgt_max,
+                    ends, pcfg, net, lr, count, iteration):
+    """The cut of a probed iteration that tests/test_torch_fall_update.py
+    holds against the JAX package on the CPU, as a compressed npz: the
+    rollout of FALL_CUT_ENVS envs over its T steps, env-major (obs, priv,
+    actions, mu, sigma, log_probs, values, rewards, dones, nonfinite), the
+    envs that reset non-finite first, then in turn those with the largest
+    |return| and the largest |estimator target|; their last values and
+    privileged obs; the card's advantages (raw and normalised by the whole
+    batch, with its mean and std) and returns; for each minibatch, the cut's
+    rows (t * FALL_CUT_ENVS + index) in the permutation's order
+    (`mb_rows`, split by `mb_sizes`); the net before the update (`net/...`),
+    the learning rate and Adam count. The Adam moments are left out: they
+    would add twice the net's 4.35 MB to the file."""
+    import numpy as np
+    import torch
+
+    np_ = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    T, n = roll.rewards.shape
+    r = np_(ret)
+    order = [list(np.nonzero(nonfin.any(0))[0]), list(np.argsort(-np.abs(r).max(0))),
+             list(np.argsort(-tgt_max.max(0)))]
+    envs = order[0][:FALL_CUT_ENVS]
+    for e in (e for pair in zip(order[1], order[2]) for e in pair):
+        if len(envs) == FALL_CUT_ENVS:
+            break
+        if e not in envs:
+            envs.append(e)
+    envs = np.array(envs, dtype=np.int64)
+    idx = torch.as_tensor(envs, device=roll.rewards.device)
+    k = len(envs)
+    where = np.full(n, -1)
+    where[envs] = np.arange(k)
+    mb = T * n // pcfg.num_mini_batches
+    rows, sizes = [], []
+    for i in range(pcfg.num_mini_batches):
+        g = np_(perm[i * mb:(i + 1) * mb])
+        j = where[g % n]
+        keep = j >= 0
+        rows.append((g // n)[keep] * k + j[keep])
+        sizes.append(int(keep.sum()))
+    env_major = lambda x: np.ascontiguousarray(np_(x[:, idx]).swapaxes(0, 1))  # noqa: E731
+    arrays = {name: env_major(getattr(roll, name)) for name in (
+        "obs", "priv_obs", "actions", "mu", "sigma", "log_probs", "values", "rewards", "dones")}
+    arrays.update(
+        nonfinite=np.ascontiguousarray(nonfin[:, envs].T), card_adv=env_major(adv),
+        card_adv_normalized=env_major(adv_n), card_ret=env_major(ret),
+        card_adv_mean=np.float32(float(adv.mean())),
+        card_adv_std=np.float32(float(torch.sqrt(torch.square(adv - adv.mean()).mean()))),
+        last_value=np_(last_value[idx]), last_priv_obs=np_(last_priv[idx]), envs=envs,
+        robot=np.searchsorted(ends, envs, side="right"), mb_rows=np.concatenate(rows),
+        mb_sizes=np.array(sizes), lr=np.float32(lr), opt_count=np.int64(count),
+        iteration=np.int64(iteration),
+        **{f"net/{name}": v.numpy() for name, v in net.items()})
+    np.savez_compressed(path, **arrays)
+
+
+# the arrays of a fall cut, each with its leading shape in terms of the cut's
+# envs (k), the horizon (T) and the rows of the minibatches (m)
+FALL_CUT_ARRAYS = {
+    "obs": ("k", "T"), "priv_obs": ("k", "T"), "actions": ("k", "T"), "mu": ("k", "T"),
+    "sigma": ("k", "T"), "log_probs": ("k", "T"), "values": ("k", "T"), "rewards": ("k", "T"),
+    "dones": ("k", "T"), "nonfinite": ("k", "T"), "card_adv": ("k", "T"),
+    "card_adv_normalized": ("k", "T"), "card_ret": ("k", "T"), "last_value": ("k",),
+    "last_priv_obs": ("k",), "envs": ("k",), "robot": ("k",), "mb_rows": ("m",),
+    "card_adv_mean": (), "card_adv_std": (), "mb_sizes": (), "lr": (), "opt_count": (),
+    "iteration": ()}
+
+
+def _fall_cut_problems(path):
+    """What the fall cut at `path` (`_write_fall_cut`) lacks: a missing
+    array, a leading shape that disagrees with the others, a minibatch row
+    out of range, a non-finite float, no net."""
+    import numpy as np
+
+    z = np.load(path)
+    problems = [k for k in FALL_CUT_ARRAYS if k not in z.files]
+    if problems:
+        return problems
+    k, T = z["rewards"].shape
+    dims = {"k": k, "T": T, "m": int(z["mb_sizes"].sum())}
+    for name, lead in FALL_CUT_ARRAYS.items():
+        if z[name].shape[:len(lead)] != tuple(dims[d] for d in lead):
+            problems.append(f"{name} {z[name].shape}")
+    if len(z["mb_rows"]) and not 0 <= z["mb_rows"].min() <= z["mb_rows"].max() < k * T:
+        problems.append("mb_rows out of range")
+    nets = [n for n in z.files if n.startswith("net/")]
+    problems += [] if nets else ["no net/ arrays"]
+    problems += [n for n in z.files if z[n].dtype.kind == "f" and not np.isfinite(z[n]).all()]
+    return problems
+
+
+def _blow_up_trace(ev):
+    """A blow-up trace in the format of tests/data/joint_deploy_blow_up.npz
+    (`state_<field>` the PhysicsState row before the first step,
+    `targets` and `card_qvel` the joint targets and returned velocities of
+    TRACE_STEPS steps, `robot`) cut from a `_nonfinite_events` event: the
+    latest window of TRACE_STEPS steps, all returned finite, each step's
+    input the previous one's output (no push or reset between), the base's
+    angular velocity below TRACE_SPIN[0] after the first step and past
+    TRACE_SPIN[1] within the window, and no contact impulse after the
+    last. None if the event has no such window."""
+    import numpy as np
+    import torch
+
+    ins, outs = ev["inputs"], ev["returned"]
+    spin = [float(o["qvel"][3:6].abs().max()) for o in outs]
+    for s in range(len(ins) - TRACE_STEPS, -1, -1):
+        w = range(s, s + TRACE_STEPS)
+        if not (all(torch.isfinite(outs[k]["qvel"]).all() and torch.isfinite(outs[k]["qpos"]).all()
+                    for k in w)
+                and all(torch.equal(ins[k + 1][0][f], outs[k][f]) for k in w[:-1]
+                        for f in ("qpos", "qvel"))
+                and spin[s] < TRACE_SPIN[0] and max(spin[s:s + TRACE_STEPS]) > TRACE_SPIN[1]
+                and float(outs[w[-1]]["contact_lam"].abs().max()) == 0.0):
+            continue
+        return {**{f"state_{k}": v.numpy() for k, v in ins[s][0].items()},
+                "targets": np.stack([ins[k][1].numpy() for k in w]),
+                "card_qvel": np.stack([outs[k]["qvel"].numpy() for k in w]),
+                "robot": np.int64(ev["robot"])}
+    return None
+
+
+def _probe_problems(line, groups=("actor", "critic", "estimator")):
+    """What a probe line (`_update_probe`) lacks: each missing key of
+    PROBE_KEYS, PROBE_ROLLOUT_KEYS, PROBE_MINIBATCH_KEYS and of `groups` in
+    each minibatch's norms, and each number in it that is not finite. An
+    empty list: the line is complete and finite."""
+    problems = [k for k in PROBE_KEYS if k not in line]
+    problems += [f"rollout.{k}" for k in PROBE_ROLLOUT_KEYS if k not in line.get("rollout", {})]
+    for i, mb in enumerate(line.get("minibatches") or [None]):
+        if mb is None:
+            problems.append("minibatches: none")
+            continue
+        problems += [f"minibatches[{i}].{k}" for k in PROBE_MINIBATCH_KEYS if k not in mb]
+        problems += [f"minibatches[{i}].grad_norm.{g}" for g in groups
+                     if g not in mb.get("grad_norm", {})]
+
+    def walk(x, at):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{at}.{k}")
+        elif isinstance(x, list):
+            for i, v in enumerate(x):
+                walk(v, f"{at}[{i}]")
+        elif isinstance(x, float) and not math.isfinite(x):
+            problems.append(f"{at} = {x}")
+
+    walk({k: v for k, v in line.items() if k != "run_line"}, "line")
+    return problems
+
+
+def _probe_table(lines):
+    """The probe lines of a probe.jsonl as a markdown table, a row a
+    checkpoint: the global gradient norm (median and range over the
+    minibatches), each group's median share of its square, the clip scale
+    (median, least), the learning rate at the first and last minibatch and
+    how many sat at the floor (`_at_lr_floor`), the mean KL, the value and estimator losses
+    (the probe's mean beside the run's own line of that iteration), the
+    rollout's non-finite resets, its runaway rows (envs) with their shares
+    of the value- and estimator-loss sums, and its largest |estimator
+    target|."""
+    head = ("| checkpoint | \\|g\\| median (range) | share of \\|g\\|^2 actor / critic / "
+            "estimator | clip median (least) | lr first -> last (at floor) | KL | value loss "
+            "probe / run | estimator loss probe / run | non-finite resets | runaway rows (envs); "
+            "value / estimator share | max \\|est. target\\| |")
+    rows = [head, "|" + "---|" * 11]
+    for ln in lines:
+        mbs, ro, run = ln["minibatches"], ln["rollout"], ln["run_line"] or {}
+        g = [mb["global_norm"] for mb in mbs]
+        share = {k: statistics.median(mb["grad_share"][k] for mb in mbs)
+                 for k in mbs[0]["grad_share"]}
+        clip = [mb["clip_scale"] for mb in mbs]
+        run_v, run_e = run.get("Loss/value_function"), run.get("Loss/estimator")
+        rows.append(
+            f"| {_ckpt_iteration(ln['checkpoint'])} | {statistics.median(g):.3g} "
+            f"({min(g):.3g}-{max(g):.3g}) | "
+            + " / ".join(f"{share[k]:.3f}" for k in ("actor", "critic", "estimator") if k in share)
+            + f" | {statistics.median(clip):.3g} ({min(clip):.3g}) | {mbs[0]['lr']:.3g} -> "
+            f"{mbs[-1]['lr']:.3g} ({sum(_at_lr_floor(mb['lr']) for mb in mbs)} of {len(mbs)}) | "
+            f"{ln['means']['kl']:.3g} | {ln['means']['value_loss']:.3g} / "
+            f"{'-' if run_v is None else f'{run_v:.3g}'} | {ln['means']['estimator_loss']:.3g} / "
+            f"{'-' if run_e is None else f'{run_e:.3g}'} | {ro['nonfinite_resets']} | "
+            f"{ro['runaway_rows']} ({ro['runaway_envs']}); {ro['runaway_value_loss_share']:.3g}"
+            f" / {ro['runaway_estimator_loss_share']:.3g} | "
+            f"{ro['max_abs_estimator_target']:.3g} |")
+    return "\n".join(rows)
+
+
+def _probe_run(card, dev, task, seed, run_dir, probe):
+    """`--train ... --probe`: `_update_probe` of each checkpoint in `probe`
+    of the run directory, one line each appended to its probe.jsonl, the
+    last one's cut written to fall_cut_<c>.npz, from the first of its
+    FALL_CUT_FORKS forks whose rollout holds a non-finite reset (or the
+    last); then the last two probed checkpoints drive `_nonfinite_events`
+    for PROBE_NONFINITE_STEPS policy steps and up to PROBE_TRACES blow-up
+    traces of each (`_blow_up_trace`) are written to blow_up_<c>_<k>.npz."""
+    import numpy as np
+
+    lines = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
+    for c in probe:
+        ckpt = os.path.join(run_dir, f"model_{c}.ckpt")
+        cut = os.path.join(run_dir, f"fall_cut_{c}.npz") if c == probe[-1] else None
+        line = _update_probe(ckpt, task, seed, dev, run_lines=lines, cut=cut)
+        with open(os.path.join(run_dir, "probe.jsonl"), "a") as f:
+            f.write(json.dumps(line) + "\n")
+        _log(f"probe {_probe_table([line]).splitlines()[-1]} | {card}")
+        fork = 1
+        while cut is not None and not line["rollout"]["nonfinite_resets"] \
+                and fork < FALL_CUT_FORKS:
+            line = _update_probe(ckpt, task, seed, dev, cut=cut, fork=fork)
+            _log(f"probe cut: fork {fork} of model_{c}.ckpt, non-finite resets "
+                 f"{line['rollout']['nonfinite_resets']} | {card}")
+            fork += 1
+    for c in probe[-2:]:
+        t0 = time.perf_counter()
+        counts, events = _nonfinite_events(os.path.join(run_dir, f"model_{c}.ckpt"),
+                                           PROBE_NONFINITE_STEPS, dev)
+        kept = []
+        for ev in events:
+            trace = _blow_up_trace(ev)
+            if trace is not None and len(kept) < PROBE_TRACES:
+                kept.append((ev, trace))
+                np.savez_compressed(os.path.join(run_dir, f"blow_up_{c}_{len(kept)}.npz"), **trace)
+        _log(f"probe blow-ups of model_{c}.ckpt: {PROBE_NONFINITE_STEPS} steps, counts "
+             f"{dict(counts)}, traces kept "
+             f"{[(ev['robot'], ev['step'], ev['env']) for ev, _ in kept]} | "
+             f"{time.perf_counter() - t0:.1f} s | {card}")
 
 
 # ---- phase 23: the random draw sites held to their laws on the card ----
@@ -3584,12 +4114,17 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--curve"]:
         # a training run's curve from its metrics.jsonl (or its gzip), on any host
-        import gzip
-
-        path = sys.argv[2]
-        with (gzip.open(path, "rt") if path.endswith(".gz") else open(path)) as f:
-            lines = [json.loads(ln) for ln in f]
+        lines = _read_metrics(sys.argv[2])
         print(_curve_line(lines, int(sys.argv[3]) if len(sys.argv) > 3 else 1), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--probe-table"]:
+        # a probe.jsonl as a markdown table, on any host
+        with open(sys.argv[2]) as f:
+            print(_probe_table([json.loads(ln) for ln in f]), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--compare"]:
+        # two runs' metrics line by line, on any host
+        print(_compare_runs(_read_metrics(sys.argv[2]), _read_metrics(sys.argv[3])), flush=True)
         return 0
     import torch
 
@@ -3601,8 +4136,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase13-rank"]:
         return _phase13_rank(*sys.argv[2:4])
     if sys.argv[1:2] == ["--train"]:
-        task, iters, seed = sys.argv[2:5]
-        return _diagnostic_train(task, int(iters), int(seed))
+        return _diagnostic_train(*_train_argv(sys.argv[2:]))
     if sys.argv[1:2] == ["--nonfinite"]:
         return _diagnostic_nonfinite(sys.argv[2], int(sys.argv[3]), *sys.argv[4:5])
     if sys.argv[1:2] == ["--roll"]:

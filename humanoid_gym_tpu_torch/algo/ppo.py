@@ -545,6 +545,7 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         "permute_batch": permute_batch,
         "minibatch_update": minibatch_update,
         "minibatch_rows": minibatch_rows,
+        "minibatches": minibatches,
         "make_loss_fn": make_loss_fn,
         "actor_apply": actor_apply,
         "critic_apply": critic_apply,
@@ -556,3 +557,18 @@ def make_train_iter(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
     """train_iter(ts, env_state, obs, priv_obs, gen) ->
     (ts, env_state, obs, priv_obs, metrics); see make_train_pieces."""
     return make_train_pieces(env, net, cfg, num_envs, group, perm_seed)["train_iter"]
+
+
+def group_grad_norms(net: ActorCritic, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A reading of an update, not a part of one: the gradient norm of
+    `loss` over each disjoint parameter group of `net` alone, {"actor" (its
+    layers and `std`), "critic", "estimator" (where the net has one)}. The
+    squares of the groups' norms sum to the square of the global norm that
+    `minibatch_update` clips."""
+    names, params = zip(*net.named_parameters())
+    grads = torch.autograd.grad(loss, params, materialize_grads=True)
+    sq: Dict[str, torch.Tensor] = {}
+    for name, g in zip(names, grads):
+        group = "actor" if name == "std" else name.split(".", 1)[0]
+        sq[group] = sq.get(group, 0.0) + torch.sum(torch.square(g))
+    return {k: torch.sqrt(v) for k, v in sq.items()}

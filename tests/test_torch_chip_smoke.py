@@ -5,6 +5,7 @@ per-kernel records."""
 import ast
 import importlib.util
 import inspect
+import math
 import os
 import subprocess
 import sys
@@ -505,6 +506,8 @@ def test_phase22j_is_wired(smoke):
     assert nets == [2800, 2900, 3000, 3001] and actors == list(range(200, 2601, 200))
     assert smoke._kept_checkpoints([100, 200, 300]) == ([100, 200, 300], [])
     assert '"ok"' not in inspect.getsource(smoke._diagnostic_train)
+    assert "_update_probe(os.path.join(run_dir, f\"model_{JOINT_TRAIN_ITERS}.ckpt\")" in body
+    assert "_probe_problems(probe) + _fall_cut_problems(cut)" in body
 
 
 def test_nonfinite_probe_records_an_injected_explosion(smoke, tmp_path, monkeypatch):
@@ -579,3 +582,195 @@ def test_curve_line_reads_a_gzipped_run(smoke):
     assert line.count("iteration ") >= 14 and "iteration 3001: mean_reward 77.06" in line
     assert "non-finite resets 52 in 51 iterations (first [570])" in line
     assert "iterations with a non-finite loss or step reward []" in line
+
+
+def test_train_argv_takes_probe_checkpoints(smoke):
+    """`--train TASK ITERS SEED [--probe C1,C2,...]`: the probed
+    checkpoints sorted; anything else after the seed refused. `--train`
+    prints no contract line."""
+    assert smoke._at_lr_floor(1e-5) and smoke._at_lr_floor(1.0000001e-5)
+    assert not smoke._at_lr_floor(1.5e-5)
+    assert smoke._train_argv(["humanoid_joint_deploy", "3001", "7"]) == (
+        "humanoid_joint_deploy", 3001, 7, ())
+    assert smoke._train_argv(["humanoid_joint_deploy", "3001", "7", "--probe",
+                              "2800,1500,2400,2000"]) == (
+        "humanoid_joint_deploy", 3001, 7, (1500, 2000, 2400, 2800))
+    for bad in (["t", "1", "2", "--probe"], ["t", "1", "2", "--curve", "5"]):
+        with pytest.raises(SystemExit):
+            smoke._train_argv(bad)
+    src = open(SCRIPT).read()
+    assert "return _diagnostic_train(*_train_argv(sys.argv[2:]))" in src
+    assert "full_ckpts=probe" in inspect.getsource(smoke._diagnostic_train)
+    assert '"ok"' not in inspect.getsource(smoke._diagnostic_train)
+
+
+def test_train_child_saves_the_probed_checkpoints_whole(smoke, tmp_path):
+    """The training child (`TRAIN_CHILD`, scripts/train_torch.py's
+    `train`) on the CPU, humanoid_ppo at 2 envs for 1 iteration with
+    HGT_FULL_CKPTS=0: checkpoint 0, which the runner saves without the
+    env state, carries it and the obs, as the last one does."""
+    env = dict(os.environ, HGT_WANDB="0", HGT_FULL_CKPTS="0", OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-c", smoke.TRAIN_CHILD, "--task", "humanoid_ppo", "--num_envs", "2",
+         "--max_iterations", "1", "--log_root", str(tmp_path), "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    assert run.returncode == 0, run.stderr[-3000:]
+    (run_dir,) = [p for p in tmp_path.iterdir() if p.is_dir()]
+    for ck in ("model_0.ckpt", "model_1.ckpt"):
+        payload = torch.load(run_dir / ck, map_location="cpu", weights_only=True)
+        assert {"env_state", "obs", "priv_obs"} <= set(payload), ck
+        assert payload["obs"].shape[0] == 2
+    assert 'env["HGT_FULL_CKPTS"] = ",".join(map(str, full_ckpts))' in inspect.getsource(
+        smoke._train_process)
+
+
+@pytest.fixture(scope="module")
+def probed(smoke, tmp_path_factory):
+    """`_update_probe` on the CPU: a humanoid_joint_deploy runner at 4 envs
+    (T cut to 2) trained 1 iteration and saved with its env state, probed
+    with its cut written; the checkpoint without the env state, and the
+    one with it."""
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.runner.on_policy_runner import OnPolicyRunner
+
+    task, d = "humanoid_joint_deploy", tmp_path_factory.mktemp("probe")
+
+    def apgd(c):
+        c.sim.solver.solver_type = "apgd"
+
+    env, _ = registry.make_env(task, num_envs=4, cfg_overrides=apgd, device="cpu", seed=7)
+    tcfg = registry.get_task(task).make_train_cfg()
+    tcfg.runner.num_steps_per_env = 2
+    runner = OnPolicyRunner(env, tcfg, log_dir=None, seed=7)
+    runner.learn(1)
+    full, bare = str(d / "model_1.ckpt"), str(d / "model_bare.ckpt")
+    runner.save(full, include_env_state=True)
+    runner.save(bare)
+    run_lines = [{"iter": 1, "Loss/value_function": 0.5}, {"iter": 2}]
+    line = smoke._update_probe(full, task, 7, "cpu", n_envs=4, horizon=2, run_lines=run_lines,
+                               cut=str(d / "cut.npz"))
+    return line, str(d / "cut.npz"), bare, full
+
+
+def test_update_probe_line_on_the_cpu(smoke, probed):
+    """The probe's line at 4 envs: complete and finite (`_probe_problems`,
+    the check phase 22j makes on the card), one reading a minibatch of
+    the recipe's 2 x 4, the groups' norms adding up to the global norm that
+    `minibatch_update` clipped, the clip scale and the floor flag read
+    from it, the run's line of the iteration after the checkpoint; a
+    checkpoint without the env state is refused; another fork draws
+    another rollout; `--probe-table` (`_probe_table`) makes one row of the
+    line."""
+    line, _, bare, full = probed
+    assert smoke._probe_problems(line) == []
+    assert (line["iteration"], line["envs"], line["horizon"]) == (1, 4, 2)
+    assert [(mb["epoch"], mb["minibatch"]) for mb in line["minibatches"]] == [
+        (e, i) for e in range(2) for i in range(4)]
+    for mb in line["minibatches"]:
+        groups = mb["grad_norm"]
+        assert sorted(groups) == ["actor", "critic", "estimator"]
+        assert abs(math.hypot(*groups.values()) - mb["global_norm"]) <= 1e-4 * mb["global_norm"]
+        assert abs(sum(mb["grad_share"].values()) - 1.0) < 1e-9
+        assert mb["clip_scale"] == min(1.0, 1.0 / (mb["global_norm"] + 1e-12))
+        assert mb["lr_at_floor"] == (mb["lr"] <= 1.00001e-5)
+    assert line["run_line"]["Loss/value_function"] == 0.5
+    ro = line["rollout"]
+    assert ro["nonfinite_resets"] == 0 and ro["blown_events"] == []
+    assert ro["max_abs_advantage_normalized"] > 0 and ro["max_abs_return"] > 0
+    broken = dict(line, rollout={k: v for k, v in ro.items() if k != "max_abs_return"})
+    broken["minibatches"] = [dict(line["minibatches"][0], kl=float("nan"))]
+    problems = smoke._probe_problems(broken)
+    assert "rollout.max_abs_return" in problems and "line.minibatches[0].kl = nan" in problems
+    with pytest.raises(ValueError, match="env state"):
+        smoke._update_probe(bare, "humanoid_joint_deploy", 7, "cpu", n_envs=4, horizon=2)
+    other = smoke._update_probe(full, "humanoid_joint_deploy", 7, "cpu", n_envs=4, horizon=2,
+                                fork=1)
+    assert other["rollout"]["mean_step_reward"] != ro["mean_step_reward"]
+    assert "_probe_table([line])" in inspect.getsource(smoke._probe_run)
+    table = smoke._probe_table([line]).splitlines()
+    assert len(table) == 3 and table[1] == "|" + "---|" * 11
+    assert table[2].startswith("| 1 | ") and table[2].count("|") == 12
+    assert f"| {line['means']['kl']:.3g} |" in table[2] and "| 0 | 0 (0); 0 / 0 |" in table[2]
+
+
+def test_fall_cut_on_the_cpu(smoke, probed):
+    """The probe's cut of its iteration at 4 envs: whole
+    (`_fall_cut_problems`), every env of the rollout kept (fewer than
+    FALL_CUT_ENVS), the minibatch rows covering the cut once, the
+    normalised advantages the raw ones over the batch's mean and std, the
+    net beside them."""
+    import numpy as np
+
+    _, cut, _, _ = probed
+    assert smoke._fall_cut_problems(cut) == []
+    z = np.load(cut)
+    assert sorted(z["envs"]) == [0, 1, 2, 3] and list(z["robot"][np.argsort(z["envs"])]) == [
+        0, 0, 1, 1]
+    assert sorted(z["mb_rows"]) == list(range(4 * 2))
+    assert np.allclose((z["card_adv"] - z["card_adv_mean"]) / (z["card_adv_std"] + 1e-8),
+                       z["card_adv_normalized"], atol=1e-5)
+    assert z["net/actor.layers.0.weight"].shape == (512, 705) and "net/estimator.layers.0.bias" in z
+    assert not any(k.startswith(("opt_mu", "opt_nu")) for k in z.files)
+    broken = str(cut).replace(".npz", "_broken.npz")
+    np.savez(broken, **{k: z[k] for k in z.files if k != "card_ret"})
+    assert smoke._fall_cut_problems(broken) == ["card_ret"]
+
+
+def test_blow_up_trace_takes_the_latest_chained_window(smoke):
+    """`_blow_up_trace` on a made-up event of 14 steps: the base's angular
+    velocity after each step 5 rad/s up to step 5, then 20, 40, 80, 120
+    with contact impulses until step 8 and none after, the last step
+    non-finite. The latest window of TRACE_STEPS steps that starts below
+    TRACE_SPIN[0], passes TRACE_SPIN[1], ends with no contact and stays
+    finite starts at step 5; with a push between steps 6 and 7 (the next
+    input not the last output) no window is left."""
+    spin = [5.0] * 6 + [20.0, 40.0, 80.0, 120.0, 150.0, 180.0, 200.0, float("nan")]
+
+    def event(push_at=None):
+        ins, outs = [], []
+        for k, w in enumerate(spin):
+            qvel = torch.zeros(18)
+            qvel[4] = w
+            out = {"qpos": torch.full((19,), float(k + 1)), "qvel": qvel,
+                   "contact_lam": torch.full((60,), 1.0 if k < 9 else 0.0)}
+            prev = outs[-1] if outs else {"qpos": torch.zeros(19), "qvel": torch.zeros(18)}
+            rows = {"qpos": prev["qpos"].clone(), "qvel": prev["qvel"].clone(),
+                    "contact_lam": torch.zeros(60), "slope_bias": torch.zeros(2)}
+            if k == push_at:
+                rows["qvel"] = rows["qvel"] + 1.0
+            ins.append((rows, torch.full((12,), float(k))))
+            outs.append(out)
+        return {"robot": 1, "inputs": ins, "returned": outs}
+
+    assert smoke.TRACE_STEPS == 8 and smoke.TRACE_SPIN == (9.0, 66.0)
+    trace = smoke._blow_up_trace(event())
+    assert trace["targets"][:, 0].tolist() == list(range(5, 13))
+    assert trace["card_qvel"][:, 4].tolist() == spin[5:13]
+    assert float(trace["state_qpos"][0]) == 5.0 and int(trace["robot"]) == 1
+    assert set(trace) == {"state_qpos", "state_qvel", "state_contact_lam", "state_slope_bias",
+                          "targets", "card_qvel", "robot"}
+    assert smoke._blow_up_trace(event(push_at=7)) is None
+
+
+def test_compare_runs_finds_the_first_difference(smoke):
+    """`--compare` (`_compare_runs`) on the committed seed-7 rerun: against
+    itself identical through its 3001 iterations, times aside; with one
+    value moved at iteration 2000, that iteration and key first; against
+    the earlier seed-7 run, `joint_deploy_s7_metrics.jsonl`, trained on
+    other random streams, different from the first iteration. It runs
+    without a card."""
+    path = os.path.join(ROOT, "docs", "standings_torch", "joint_deploy_s7_rerun_metrics.jsonl.gz")
+    lines = smoke._read_metrics(path)
+    assert smoke._compare_runs(lines, lines) == (
+        "identical through 3001 iterations (times Perf/ not compared)")
+    moved = [dict(ln) for ln in lines]
+    moved[1999]["Loss/kl"] *= 1.5
+    moved[2500]["Perf/iter_time"] += 1.0
+    got = smoke._compare_runs(lines, moved)
+    assert got.startswith("first difference at iteration 2000, key Loss/kl: ")
+    assert got.endswith("; 1 of 3001 iterations differ")
+    old = os.path.join(ROOT, "docs", "standings_torch", "joint_deploy_s7_metrics.jsonl")
+    run = subprocess.run([sys.executable, SCRIPT, "--compare", old, path], capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.startswith("first difference at iteration 1, key ")

@@ -102,6 +102,32 @@ def test_make_loss_fn_and_its_gradient_match(pieces):
         assert float(np.abs(g.numpy() - w).max()) <= 1e-5 * scale, name
 
 
+def test_group_grad_norms_match_jax_subtrees(pieces):
+    """`group_grad_norms` (the update probe's reading) of the exposed loss:
+    each group's norm equals the global norm of the JAX gradient's subtree
+    (actor with std, critic, estimator where the net has one) within 1e-5
+    relative, and the groups' norms add up, in squares, to the global norm
+    `minibatch_update` clips (the JAX update's, 1e-5 relative); the update's
+    "minibatches" entry is exposed."""
+    import optax
+
+    jp, params, tp, tnet = pieces
+    mb = _batch(4)
+    jgrads = jax.grad(lambda p: jp["make_loss_fn"](tuple(jnp.asarray(x) for x in mb))(p)[0])(
+        params)["params"]
+    total, _ = tp["make_loss_fn"](tuple(torch.from_numpy(x) for x in mb))(tnet)
+    got = {k: float(v) for k, v in TP.group_grad_norms(tnet, total).items()}
+    want = {"actor": float(optax.global_norm((jgrads["actor"], jgrads["std"]))),
+            "critic": float(optax.global_norm(jgrads["critic"]))}
+    if "estimator" in jgrads:
+        want["estimator"] = float(optax.global_norm(jgrads["estimator"]))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(np.sqrt(sum(v * v for v in got.values())),
+                               float(optax.global_norm(jgrads)), rtol=1e-5)
+    assert callable(tp["minibatches"])
+
 def test_minibatch_update_still_uses_the_sum_form():
     """minibatch_update's step equals one taken by hand from the exposed
     mean-form loss's gradient (clip and Adam as the update does them), so

@@ -221,8 +221,16 @@ script exits non-zero):
      (at least one); capture seconds, eager and replayed iteration ms on
      CUDA events and on the host clock, the replay's device idle share,
      the peak memory with the graph's pool;
- 25. one JSON line with a record per kernel, the card line, then the
-     contract line {"ok": true, "device": {...}}.
+ 25. the card's own tests: `python -m pytest tests/test_torch_cuda.py -q
+     --noconftest -p no:cacheprovider` in its own process (tests/conftest.py
+     imports JAX, which the card's host lacks), CARD_TESTS_TIMEOUT_S to run:
+     exit 0, and every collected case passed (none skipped but those named
+     in CARD_TESTS_SKIPS); passed, collected and seconds on one line, the
+     child's tail printed on a failure;
+ 26. one JSON line with each phase's wall seconds on the host clock and
+     their total since main() began (`phase_seconds`), one JSON line with a
+     record per kernel, the card line, then the contract line {"ok": true,
+     "device": {...}}.
 
 Phases 5, 5c, 8, 9, 11, 13, 15, 17, 19, 20 (`dryrun_multichip(1)`), 21,
 22 and 22j train through entry points that run the captured iteration on the
@@ -4068,6 +4076,73 @@ def _phase13_ranks(card):
     return [[it["mega"] for it in t] for t in its]
 
 
+# ---- phase 25: the card's own tests ----
+
+CARD_TESTS = "tests/test_torch_cuda.py"
+CARD_TESTS_TIMEOUT_S = 600
+# cases of CARD_TESTS that skip on the card by their own condition -> why
+CARD_TESTS_SKIPS = {}
+
+
+def _card_test_counts(xml_path):
+    """(collected, passed, names of the skipped cases, names of the failed
+    ones) from pytest's JUnit XML; no report counts as nothing collected."""
+    import xml.etree.ElementTree as ET
+
+    if not os.path.exists(xml_path):
+        return 0, 0, [], []
+    cases = list(ET.parse(xml_path).getroot().iter("testcase"))
+    skipped = [c.get("name") for c in cases if c.find("skipped") is not None]
+    failed = [c.get("name") for c in cases
+              if c.find("failure") is not None or c.find("error") is not None]
+    return len(cases), len(cases) - len(skipped) - len(failed), skipped, failed
+
+
+def _phase25_card_tests(card):
+    """Phase 25: tests/test_torch_cuda.py in its own pytest process on the
+    card, the kernels' edge cases (n = 1, 37, 1621; no active contact row;
+    every limit row inactive; rejected operands and constants), the env
+    step, the captured entry and the captured iteration: exit 0, and every
+    collected case passed but those CARD_TESTS_SKIPS names. A failure or a
+    timeout raises. Returns (passed, collected)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        xml_path = os.path.join(tmp, "card_tests.xml")
+        cmd = [sys.executable, "-m", "pytest", CARD_TESTS, "-q", "--noconftest",
+               "-p", "no:cacheprovider", f"--junitxml={xml_path}"]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=CARD_TESTS_TIMEOUT_S,
+                             cwd=HERE)
+        seconds = time.perf_counter() - t0
+        collected, passed, skipped, failed = _card_test_counts(xml_path)
+    _log(f"phase 25 card tests: {CARD_TESTS} {passed} passed of {collected} collected, "
+         f"{len(skipped)} skipped {skipped}, {len(failed)} failed {failed} | {seconds:.1f} s in "
+         f"its own process | {card}")
+    if (run.returncode != 0 or not collected or passed + len(skipped) != collected
+            or not set(skipped) <= set(CARD_TESTS_SKIPS)):
+        raise AssertionError(f"phase 25: {' '.join(cmd[1:])} exited {run.returncode}, "
+                             f"{passed} passed of {collected}, skipped {skipped}, failed "
+                             f"{failed}:\n{run.stdout[-6000:]}\n{run.stderr[-3000:]}")
+    return passed, collected
+
+
+class _Laps:
+    """Each phase's wall seconds on the host clock: `lap(name)` closes the
+    phase that ran since the previous lap (or since the start)."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.last, 3)
+        self.last = now
+
+    def line(self) -> str:
+        total = round(time.perf_counter() - self.start, 3)
+        return json.dumps({"phase_seconds": {**self.seconds, "total": total}})
+
+
 def _ptxas_summary(log: str) -> str:
     """Per kernel: registers, stack frame and spills from `ptxas -v`."""
     import re
@@ -4152,17 +4227,24 @@ def main() -> int:
     from humanoid_gym_tpu_torch.physics import mega as MG, solve as SV
 
     dev = torch.device("cuda")
+    laps = _Laps()
     card = _phase12_card_and_build()
+    laps.lap("1-2")
 
     c = _setup(dev)
     cfg = c.cfg
     records = {}
     st1, tgt0, ops_in = _phase3_solve(c, records)
+    laps.lap("3")
     _phase4_mega(c, records)
+    laps.lap("4")
     landed_l = _phase4t_mega_terrain(c, records)
+    laps.lap("4t")
     extra = {}  # phase 10's results for the B1 and B1t rows
     _phase10_two_models(c, _setup(dev, robot="S"), extra)
+    laps.lap("10")
     _phase10t_two_models_terrain(c, landed_l, extra)
+    laps.lap("10t")
     del landed_l
     if "--kernels-only" in sys.argv[1:]:
         _phase6_apgd(c, st1, tgt0, records)
@@ -4225,62 +4307,89 @@ def main() -> int:
          f"surrogate {float(last['surrogate_loss']):.4g} mean_step_reward "
          f"{float(last['mean_step_reward']):.4g} | peak mem "
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+    laps.lap("5")
 
     busy5_ms = _where_the_time_goes(env, net, pcfg, ts, state, obs, priv, gen, mean_ms)
     del env, net, ts, state, obs, priv, train_iter
+    laps.lap("5b")
     _phase5c_profile_dir(card, dev)
+    laps.lap("5c")
 
     _phase6_apgd(c, st1, tgt0, records)
+    laps.lap("6")
     _phase7_fused_dense(c, st1, tgt0, ops_in, records)
+    laps.lap("7")
 
     # ---- phase 8: the substep path through the entry points ----
     os.environ["HGT_WANDB"] = "0"
     launches_fused = _substep_path("fused_pallas", timed_iters=1, resume=True, card=card)
     launches_apgd = _substep_path("apgd_pallas", timed_iters=1, resume=False, card=card)
+    laps.lap("8")
 
     # ---- phase 9: the terrain path through the entry points ----
     launches_terrain = _phase9_terrain_path(card)
+    laps.lap("9")
 
     # ---- phase 11: joint XBot-L + XBot-S training through the entry points ----
     launches_joint = _joint_path("humanoid_joint_ppo", card, dev)
     launches_joint_deploy = _joint_path("humanoid_joint_deploy", card, dev)
+    laps.lap("11")
 
     # ---- phase 12: the repo's trained policies through the kernel ----
     _phase12_trained_policies(card, dev)
+    laps.lap("12")
 
     # ---- phase 13: env-sharded training, two ranks on the card ----
     launches_ranks = _phase13_ranks(card)
+    laps.lap("13")
 
     # ---- phase 14: play on the card ----
     launches_play = _phase14_play(card, dev)
+    laps.lap("14")
 
     # ---- phase 15: the learning-curve band on the card ----
     launches_band = _phase15_learning_band(card, dev)
+    laps.lap("15")
 
     # ---- phases 16-19: the measurement tools on the card ----
     _phase16_learn_profile(card, dev, busy5_ms)
+    laps.lap("16")
     _phase17_config4(card)
+    laps.lap("17")
     _phase18_sass_census(card)
+    laps.lap("18")
     _phase19_roofline_and_example(card, dev, mean_ms)
+    laps.lap("19")
 
     # ---- phase 20: the env step with no host synchronisation, captured ----
     launches_graph = _phase20_capture(card, dev)
+    laps.lap("20")
 
     # ---- phase 21: bench_torch.py on the card ----
     launches_bench = _phase21_bench(card)
+    laps.lap("21")
 
     # ---- phase 22: the flat recipe trained from scratch on the card ----
     _phase22_train_from_scratch(card, dev)
+    laps.lap("22")
 
     # ---- phase 22j: the production joint recipe through the training process ----
     _phase22j_joint_train(card, dev)
+    laps.lap("22j")
 
     # ---- phase 23: the random draw sites held to their laws on the card ----
     _phase23_laws(card, dev)
+    laps.lap("23")
 
     # ---- phase 24: the training iteration as one CUDA graph against eager ----
     _phase24_captured(card, dev)
+    laps.lap("24")
 
+    # ---- phase 25: the card's own tests ----
+    _phase25_card_tests(card)
+    laps.lap("25")
+
+    print(laps.line(), flush=True)
     kernels = [
         dict(name="hgt_mega_kernel (whole policy step of physics)", route="cuda",
              source="humanoid_gym_tpu_torch/csrc/mega.cu",

@@ -5,8 +5,10 @@ per-kernel records."""
 import ast
 import importlib.util
 import inspect
+import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -309,7 +311,8 @@ def test_phase22_is_wired(smoke):
     assert 'for task in ("humanoid_ppo", TERRAIN_TASK, JOINT_TASK):' in src
     assert smoke.JOINT_TASK == "humanoid_joint_ppo"
     assert "\n 22. the flat recipe trained from scratch" in smoke.__doc__
-    assert "\n 25. one JSON line with a record per kernel" in smoke.__doc__
+    assert "\n 26. one JSON line with each phase's wall seconds" in smoke.__doc__
+    assert "one JSON line with a record per kernel" in " ".join(smoke.__doc__.split())
 
 
 def test_phase23_is_wired(smoke):
@@ -774,3 +777,95 @@ def test_compare_runs_finds_the_first_difference(smoke):
                          text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     assert run.stdout.startswith("first difference at iteration 1, key ")
+
+
+PHASES = ("1-2", "3", "4", "4t", "10", "10t", "5", "5b", "5c", "6", "7", "8", "9", "11", "12",
+          "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "22j", "23", "24", "25")
+
+
+def test_phase25_and_phase_seconds_are_wired(smoke):
+    """Phase 25 runs the card's own tests after phase 24; the phase_seconds
+    line, with a lap for every phase in the order they run, comes after it
+    and before the kernels line and the contract line; no `except` in the
+    phase swallows a failure."""
+    src = open(SCRIPT).read()
+    order = [src.index(s) for s in (
+        "    _phase24_captured(card, dev)", "    _phase25_card_tests(card)",
+        "    print(laps.line(), flush=True)", 'print(json.dumps({"kernels"',
+        'print(json.dumps({"ok": True')]
+    assert order == sorted(order)
+    assert src.count('route="cuda"') == 5
+    assert smoke.CARD_TESTS == "tests/test_torch_cuda.py" and smoke.CARD_TESTS_SKIPS == {}
+    assert smoke.CARD_TESTS_TIMEOUT_S == 600
+    body = inspect.getsource(smoke._phase25_card_tests)
+    assert '[sys.executable, "-m", "pytest", CARD_TESTS, "-q", "--noconftest",' in body
+    assert '"-p", "no:cacheprovider"' in body and "timeout=CARD_TESTS_TIMEOUT_S" in body
+    assert "passed + len(skipped) != collected" in body
+    for fn in (smoke._phase25_card_tests, smoke._card_test_counts):
+        tree = ast.parse(inspect.getsource(fn))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    main = inspect.getsource(smoke.main)
+    assert list(PHASES) == re.findall(r'laps\.lap\("([0-9a-z-]+)"\)', main)
+    assert "\n 25. the card's own tests" in smoke.__doc__
+
+
+def test_phase_seconds_line_holds_every_lap_and_the_total(smoke, monkeypatch):
+    clock = iter([10.0, 12.5, 13.0, 20.25, 21.0])
+    monkeypatch.setattr(smoke.time, "perf_counter", lambda: next(clock))
+    laps = smoke._Laps()
+    laps.lap("1-2")
+    laps.lap("3")
+    laps.lap("4")
+    line = json.loads(laps.line())
+    assert line == {"phase_seconds": {"1-2": 2.5, "3": 0.5, "4": 7.25, "total": 11.0}}
+
+
+def _junit(cases):
+    """A JUnit report in pytest's layout; each case is (name, outcome)."""
+    tag = {"skipped": '<skipped message="s"/>', "failed": '<failure message="f"/>',
+           "error": '<error message="e"/>', "passed": ""}
+    body = "".join(f'<testcase classname="tests.test_torch_cuda" name="{n}">{tag[o]}</testcase>'
+                   for n, o in cases)
+    return (f'<?xml version="1.0" encoding="utf-8"?><testsuites><testsuite name="pytest" '
+            f'tests="{len(cases)}">{body}</testsuite></testsuites>')
+
+
+@pytest.mark.parametrize("outcomes, rc, ok", [
+    (("passed", "passed", "passed"), 0, True),
+    (("passed", "skipped", "passed"), 0, False),
+    (("passed", "failed", "passed"), 1, False),
+    (("passed", "error", "passed"), 1, False),
+    (("passed", "passed", "passed"), 1, False),
+    ((), 5, False),
+    (None, 4, False),
+], ids=["all-pass", "a-skip", "a-failure", "an-error", "nonzero-exit", "nothing-collected",
+        "no-report"])
+def test_phase25_holds_passes_to_collected(smoke, monkeypatch, outcomes, rc, ok):
+    """Phase 25 passes only when the child exits 0 and every collected case
+    passed; otherwise it raises with the child's tail."""
+    def fake_run(cmd, **kw):
+        xml = next(a for a in cmd if a.startswith("--junitxml=")).split("=", 1)[1]
+        if outcomes is not None:
+            with open(xml, "w") as f:
+                f.write(_junit([(f"test_case[{i}]", o) for i, o in enumerate(outcomes)]))
+        return subprocess.CompletedProcess(cmd, rc, stdout="child tail", stderr="")
+
+    monkeypatch.setattr(smoke.subprocess, "run", fake_run)
+    if ok:
+        assert smoke._phase25_card_tests("card") == (3, 3)
+    else:
+        with pytest.raises(AssertionError, match="child tail"):
+            smoke._phase25_card_tests("card")
+
+
+def test_phase25_rehearsal_on_the_cpu(smoke):
+    """The child's command collects the card tests on a host with no card
+    (no conftest, so no JAX) and every case skips for want of one, which
+    phase 25 refuses."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the child would run the card tests")
+    with pytest.raises(AssertionError, match=r"0 passed of (\d+), skipped") as err:
+        smoke._phase25_card_tests("no card")
+    collected = int(re.search(r"0 passed of (\d+)", str(err.value)).group(1))
+    assert collected >= 25 and f"{collected} skipped" in str(err.value)
+    assert "failed []" in str(err.value)

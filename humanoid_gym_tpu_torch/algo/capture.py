@@ -44,6 +44,12 @@ it:
   collectives and their bytes, on the host, so they count the warm-up and
   the recording; both are taken back, each replay adds the launches the
   capture recorded, and each all-reduce between two graphs counts itself.
+- Spans. The warm-up and the recording are timed on the host clock
+  (`spans`: `capture.warm_up`, `capture.record`; `utils/tracing.py`
+  `record_capture`). Where a stage tracer is active during the capture
+  (`OnPolicyRunner.set_tracing`), its buffer is allocated and the card's
+  clock read first, and the graph records the stage stamps with the work;
+  without one it records none.
 
 There is no fallback: a capture or a replay that fails raises, and on a
 CPU device the constructor raises. `compiled_train_iter` picks the captured
@@ -62,6 +68,7 @@ import torch
 from ..parallel.mesh import EnvGroup, all_reduce_flat
 from ..physics.mega import mega_kernel_launch
 from ..physics.solve import apgd_solve_kernel, fused_dense_solve, fused_solve
+from ..utils import tracing
 from .networks import ActorCritic
 from .ppo import PPOConfig, TrainState, make_train_iter, make_train_pieces
 
@@ -250,7 +257,9 @@ class CapturedTrainIter:
     """The training iteration captured as CUDA graphs cut at each
     collective (one graph at world size 1); see the module docstring.
     `graph` is the `CutGraphs` of the capture (None before the first call),
-    `capture_seconds` the last capture's time (warm-up included)."""
+    `capture_seconds` the last capture's time (warm-up included), `spans`
+    its warm-up's and recording's host spans (name -> (start ns, end ns),
+    `time.perf_counter_ns`)."""
 
     def __init__(self, env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                  group: Optional[EnvGroup] = None, perm_seed: Optional[int] = None):
@@ -263,6 +272,7 @@ class CapturedTrainIter:
         self._env_generators = env.generators()
         self._group = group
         self.capture_seconds = None
+        self.spans = {}
         self.reset()
 
     def reset(self) -> None:
@@ -274,21 +284,29 @@ class CapturedTrainIter:
         """The body on the static inputs, its new env state, obs and
         priv_obs copied back into them; returns the metrics."""
         *new, metrics = self._body(self._ts, *self._inputs, self._gen, self._perm)
-        copy_into(self._inputs, tuple(new))
+        with tracing.stage("iter.inputs"):
+            copy_into(self._inputs, tuple(new))
         return metrics
 
     def _capture(self, ts: TrainState, env_state, obs, priv_obs, gen) -> None:
         t0 = time.perf_counter()
+        tracer = tracing.active()
+        if tracer is not None:
+            tracer.prepare()
         self._ts, self._gen = ts, gen
         self._bound = [t.data_ptr() for t in train_state_tensors(ts)]
         self._inputs = clone_tree((env_state, obs, priv_obs))
         self._perm = self._draw(ts, gen)
         generators = list({id(g): g for g in [gen, *self._env_generators]}.values())
         before, collectives = launch_counts(), _group_counts(self._group)
+        w0 = time.perf_counter_ns()
         warm_up(self._run, ts, self._inputs, generators)
+        w1 = time.perf_counter_ns()
         warm = launch_counts()
         graph = CutGraphs(self._group, generators)
         self._metrics = graph.record(self._run)
+        self.spans = {"capture.warm_up": (w0, w1), "capture.record": (w1, time.perf_counter_ns())}
+        tracing.record_capture(self.spans)
         self._replay_launches = [a - b for a, b in zip(launch_counts(), warm)]
         _set_launch_counts(before)
         _set_group_counts(self._group, collectives)

@@ -44,6 +44,7 @@ import torch
 from ..parallel.mesh import EnvGroup, all_reduce_sum
 from ..parallel.multihost import local_env_slice
 from ..physics.kinematics import use_full_f32_matmul
+from ..utils.tracing import ROOT, stage
 from .networks import ActorCritic, normal_entropy, normal_log_prob
 
 
@@ -293,16 +294,19 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         )
         infos = []
         for t in range(T):
-            mean, std = ts.net.act(obs)
-            value = ts.net.evaluate(priv_obs)
-            noise = torch.randn(mean.shape, generator=gen, device=dev)
-            action = mean + std * noise
-            logp = normal_log_prob(mean, std, action)
+            with stage("rollout.policy"):
+                mean, std = ts.net.act(obs)
+                value = ts.net.evaluate(priv_obs)
+                noise = torch.randn(mean.shape, generator=gen, device=dev)
+                action = mean + std * noise
+                logp = normal_log_prob(mean, std, action)
             env_state, tr = env.step(env_state, action)
-            rew = tr.reward + cfg.gamma * value * tr.time_out
-            buf.obs[t], buf.priv_obs[t], buf.actions[t] = obs, priv_obs, action
-            buf.mu[t], buf.sigma[t] = mean, std.expand_as(mean)
-            buf.log_probs[t], buf.values[t], buf.rewards[t], buf.dones[t] = logp, value, rew, tr.done
+            with stage("rollout.store"):
+                rew = tr.reward + cfg.gamma * value * tr.time_out
+                buf.obs[t], buf.priv_obs[t], buf.actions[t] = obs, priv_obs, action
+                buf.mu[t], buf.sigma[t] = mean, std.expand_as(mean)
+                buf.log_probs[t], buf.values[t], buf.rewards[t], buf.dones[t] = (
+                    logp, value, rew, tr.done)
             infos.append(tr)
             obs, priv_obs = tr.obs, tr.privileged_obs
         return env_state, obs, priv_obs, buf, infos
@@ -312,13 +316,15 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         """GAE, then the advantages normalised by the global batch's mean
         and population std, in two passes (the mean, then the squared
         deviations from it), as jnp.std computes it."""
-        last_value = ts.net.evaluate(last_priv_obs)
-        advantages, returns = gae(roll.rewards, roll.values, roll.dones, last_value, cfg.gamma, cfg.lam)
-        count = torch.full((), float(advantages.numel()), device=advantages.device)
-        total, count = all_reduce_sum([advantages.sum(), count], group)
-        mean = total / count
-        (sq,) = all_reduce_sum([torch.square(advantages - mean).sum()], group)
-        adv_n = (advantages - mean) / (torch.sqrt(sq / count) + 1e-8)
+        with stage("gae"):
+            last_value = ts.net.evaluate(last_priv_obs)
+            advantages, returns = gae(roll.rewards, roll.values, roll.dones, last_value,
+                                      cfg.gamma, cfg.lam)
+            count = torch.full((), float(advantages.numel()), device=advantages.device)
+            total, count = all_reduce_sum([advantages.sum(), count], group)
+            mean = total / count
+            (sq,) = all_reduce_sum([torch.square(advantages - mean).sum()], group)
+            adv_n = (advantages - mean) / (torch.sqrt(sq / count) + 1e-8)
         return adv_n, returns
 
     def actor_apply(net: ActorCritic, obs):
@@ -401,41 +407,43 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         all-reduce, then divided by the global row count, so every rank
         takes the step of the global mean with the global KL."""
         net = ts.net
-        total, sums = make_sum_loss_fn(mb)(net)
-        names, params = zip(*net.named_parameters())
-        # an estimator head that the loss does not use (coef 0) gets zero
-        # gradients, as under jax.grad
-        grads = torch.autograd.grad(total, params, materialize_grads=True)
-        rows = mb[9].sum() if len(mb) > 9 else torch.full((), float(mb[0].shape[0]),
-                                                          device=sums.device)
-        *grads, sums, rows = all_reduce_sum([*grads, sums, rows], group)
-        grads = {k: g / rows for k, g in zip(names, grads)}
-        surr_l, val_l, ent, kl_mean, est_l = (sums / rows).unbind()
-        lr = ts.lr
-        if cfg.schedule == "adaptive":
-            lr = torch.where(
-                kl_mean > cfg.desired_kl * 2.0,
-                torch.clamp(lr / 1.5, min=1e-5),
-                torch.where(
-                    (kl_mean < cfg.desired_kl / 2.0) & (kl_mean > 0.0),
-                    torch.clamp(lr * 1.5, max=1e-2),
-                    lr,
-                ),
-            )
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
-        ok = torch.isfinite(gnorm)
-        scale = torch.clamp(cfg.max_grad_norm / (gnorm + 1e-12), max=1.0)
-        grads = {k: torch.where(ok, g * scale, torch.zeros_like(g)) for k, g in grads.items()}
-        _adam_step(ts, grads, lr)
-        ts.lr.copy_(lr)
-        return ts, {
-            "value_loss": val_l,
-            "surrogate_loss": surr_l,
-            "entropy": ent,
-            "kl": kl_mean,
-            "grad_norm": gnorm.detach(),
-            "estimator_loss": est_l,
-        }
+        with stage("update.grad"):
+            total, sums = make_sum_loss_fn(mb)(net)
+            names, params = zip(*net.named_parameters())
+            # an estimator head that the loss does not use (coef 0) gets zero
+            # gradients, as under jax.grad
+            grads = torch.autograd.grad(total, params, materialize_grads=True)
+            rows = mb[9].sum() if len(mb) > 9 else torch.full((), float(mb[0].shape[0]),
+                                                              device=sums.device)
+        with stage("update.adam"):
+            *grads, sums, rows = all_reduce_sum([*grads, sums, rows], group)
+            grads = {k: g / rows for k, g in zip(names, grads)}
+            surr_l, val_l, ent, kl_mean, est_l = (sums / rows).unbind()
+            lr = ts.lr
+            if cfg.schedule == "adaptive":
+                lr = torch.where(
+                    kl_mean > cfg.desired_kl * 2.0,
+                    torch.clamp(lr / 1.5, min=1e-5),
+                    torch.where(
+                        (kl_mean < cfg.desired_kl / 2.0) & (kl_mean > 0.0),
+                        torch.clamp(lr * 1.5, max=1e-2),
+                        lr,
+                    ),
+                )
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
+            ok = torch.isfinite(gnorm)
+            scale = torch.clamp(cfg.max_grad_norm / (gnorm + 1e-12), max=1.0)
+            grads = {k: torch.where(ok, g * scale, torch.zeros_like(g)) for k, g in grads.items()}
+            _adam_step(ts, grads, lr)
+            ts.lr.copy_(lr)
+            return ts, {
+                "value_loss": val_l,
+                "surrogate_loss": surr_l,
+                "entropy": ent,
+                "kl": kl_mean,
+                "grad_norm": gnorm.detach(),
+                "estimator_loss": est_l,
+            }
 
     def gather(roll: Rollout, adv, ret, rows, weight):
         """The minibatches of `minibatch_rows`' rows and weights, gathered
@@ -463,10 +471,9 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         perm = torch.randperm(batch, generator=perm_gen, device=adv.device)
         return minibatches(roll, adv, ret, perm)
 
-    def update_split(ts: TrainState, roll: Rollout, adv, ret, rows, weight):
-        """num_learning_epochs x num_mini_batches updates over the
-        minibatches of `minibatch_rows`; returns the mean metrics."""
-        mbs = gather(roll, adv, ret, rows, weight)
+    def update_minibatches(ts: TrainState, mbs):
+        """num_learning_epochs x num_mini_batches updates over the gathered
+        minibatches `mbs`; returns the mean metrics."""
         metrics_acc = None
         for _ in range(cfg.num_learning_epochs):
             for mb in mbs:
@@ -476,6 +483,10 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                 }
         n_updates = cfg.num_learning_epochs * n_mb
         return ts, {k: v / n_updates for k, v in metrics_acc.items()}
+
+    def update_split(ts: TrainState, roll: Rollout, adv, ret, rows, weight):
+        """`update_minibatches` over the minibatches of `minibatch_rows`."""
+        return update_minibatches(ts, gather(roll, adv, ret, rows, weight))
 
     def update_on(ts: TrainState, roll: Rollout, adv, ret, perm: torch.Tensor):
         """`update_split` over the global permutation `perm`."""
@@ -501,11 +512,27 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         """One training iteration on the minibatch permutation `perm`:
         rollout, GAE, the update phase and the metrics; -> (env_state, obs,
         priv_obs, metrics). It updates the parameters, Adam moments, count
-        and learning rate of `ts` in place and leaves `ts.iteration` alone."""
-        env_state, obs, priv_obs, roll, infos = rollout_phase(ts, env_state, obs, priv_obs, gen)
-        adv, ret = compute_gae(ts, roll, priv_obs)
-        rows, weight, own = minibatch_rows(perm)
-        ts, metrics = update_split(ts, roll, adv, ret, rows, weight)
+        and learning rate of `ts` in place and leaves `ts.iteration` alone.
+        Its stages (`utils/tracing.py`) partition it: under the root, per env
+        step rollout.policy, the env's stages and rollout.store, then gae,
+        update.gather, per minibatch update.grad and update.adam, and
+        iter.metrics."""
+        with stage(ROOT):
+            env_state, obs, priv_obs, roll, infos = rollout_phase(ts, env_state, obs, priv_obs,
+                                                                  gen)
+            adv, ret = compute_gae(ts, roll, priv_obs)
+            with stage("update.gather"):
+                rows, weight, own = minibatch_rows(perm)
+                mbs = gather(roll, adv, ret, rows, weight)
+            ts, metrics = update_minibatches(ts, mbs)
+            with stage("iter.metrics"):
+                metrics = rollout_metrics(ts, metrics, infos, own)
+        return env_state, obs, priv_obs, metrics
+
+    def rollout_metrics(ts: TrainState, metrics: dict, infos, own):
+        """The iteration's metrics: the update's means `metrics`, with the
+        rollout's sums over the ranks, the learning rate and the action
+        std."""
         stack = lambda f: torch.stack([getattr(tr, f) for tr in infos])  # noqa: E731
         (reward_sum, ep_term_sums, ep_reset_count, ep_len_sum, ep_reward_sum, nonfinite,
          level_sum) = all_reduce_sum([
@@ -527,7 +554,7 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         )
         if sharded:  # this rank's split, for check_minibatch_split
             metrics.update(minibatch_own_rows=own, minibatch_split_rows=split_size)
-        return env_state, obs, priv_obs, metrics
+        return metrics
 
     def train_iter(ts: TrainState, env_state, obs, priv_obs, gen):
         perm = draw_permutation(ts, gen)

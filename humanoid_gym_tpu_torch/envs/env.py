@@ -57,6 +57,7 @@ from ..physics.kinematics import body_velocities, fk, index_tensor, use_full_f32
 from ..physics.model import RobotModel, build_model_from_urdf
 from ..physics.step import PhysicsState, make_physics_step
 from ..terrain.terrain import TerrainMap, flat_height_fn, make_height_fn
+from ..utils.tracing import stage
 from . import rewards as R
 from .state import EnvState
 
@@ -443,294 +444,301 @@ class HumanoidEnv:
         clip_a = cfg.normalization.clip_actions
         dr = cfg.domain_rand
 
-        # ---- XBot action pipeline (humanoid_env.py:189-197) ----
-        a = policy_action
-        if cfg.env.use_ref_actions:
-            a = a + 2.0 * state.ref_dof_pos
-        a = torch.clamp(a, -clip_a, clip_a)
-        if dr.action_delay != 0.0:
-            delay = torch.rand((n, 1), generator=self.gen, device=dev) * dr.action_delay
-            a = (1.0 - delay) * a + delay * state.actions
-        if dr.action_noise != 0.0:
-            a = a + dr.action_noise * torch.randn(a.shape, generator=self.gen, device=dev) * a
-        actions = torch.clamp(a, -clip_a, clip_a)
+        with stage("env.actions"):
+            # ---- XBot action pipeline (humanoid_env.py:189-197) ----
+            a = policy_action
+            if cfg.env.use_ref_actions:
+                a = a + 2.0 * state.ref_dof_pos
+            a = torch.clamp(a, -clip_a, clip_a)
+            if dr.action_delay != 0.0:
+                delay = torch.rand((n, 1), generator=self.gen, device=dev) * dr.action_delay
+                a = (1.0 - delay) * a + delay * state.actions
+            if dr.action_noise != 0.0:
+                a = a + dr.action_noise * torch.randn(a.shape, generator=self.gen, device=dev) * a
+            actions = torch.clamp(a, -clip_a, clip_a)
 
-        # ---- physics ----
-        targets = actions * cfg.control.action_scale + self.default_dof_pos
-        phys = self._phys_step(state.phys, targets)
+        with stage("env.physics"):
+            # ---- physics ----
+            targets = actions * cfg.control.action_scale + self.default_dof_pos
+            phys = self._phys_step(state.phys, targets)
 
-        # ---- post-physics base quantities ----
-        finite = torch.all(torch.isfinite(phys.qpos), dim=1) & torch.all(torch.isfinite(phys.qvel), dim=1)
-        episode_length = state.episode_length + 1
-        common_step = state.common_step + 1
-        quat = phys.qpos[:, 3:7]
-        base_lin_vel = S.quat_rotate_inverse(quat, phys.qvel[:, 0:3])
-        base_ang_vel = S.quat_rotate_inverse(quat, phys.qvel[:, 3:6])
-        projected_gravity = S.quat_rotate_inverse(quat, self._gravity_dir.expand(n, 3))
-        base_euler = S.quat_to_euler_xyz(quat)
+        with stage("env.state"):
+            # ---- post-physics base quantities ----
+            finite = torch.all(torch.isfinite(phys.qpos), dim=1) & torch.all(torch.isfinite(phys.qvel), dim=1)
+            episode_length = state.episode_length + 1
+            common_step = state.common_step + 1
+            quat = phys.qpos[:, 3:7]
+            base_lin_vel = S.quat_rotate_inverse(quat, phys.qvel[:, 0:3])
+            base_ang_vel = S.quat_rotate_inverse(quat, phys.qvel[:, 3:6])
+            projected_gravity = S.quat_rotate_inverse(quat, self._gravity_dir.expand(n, 3))
+            base_euler = S.quat_to_euler_xyz(quat)
 
-        # ---- commands / heading / push ----
-        resample = (episode_length % self.resampling_interval) == 0
-        commands = torch.where(
-            resample[:, None], self._sample_commands(state.commands, state.cmd_vx_range),
-            state.commands,
-        )
-        if cfg.commands.heading_command:
-            fwd = S.quat_rotate(quat, self._forward.expand(n, 3))
-            heading = torch.atan2(fwd[:, 1], fwd[:, 0])
-            cmd_yaw = torch.clamp(0.5 * S.wrap_to_pi(commands[:, 3] - heading), -1.0, 1.0)
-            commands = torch.cat(
-                [commands[:, :2], torch.where(finite, cmd_yaw, 0.0)[:, None], commands[:, 3:]], dim=1
+            # ---- commands / heading / push ----
+            resample = (episode_length % self.resampling_interval) == 0
+            commands = torch.where(
+                resample[:, None], self._sample_commands(state.commands, state.cmd_vx_range),
+                state.commands,
+            )
+            if cfg.commands.heading_command:
+                fwd = S.quat_rotate(quat, self._forward.expand(n, 3))
+                heading = torch.atan2(fwd[:, 1], fwd[:, 0])
+                cmd_yaw = torch.clamp(0.5 * S.wrap_to_pi(commands[:, 3] - heading), -1.0, 1.0)
+                commands = torch.cat(
+                    [commands[:, :2], torch.where(finite, cmd_yaw, 0.0)[:, None], commands[:, 3:]], dim=1
+                )
+
+            rand_push_force, rand_push_torque = state.rand_push_force, state.rand_push_torque
+            if dr.push_robots:
+                dp = ((common_step % self.push_interval) == 0)[:, None]
+                pf = self._uniform((n, 2), -dr.max_push_vel_xy, dr.max_push_vel_xy)
+                pt = self._uniform((n, 3), -dr.max_push_ang_vel, dr.max_push_ang_vel)
+                rand_push_force = torch.where(dp, torch.cat([pf, torch.zeros_like(pf[:, :1])], 1),
+                                              rand_push_force)
+                rand_push_torque = torch.where(dp, pt, rand_push_torque)
+                qvel_pushed = torch.cat([pf, phys.qvel[:, 2:3], pt, phys.qvel[:, 6:]], dim=1)
+                phys = phys.replace(qvel=torch.where(dp, qvel_pushed, phys.qvel))
+
+            # ---- feet / knee kinematics ----
+            if self._kernel_fk:
+                # the mega kernel's end-of-step rows: positions base-relative,
+                # velocities world-frame
+                rel = phys.fk_out
+                base_xy = phys.qpos[:, None, :2]
+                feet_z = rel[:, 4:6] + phys.qpos[:, 2:3]
+                feet_pos_xy = torch.stack([rel[:, 0:2], rel[:, 2:4]], dim=2) + base_xy
+                knee_pos_xy = torch.stack([rel[:, 6:8], rel[:, 8:10]], dim=2) + base_xy
+                feet_vel_xy = torch.stack([rel[:, 10:12], rel[:, 12:14]], dim=2)
+            else:
+                kfk = fk(m, phys.qpos)
+                bv = body_velocities(m, phys.qpos, phys.qvel, kfk)
+                fidx, kidx = self._feet_idx, self._knee_idx
+                feet_z = kfk.p[:, fidx, 2]
+                feet_pos_xy = kfk.p[:, fidx, :2]
+                knee_pos_xy = kfk.p[:, kidx, :2]
+                feet_vel_xy = bv.v_origin[:, fidx, :2]
+            feet_force = phys.contact_forces[:, self._feet_idx]
+            contact = feet_force[..., 2] > 5.0
+            term_flags, pen_flags = self._probe_flags(phys.qpos)
+
+            # ---- termination ----
+            contact_term = torch.any(term_flags, dim=1) | ~finite
+            time_out = episode_length > self.max_episode_length
+            done = contact_term | time_out
+
+            def safe(x, d=0.0):
+                return torch.where(finite[:, None], torch.nan_to_num(x, nan=d, posinf=d, neginf=d),
+                                   torch.full_like(x, d))
+
+            base_lin_vel = safe(base_lin_vel)
+            base_ang_vel = safe(base_ang_vel)
+            base_euler = safe(base_euler)
+            projected_gravity = torch.where(finite[:, None], projected_gravity, self._gravity_dir)
+
+        with stage("env.rewards"):
+            # ---- rewards ----
+            phase_rew = self._gait_phase(episode_length)
+            ctx = R.RewardCtx(
+                dt=self.dt,
+                default_dof_pos=self.default_dof_pos,
+                cycle_time=cfg.rewards.cycle_time,
+                target_joint_pos_scale=cfg.rewards.target_joint_pos_scale,
+                target_feet_height=cfg.rewards.target_feet_height,
+                base_height_target=cfg.rewards.base_height_target,
+                min_dist=cfg.rewards.min_dist,
+                max_dist=cfg.rewards.max_dist,
+                tracking_sigma=cfg.rewards.tracking_sigma,
+                max_contact_force=cfg.rewards.max_contact_force,
+                sole_offset=cfg.rewards.sole_offset,
+                dof_pos=phys.qpos[:, 7:],
+                dof_vel=phys.qvel[:, 6:],
+                last_dof_vel=state.last_dof_vel,
+                actions=actions,
+                last_actions=state.last_actions,
+                last_last_actions=state.last_last_actions,
+                torques=phys.torques,
+                base_lin_vel=base_lin_vel,
+                base_ang_vel=base_ang_vel,
+                base_euler=base_euler,
+                projected_gravity=projected_gravity,
+                commands=commands,
+                root_z=phys.qpos[:, 2],
+                root_vel=phys.qvel[:, 0:6],
+                last_root_vel=state.last_root_vel,
+                feet_z=feet_z,
+                feet_vel_xy=feet_vel_xy,
+                feet_pos_xy=feet_pos_xy,
+                knee_pos_xy=knee_pos_xy,
+                feet_contact_force=feet_force,
+                contact=contact,
+                stance_mask=self._stance_mask(phase_rew),
+                ref_dof_pos=state.ref_dof_pos,
+                collision_flags=pen_flags,
+                feet_air_time=state.feet_air_time,
+                last_contacts=state.last_contacts,
+                feet_height=state.feet_height,
+                last_feet_z=state.last_feet_z,
+            )
+            term_values = torch.stack([fn(ctx) for fn in self._reward_fns], dim=1)
+            term_values = torch.where(finite[:, None], term_values, 0.0)
+            scaled = term_values * self.reward_scales
+            episode_sums = state.episode_sums + scaled
+            reward = torch.sum(scaled, dim=1)
+            if cfg.rewards.only_positive_rewards:
+                reward = torch.clamp(reward, min=0.0)
+            if self.termination_scale != 0.0:
+                reward = reward + self.termination_scale * (done & ~time_out)
+
+            fsu = R.feet_state_update(ctx)
+            fin2 = finite[:, None]
+            fsu = R.FeetStateUpdate(
+                feet_air_time=torch.where(fin2, fsu.feet_air_time, 0.0),
+                last_contacts=fsu.last_contacts & fin2,
+                feet_height=torch.where(fin2, fsu.feet_height, 0.0),
+                last_feet_z=torch.where(fin2, fsu.last_feet_z, 0.05),
             )
 
-        rand_push_force, rand_push_torque = state.rand_push_force, state.rand_push_torque
-        if dr.push_robots:
-            dp = ((common_step % self.push_interval) == 0)[:, None]
-            pf = self._uniform((n, 2), -dr.max_push_vel_xy, dr.max_push_vel_xy)
-            pt = self._uniform((n, 3), -dr.max_push_ang_vel, dr.max_push_ang_vel)
-            rand_push_force = torch.where(dp, torch.cat([pf, torch.zeros_like(pf[:, :1])], 1),
-                                          rand_push_force)
-            rand_push_torque = torch.where(dp, pt, rand_push_torque)
-            qvel_pushed = torch.cat([pf, phys.qvel[:, 2:3], pt, phys.qvel[:, 6:]], dim=1)
-            phys = phys.replace(qvel=torch.where(dp, qvel_pushed, phys.qvel))
+        with stage("env.reset"):
+            # ---- terrain curriculum (legged_robot.py:400-420) ----
+            level, env_origin = state.terrain_level, state.env_origin
+            if cfg.terrain.curriculum and self.terrain_origins is not None:
+                rand_level = torch.randint(0, self.max_terrain_level, (n,), generator=self.gen,
+                                           device=dev)
+                level, env_origin = self._terrain_curriculum(state, phys.qpos, commands, done,
+                                                             time_out, rand_level)
 
-        # ---- feet / knee kinematics ----
-        if self._kernel_fk:
-            # the mega kernel's end-of-step rows: positions base-relative,
-            # velocities world-frame
-            rel = phys.fk_out
-            base_xy = phys.qpos[:, None, :2]
-            feet_z = rel[:, 4:6] + phys.qpos[:, 2:3]
-            feet_pos_xy = torch.stack([rel[:, 0:2], rel[:, 2:4]], dim=2) + base_xy
-            knee_pos_xy = torch.stack([rel[:, 6:8], rel[:, 8:10]], dim=2) + base_xy
-            feet_vel_xy = torch.stack([rel[:, 10:12], rel[:, 12:14]], dim=2)
-        else:
-            kfk = fk(m, phys.qpos)
-            bv = body_velocities(m, phys.qpos, phys.qvel, kfk)
-            fidx, kidx = self._feet_idx, self._knee_idx
-            feet_z = kfk.p[:, fidx, 2]
-            feet_pos_xy = kfk.p[:, fidx, :2]
-            knee_pos_xy = kfk.p[:, kidx, :2]
-            feet_vel_xy = bv.v_origin[:, fidx, :2]
-        feet_force = phys.contact_forces[:, self._feet_idx]
-        contact = feet_force[..., 2] > 5.0
-        term_flags, pen_flags = self._probe_flags(phys.qpos)
-
-        # ---- termination ----
-        contact_term = torch.any(term_flags, dim=1) | ~finite
-        time_out = episode_length > self.max_episode_length
-        done = contact_term | time_out
-
-        def safe(x, d=0.0):
-            return torch.where(finite[:, None], torch.nan_to_num(x, nan=d, posinf=d, neginf=d),
-                               torch.full_like(x, d))
-
-        base_lin_vel = safe(base_lin_vel)
-        base_ang_vel = safe(base_ang_vel)
-        base_euler = safe(base_euler)
-        projected_gravity = torch.where(finite[:, None], projected_gravity, self._gravity_dir)
-
-        # ---- rewards ----
-        phase_rew = self._gait_phase(episode_length)
-        ctx = R.RewardCtx(
-            dt=self.dt,
-            default_dof_pos=self.default_dof_pos,
-            cycle_time=cfg.rewards.cycle_time,
-            target_joint_pos_scale=cfg.rewards.target_joint_pos_scale,
-            target_feet_height=cfg.rewards.target_feet_height,
-            base_height_target=cfg.rewards.base_height_target,
-            min_dist=cfg.rewards.min_dist,
-            max_dist=cfg.rewards.max_dist,
-            tracking_sigma=cfg.rewards.tracking_sigma,
-            max_contact_force=cfg.rewards.max_contact_force,
-            sole_offset=cfg.rewards.sole_offset,
-            dof_pos=phys.qpos[:, 7:],
-            dof_vel=phys.qvel[:, 6:],
-            last_dof_vel=state.last_dof_vel,
-            actions=actions,
-            last_actions=state.last_actions,
-            last_last_actions=state.last_last_actions,
-            torques=phys.torques,
-            base_lin_vel=base_lin_vel,
-            base_ang_vel=base_ang_vel,
-            base_euler=base_euler,
-            projected_gravity=projected_gravity,
-            commands=commands,
-            root_z=phys.qpos[:, 2],
-            root_vel=phys.qvel[:, 0:6],
-            last_root_vel=state.last_root_vel,
-            feet_z=feet_z,
-            feet_vel_xy=feet_vel_xy,
-            feet_pos_xy=feet_pos_xy,
-            knee_pos_xy=knee_pos_xy,
-            feet_contact_force=feet_force,
-            contact=contact,
-            stance_mask=self._stance_mask(phase_rew),
-            ref_dof_pos=state.ref_dof_pos,
-            collision_flags=pen_flags,
-            feet_air_time=state.feet_air_time,
-            last_contacts=state.last_contacts,
-            feet_height=state.feet_height,
-            last_feet_z=state.last_feet_z,
-        )
-        term_values = torch.stack([fn(ctx) for fn in self._reward_fns], dim=1)
-        term_values = torch.where(finite[:, None], term_values, 0.0)
-        scaled = term_values * self.reward_scales
-        episode_sums = state.episode_sums + scaled
-        reward = torch.sum(scaled, dim=1)
-        if cfg.rewards.only_positive_rewards:
-            reward = torch.clamp(reward, min=0.0)
-        if self.termination_scale != 0.0:
-            reward = reward + self.termination_scale * (done & ~time_out)
-
-        fsu = R.feet_state_update(ctx)
-        fin2 = finite[:, None]
-        fsu = R.FeetStateUpdate(
-            feet_air_time=torch.where(fin2, fsu.feet_air_time, 0.0),
-            last_contacts=fsu.last_contacts & fin2,
-            feet_height=torch.where(fin2, fsu.feet_height, 0.0),
-            last_feet_z=torch.where(fin2, fsu.last_feet_z, 0.05),
-        )
-
-        # ---- terrain curriculum (legged_robot.py:400-420) ----
-        level, env_origin = state.terrain_level, state.env_origin
-        if cfg.terrain.curriculum and self.terrain_origins is not None:
-            rand_level = torch.randint(0, self.max_terrain_level, (n,), generator=self.gen,
-                                       device=dev)
-            level, env_origin = self._terrain_curriculum(state, phys.qpos, commands, done,
-                                                         time_out, rand_level)
-
-        # ---- masked auto-reset ----
-        d1 = done[:, None]
-        qpos_r, qvel_r = self._reset_phys(n, env_origin)
-        phys = phys.replace(
-            qpos=torch.where(d1, qpos_r, phys.qpos),
-            qvel=torch.where(d1, qvel_r, phys.qvel),
-            contact_lam=torch.where(d1, torch.zeros_like(phys.contact_lam), phys.contact_lam),
-        )
-        commands = torch.where(d1, self._sample_commands(commands, state.cmd_vx_range), commands)
-
-        def zero_if_done(x):
-            return torch.where(done.view((n,) + (1,) * (x.dim() - 1)), torch.zeros_like(x), x)
-
-        actions_post = zero_if_done(actions)
-        last_actions = zero_if_done(state.last_actions)
-        feet_air_time = zero_if_done(fsu.feet_air_time)
-        episode_length = torch.where(done, torch.zeros_like(episode_length), episode_length)
-        obs_history = zero_if_done(state.obs_history)
-        critic_history = zero_if_done(state.critic_history)
-        ep_term_sums = torch.where(d1, episode_sums / cfg.env.episode_length_s,
-                                   torch.zeros_like(episode_sums))
-        ep_len_at_reset = torch.where(done, state.episode_length + 1, 0).to(torch.float32)
-        episode_reward = state.episode_reward + reward
-        ep_reward_at_reset = torch.where(done, episode_reward, 0.0)
-        episode_reward = torch.where(done, 0.0, episode_reward)
-        episode_sums = zero_if_done(episode_sums)
-        quat_post = phys.qpos[:, 3:7]
-        base_euler = torch.where(d1, S.quat_to_euler_xyz(quat_post), base_euler)
-        projected_gravity = torch.where(
-            d1, S.quat_rotate_inverse(quat_post, self._gravity_dir.expand(n, 3)), projected_gravity
-        )
-
-        # ---- observations (humanoid_env.py:200-262) ----
-        phase = self._gait_phase(episode_length)
-        sin_pos = torch.sin(2 * math.pi * phase)
-        cos_pos = torch.cos(2 * math.pi * phase)
-        ref_dof_pos = self._ref_dof_pos(phase)
-        stance_mask_obs = self._stance_mask(phase)
-        os_ = cfg.normalization.obs_scales
-        command_input = torch.cat(
-            [sin_pos[:, None], cos_pos[:, None], commands[:, :3] * self.commands_scale], dim=1
-        )
-        dof_pos = phys.qpos[:, 7:]
-        dof_vel = phys.qvel[:, 6:]
-        q = (dof_pos - self.default_dof_pos) * os_.dof_pos
-        dq = dof_vel * os_.dof_vel
-        single_obs = torch.cat(
-            [command_input, q, dq, actions_post, base_ang_vel * os_.ang_vel, base_euler * os_.quat],
-            dim=1,
-        )
-        single_priv = torch.cat(
-            [
-                command_input, q, dq, actions_post, dof_pos - ref_dof_pos,
-                base_lin_vel * os_.lin_vel, base_ang_vel * os_.ang_vel, base_euler * os_.quat,
-                rand_push_force[:, :2], rand_push_torque, state.env_friction[:, None],
-                (m.body_mass[0] * phys.base_mass_scale)[:, None] / 30.0,
-                stance_mask_obs, contact.to(torch.float32),
-            ],
-            dim=1,
-        )
-        if self.measure_heights:
-            # yaw-rotated sample grid around the base (legged_robot.py:759-795)
-            pts = S.quat_apply_yaw(quat_post[:, None, :],
-                                   self.height_points.expand(n, -1, -1))
-            h = self.terrain_height_fn(pts[..., 0] + phys.qpos[:, 0:1], pts[..., 1] + phys.qpos[:, 1:2])
-            h_obs = torch.clamp(phys.qpos[:, 2:3] - 0.5 - h, -1.0, 1.0) * os_.height_measurements
-            single_priv = torch.cat([single_priv, h_obs], dim=1)
-        if single_obs.shape[1] != cfg.env.num_single_obs:
-            raise ValueError(f"obs frame {single_obs.shape[1]} != {cfg.env.num_single_obs}")
-        if single_priv.shape[1] != cfg.env.single_num_privileged_obs:
-            raise ValueError(f"priv frame {single_priv.shape[1]} != "
-                             f"{cfg.env.single_num_privileged_obs}")
-        if cfg.noise.add_noise:
-            single_obs = single_obs + (
-                torch.randn(single_obs.shape, generator=self.gen, device=dev)
-                * self.noise_scale_vec * cfg.noise.noise_level
+            # ---- masked auto-reset ----
+            d1 = done[:, None]
+            qpos_r, qvel_r = self._reset_phys(n, env_origin)
+            phys = phys.replace(
+                qpos=torch.where(d1, qpos_r, phys.qpos),
+                qvel=torch.where(d1, qvel_r, phys.qvel),
+                contact_lam=torch.where(d1, torch.zeros_like(phys.contact_lam), phys.contact_lam),
             )
-        obs_history = torch.cat([obs_history[:, 1:], single_obs[:, None]], dim=1)
-        critic_history = torch.cat([critic_history[:, 1:], single_priv[:, None]], dim=1)
-        clip_o = cfg.normalization.clip_observations
-        obs = torch.clamp(obs_history.reshape(n, -1), -clip_o, clip_o)
-        priv_obs = torch.clamp(critic_history.reshape(n, -1), -clip_o, clip_o)
+            commands = torch.where(d1, self._sample_commands(commands, state.cmd_vx_range), commands)
 
-        new_state = EnvState(
-            phys=phys,
-            episode_length=episode_length,
-            common_step=common_step,
-            reset_buf=done,
-            time_out_buf=time_out,
-            commands=commands,
-            actions=actions_post,
-            last_actions=actions_post,
-            last_last_actions=last_actions,
-            last_dof_vel=dof_vel,
-            last_root_vel=phys.qvel[:, 0:6],
-            feet_air_time=feet_air_time,
-            last_contacts=fsu.last_contacts,
-            feet_height=fsu.feet_height,
-            last_feet_z=fsu.last_feet_z,
-            ref_dof_pos=ref_dof_pos,
-            rand_push_force=rand_push_force,
-            rand_push_torque=rand_push_torque,
-            env_friction=state.env_friction,
-            obs_history=obs_history,
-            critic_history=critic_history,
-            base_lin_vel=base_lin_vel,
-            base_ang_vel=base_ang_vel,
-            base_euler=base_euler,
-            projected_gravity=projected_gravity,
-            episode_sums=episode_sums,
-            episode_reward=episode_reward,
-            cmd_vx_range=self._command_curriculum(state.cmd_vx_range, common_step, done,
-                                                  ep_term_sums),
-            terrain_level=level,
-            terrain_type=state.terrain_type,
-            env_origin=env_origin,
-        )
-        trans = Transition(
-            obs=obs,
-            privileged_obs=priv_obs,
-            reward=reward,
-            done=done,
-            time_out=time_out,
-            ep_term_sums=ep_term_sums,
-            ep_reset_count=done.to(torch.int32),
-            ep_len_at_reset=ep_len_at_reset,
-            ep_reward_at_reset=ep_reward_at_reset,
-            nonfinite=(~finite).to(torch.int32),
-            terrain_level=level.to(torch.float32),
-        )
-        return new_state, trans
+            def zero_if_done(x):
+                return torch.where(done.view((n,) + (1,) * (x.dim() - 1)), torch.zeros_like(x), x)
+
+            actions_post = zero_if_done(actions)
+            last_actions = zero_if_done(state.last_actions)
+            feet_air_time = zero_if_done(fsu.feet_air_time)
+            episode_length = torch.where(done, torch.zeros_like(episode_length), episode_length)
+            obs_history = zero_if_done(state.obs_history)
+            critic_history = zero_if_done(state.critic_history)
+            ep_term_sums = torch.where(d1, episode_sums / cfg.env.episode_length_s,
+                                       torch.zeros_like(episode_sums))
+            ep_len_at_reset = torch.where(done, state.episode_length + 1, 0).to(torch.float32)
+            episode_reward = state.episode_reward + reward
+            ep_reward_at_reset = torch.where(done, episode_reward, 0.0)
+            episode_reward = torch.where(done, 0.0, episode_reward)
+            episode_sums = zero_if_done(episode_sums)
+            cmd_vx_range = self._command_curriculum(state.cmd_vx_range, common_step, done,
+                                                    ep_term_sums)
+            quat_post = phys.qpos[:, 3:7]
+            base_euler = torch.where(d1, S.quat_to_euler_xyz(quat_post), base_euler)
+            projected_gravity = torch.where(
+                d1, S.quat_rotate_inverse(quat_post, self._gravity_dir.expand(n, 3)), projected_gravity
+            )
+
+        with stage("env.obs"):
+            # ---- observations (humanoid_env.py:200-262) ----
+            phase = self._gait_phase(episode_length)
+            sin_pos = torch.sin(2 * math.pi * phase)
+            cos_pos = torch.cos(2 * math.pi * phase)
+            ref_dof_pos = self._ref_dof_pos(phase)
+            stance_mask_obs = self._stance_mask(phase)
+            os_ = cfg.normalization.obs_scales
+            command_input = torch.cat(
+                [sin_pos[:, None], cos_pos[:, None], commands[:, :3] * self.commands_scale], dim=1
+            )
+            dof_pos = phys.qpos[:, 7:]
+            dof_vel = phys.qvel[:, 6:]
+            q = (dof_pos - self.default_dof_pos) * os_.dof_pos
+            dq = dof_vel * os_.dof_vel
+            single_obs = torch.cat(
+                [command_input, q, dq, actions_post, base_ang_vel * os_.ang_vel, base_euler * os_.quat],
+                dim=1,
+            )
+            single_priv = torch.cat(
+                [
+                    command_input, q, dq, actions_post, dof_pos - ref_dof_pos,
+                    base_lin_vel * os_.lin_vel, base_ang_vel * os_.ang_vel, base_euler * os_.quat,
+                    rand_push_force[:, :2], rand_push_torque, state.env_friction[:, None],
+                    (m.body_mass[0] * phys.base_mass_scale)[:, None] / 30.0,
+                    stance_mask_obs, contact.to(torch.float32),
+                ],
+                dim=1,
+            )
+            if self.measure_heights:
+                # yaw-rotated sample grid around the base (legged_robot.py:759-795)
+                pts = S.quat_apply_yaw(quat_post[:, None, :],
+                                       self.height_points.expand(n, -1, -1))
+                h = self.terrain_height_fn(pts[..., 0] + phys.qpos[:, 0:1], pts[..., 1] + phys.qpos[:, 1:2])
+                h_obs = torch.clamp(phys.qpos[:, 2:3] - 0.5 - h, -1.0, 1.0) * os_.height_measurements
+                single_priv = torch.cat([single_priv, h_obs], dim=1)
+            if single_obs.shape[1] != cfg.env.num_single_obs:
+                raise ValueError(f"obs frame {single_obs.shape[1]} != {cfg.env.num_single_obs}")
+            if single_priv.shape[1] != cfg.env.single_num_privileged_obs:
+                raise ValueError(f"priv frame {single_priv.shape[1]} != "
+                                 f"{cfg.env.single_num_privileged_obs}")
+            if cfg.noise.add_noise:
+                single_obs = single_obs + (
+                    torch.randn(single_obs.shape, generator=self.gen, device=dev)
+                    * self.noise_scale_vec * cfg.noise.noise_level
+                )
+            obs_history = torch.cat([obs_history[:, 1:], single_obs[:, None]], dim=1)
+            critic_history = torch.cat([critic_history[:, 1:], single_priv[:, None]], dim=1)
+            clip_o = cfg.normalization.clip_observations
+            obs = torch.clamp(obs_history.reshape(n, -1), -clip_o, clip_o)
+            priv_obs = torch.clamp(critic_history.reshape(n, -1), -clip_o, clip_o)
+
+            new_state = EnvState(
+                phys=phys,
+                episode_length=episode_length,
+                common_step=common_step,
+                reset_buf=done,
+                time_out_buf=time_out,
+                commands=commands,
+                actions=actions_post,
+                last_actions=actions_post,
+                last_last_actions=last_actions,
+                last_dof_vel=dof_vel,
+                last_root_vel=phys.qvel[:, 0:6],
+                feet_air_time=feet_air_time,
+                last_contacts=fsu.last_contacts,
+                feet_height=fsu.feet_height,
+                last_feet_z=fsu.last_feet_z,
+                ref_dof_pos=ref_dof_pos,
+                rand_push_force=rand_push_force,
+                rand_push_torque=rand_push_torque,
+                env_friction=state.env_friction,
+                obs_history=obs_history,
+                critic_history=critic_history,
+                base_lin_vel=base_lin_vel,
+                base_ang_vel=base_ang_vel,
+                base_euler=base_euler,
+                projected_gravity=projected_gravity,
+                episode_sums=episode_sums,
+                episode_reward=episode_reward,
+                cmd_vx_range=cmd_vx_range,
+                terrain_level=level,
+                terrain_type=state.terrain_type,
+                env_origin=env_origin,
+            )
+            trans = Transition(
+                obs=obs,
+                privileged_obs=priv_obs,
+                reward=reward,
+                done=done,
+                time_out=time_out,
+                ep_term_sums=ep_term_sums,
+                ep_reset_count=done.to(torch.int32),
+                ep_len_at_reset=ep_len_at_reset,
+                ep_reward_at_reset=ep_reward_at_reset,
+                nonfinite=(~finite).to(torch.int32),
+                terrain_level=level.to(torch.float32),
+            )
+            return new_state, trans
 
     def reset_all(self):
         """Fresh batched state + first obs via a zero-action step

@@ -24,6 +24,7 @@ import torch
 
 from ..parallel.mesh import EnvGroup
 from ..parallel.multihost import rank_seed
+from ..utils.tracing import robot, stage
 from .env import HumanoidEnv, Transition
 
 
@@ -77,14 +78,19 @@ class JointEnv:
         return [e.init_state() for e in self.envs]
 
     def step(self, state_list: List, actions: torch.Tensor):
+        """Each sub-env's step on its slice of the actions, its stages
+        traced under its robot index, then the transitions joined."""
         new_states, transitions = [], []
-        for e, c, off, st in zip(self.envs, self.counts, self._offsets, state_list):
-            ns, tr = e.step(st, actions[off:off + c])
+        for i, (e, c, off, st) in enumerate(zip(self.envs, self.counts, self._offsets,
+                                                state_list)):
+            with robot(i):
+                ns, tr = e.step(st, actions[off:off + c])
             new_states.append(ns)
             transitions.append(tr)
-        joined = Transition(**{
-            f.name: torch.cat([getattr(tr, f.name) for tr in transitions], dim=0)
-            for f in dataclasses.fields(Transition)})
+        with stage("env.join"):
+            joined = Transition(**{
+                f.name: torch.cat([getattr(tr, f.name) for tr in transitions], dim=0)
+                for f in dataclasses.fields(Transition)})
         return new_states, joined
 
     def reset_all(self):

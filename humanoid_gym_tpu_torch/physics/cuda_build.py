@@ -25,6 +25,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 SOURCES = {
     "mega": ("mega.cu", "solve.cuh", "apgd.cuh"),
     "dense": ("dense_solve.cu", "apgd.cuh", "bulk_copy.cuh"),
+    "stamp": ("stamp.cu",),
 }
 BUILD_DIR = os.path.join(HGT_ROOT_DIR, "build", "kernels")
 NVCC_FLAGS = [
@@ -34,13 +35,14 @@ NVCC_FLAGS = [
 
 
 class KernelLibrary:
-    """The loaded libraries (`lib`: mega.cu, `dense`: dense_solve.cu) and
-    their build record."""
+    """The loaded libraries (`lib`: mega.cu, `dense`: dense_solve.cu,
+    `stamp`: stamp.cu) and their build record."""
 
-    def __init__(self, lib: ctypes.CDLL, dense: ctypes.CDLL, paths: dict, build_seconds: float,
-                 log: str):
+    def __init__(self, lib: ctypes.CDLL, dense: ctypes.CDLL, stamp: ctypes.CDLL, paths: dict,
+                 build_seconds: float, log: str):
         self.lib = lib
         self.dense = dense
+        self.stamp = stamp
         self.paths = paths
         self.build_seconds = build_seconds
         self.log = log
@@ -58,6 +60,8 @@ class KernelLibrary:
         dense.hgt_apgd.restype = ci
         dense.hgt_fused_dense.argtypes = [vp] * 12 + [ci, ci, vp]
         dense.hgt_fused_dense.restype = ci
+        stamp.hgt_stamp_launch.argtypes = [vp, ci, vp]
+        stamp.hgt_stamp_launch.restype = ci
 
 
 _LIBRARY: KernelLibrary | None = None
@@ -101,8 +105,8 @@ def build_library() -> KernelLibrary:
     if failed:
         raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
-    return KernelLibrary(ctypes.CDLL(paths["mega"]), ctypes.CDLL(paths["dense"]), paths,
-                         seconds, log)
+    return KernelLibrary(ctypes.CDLL(paths["mega"]), ctypes.CDLL(paths["dense"]),
+                         ctypes.CDLL(paths["stamp"]), paths, seconds, log)
 
 
 def kernel_library() -> KernelLibrary:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..terrain.terrain import TerrainMap, flat_height_fn, grid_tensor
+from ..utils.tracing import stage
 from . import spatial as S
 from .contact import build_contact_setup, joint_limit_bounds, world_impulses
 from .cuda_build import check, kernel_library
@@ -490,7 +491,10 @@ def make_mega_step_batched(
         terrain_patches = make_terrain_patches(model, terrain_map)
 
     def step(qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, slope_bias, targets):
-        in2 = terrain_patches(qpos, slope_bias) if terrain is not None else None
+        in2 = None
+        if terrain is not None:
+            with stage("env.physics.terrain"):
+                in2 = terrain_patches(qpos, slope_bias)
         if qpos.is_cuda:
             packed = pack_inputs(qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, targets)
             out = mega_kernel_launch(packed, consts_dev, dt, decimation, iterations,

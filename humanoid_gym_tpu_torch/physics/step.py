@@ -27,6 +27,7 @@ import torch
 
 from . import spatial as S
 from ..terrain.terrain import flat_height_fn, make_contact_height_fn, make_grad_fn
+from ..utils.tracing import stage
 from .contact import (
     ContactResult, build_contact_setup, joint_limit_bounds, resolve_contacts,
     terrain_contact_frames, world_impulses,
@@ -245,7 +246,10 @@ def make_physics_step(
         frames_at = _make_frames_at(model, make_grad_fn(terrain_map, dev)) if on_terrain else None
 
         def substep_loop(state: PhysicsState, targets: torch.Tensor) -> PhysicsState:
-            frames0 = frames_at(state.qpos, state.slope_bias) if on_terrain else None
+            frames0 = None
+            if on_terrain:
+                with stage("env.physics.terrain"):
+                    frames0 = frames_at(state.qpos, state.slope_bias)
             for _ in range(decimation):
                 state = substep(state, targets, frames0)
             return state

@@ -30,12 +30,22 @@ buffered: iteration i+1 is enqueued before iteration i's metrics are read,
 and on the card the read waits on an event recorded after a non-blocking
 copy into pinned memory, so it never waits for the newer iteration.
 
-With HGT_PROFILE_DIR set, the second iteration of `learn` (the first
-builds and warms up) runs under `torch.profiler` and ends in a
-synchronisation inside the trace; the profiler writes a Chrome trace
-(`trace_iter<N>.json`, `trace_iter<N>_rank<r>.json` under sharding) into
-that directory and the runner prints where. Without the variable nothing
-of `learn` changes.
+Stage tracing (`set_tracing(True)`, `utils/tracing.py`): the iteration
+is built (captured, on the card) with a stamp at each stage boundary, the
+stamps travel in the same double-buffered fetch as the metrics, and the
+runner's tracer (`self.tracer`) keeps per-stage totals and the host spans
+`runner.dispatch` (the permutation draw, the replay, the metric copies
+and the start of the fetch), `runner.fetch_wait` (the wait on the fetch),
+`runner.log` and `runner.save`, with the capture's spans, in memory. Off
+(the default), the iteration carries no stamp and `learn` records nothing.
+
+With HGT_PROFILE_DIR set, tracing is on and the second iteration of
+`learn` (the first builds and warms up) runs under `torch.profiler` and
+ends in a synchronisation inside the trace; the profiler writes a Chrome
+trace (`trace_iter<N>.json`, `trace_iter<N>_rank<r>.json` under sharding)
+into that directory, with a `stages` track (`tracing.add_stage_track`),
+and the runner prints where. Without the variable nothing of `learn`
+changes.
 
 Checkpoints are `torch.save` files of tensors and plain Python values:
 the train state (net weights, Adam moments and count, adaptive learning
@@ -62,6 +72,10 @@ from ..algo.ppo import PPOConfig, check_minibatch_split, init_train_state
 from ..envs.state import EnvState
 from ..parallel.mesh import replicate
 from ..parallel.multihost import broadcast_str, shard_path, stream_seed
+from ..utils.tracing import StageTracer, activated, add_stage_track, host_span
+
+# the key under which an iteration's stage stamps ride in the metrics fetch
+STAMPS = "stage_stamps"
 
 
 def _atomic_save(obj, path: str) -> None:
@@ -207,6 +221,7 @@ class OnPolicyRunner:
         if not self.is_main_process:
             log_dir = self.log_dir = None
         self.last_scalars = None
+        self.tracer: Optional[StageTracer] = None
         self.writer = None
         self.wandb_run = None
         self._metrics_file = None
@@ -261,12 +276,18 @@ class OnPolicyRunner:
         steps_per_iter = self.num_steps_per_env * self.num_envs
 
         profile_dir = os.environ.get("HGT_PROFILE_DIR")
+        if profile_dir:
+            self.set_tracing(True)
+        tracer = self.tracer
         pending = None  # (it, seconds since the previous dispatch, metrics, event)
         t_prev = time.time()
 
         def consume(p_it, p_dt, metrics, event):
-            if event is not None:
-                event.synchronize()
+            with host_span(tracer, "runner.fetch_wait"):
+                if event is not None:
+                    event.synchronize()
+            if tracer is not None:
+                tracer.add_iteration(metrics.pop(STAMPS))
             check_minibatch_split(metrics)
             self.tot_timesteps += steps_per_iter
             self.tot_time += p_dt
@@ -275,16 +296,21 @@ class OnPolicyRunner:
                 self.rewbuffer.append(float(metrics["ep_reward_sum"]) / n_resets)
                 self.lenbuffer.append(float(metrics["ep_len_sum"]) / n_resets)
             fps = steps_per_iter / max(p_dt, 1e-9)
-            self._log(p_it, tot_iter, metrics, fps, p_dt, n_resets)
+            with host_span(tracer, "runner.log"):
+                self._log(p_it, tot_iter, metrics, fps, p_dt, n_resets)
 
         for it in range(start_iter, tot_iter):
             prof = start_profile(self.device) if profile_dir and it == start_iter + 1 else None
-            self.train_state, self.env_state, self.obs, self.priv_obs, metrics = self._train_iter(
-                self.train_state, self.env_state, self.obs, self.priv_obs, self.gen
-            )
+            with host_span(tracer, "runner.dispatch"):
+                with activated(tracer):
+                    out = self._train_iter(self.train_state, self.env_state, self.obs,
+                                           self.priv_obs, self.gen)
+                self.train_state, self.env_state, self.obs, self.priv_obs, metrics = out
+                if tracer is not None:
+                    metrics = {**metrics, STAMPS: tracer.stamps()}
+                fetch = start_fetch(metrics, self.device)
             if prof is not None:
                 self._write_profile(prof, profile_dir, it)
-            fetch = start_fetch(metrics, self.device)
             if pending is not None:
                 consume(*pending)
             now = time.time()
@@ -292,23 +318,38 @@ class OnPolicyRunner:
             t_prev = now
             self.current_learning_iteration = it + 1
             if self.log_dir and (it % self.save_interval == 0):
-                self.save(os.path.join(self.log_dir, f"model_{it}.ckpt"))
+                with host_span(tracer, "runner.save"):
+                    self.save(os.path.join(self.log_dir, f"model_{it}.ckpt"))
         if pending is not None:
             consume(*pending)
         if self._ckpt_dir:
             # the final checkpoint bundles the env state (command ranges, DR
             # draws, histories) with its observations, so a resumed run
             # continues from the same envs; every rank writes its shard
-            self.save(
-                os.path.join(self._ckpt_dir, f"model_{self.current_learning_iteration}.ckpt"),
-                include_env_state=True,
-            )
+            with host_span(tracer, "runner.save"):
+                self.save(
+                    os.path.join(self._ckpt_dir, f"model_{self.current_learning_iteration}.ckpt"),
+                    include_env_state=True,
+                )
         self.close()
+
+    def set_tracing(self, on: bool) -> None:
+        """Turn stage tracing on (a new `StageTracer` in `self.tracer`) or
+        off. A change drops the captured graph (as `load` does), so the next
+        iteration captures anew, with the stage stamps or without."""
+        if on == (self.tracer is not None):
+            return
+        if isinstance(self._train_iter, CapturedTrainIter):
+            self._train_iter.reset()
+        self.tracer = StageTracer(self.device) if on else None
 
     def _write_profile(self, prof, profile_dir: str, it: int):
         rank = f"_rank{self.group.rank}" if self.group is not None and self.group.world > 1 else ""
         path = os.path.join(profile_dir, f"trace_iter{it}{rank}.json")
         stop_profile(prof, self.device, path)
+        if self.tracer is not None and not add_stage_track(path, self.tracer):
+            print("[profiler] the trace holds no whole iteration's stages: no stages track",
+                  flush=True)
         print(f"[profiler] trace written to {path}", flush=True)
 
     def close(self):

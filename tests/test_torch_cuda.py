@@ -6,6 +6,8 @@ card (the CPU tier). On the GPU machine run them with
 same checks at the main path's full width.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -487,3 +489,150 @@ def test_captured_train_iter_equals_eager(dev, task):
     want[1 if "terrain" in task else 0] = (2 if "joint" in task else 1) * 8 * 3
     assert r["launches_eager"] == r["launches_replayed"] == want
     assert r["worst_rel"] == 0.0, r["where"]
+
+
+def _snapshot_parts(task, dev, n_envs=16, horizon=8):
+    """(env, net, train state, ppo config, generator, inputs) of `task` at
+    n_envs envs, T = horizon, solver mega, and a function that puts the
+    train state, the generators and a copy of the inputs back as they
+    were here."""
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.algo.capture import clone_tree, train_state_tensors
+    from humanoid_gym_tpu_torch.algo.networks import actor_critic_from_cfg
+    from humanoid_gym_tpu_torch.algo.ppo import PPOConfig, init_train_state
+
+    def mega(c):
+        c.sim.solver.solver_type = "mega"
+
+    env, cfg = registry.make_env(task, num_envs=n_envs, cfg_overrides=mega, device=dev, seed=0)
+    tcfg = registry.get_task(task).make_train_cfg()
+    net = actor_critic_from_cfg(cfg.env, tcfg.policy, seed=0).to(dev)
+    pc = PPOConfig.from_cfg(tcfg.algorithm)
+    pc.num_steps_per_env = horizon
+    ts = init_train_state(net, pc.learning_rate)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    gens = [gen, *env.generators()]
+    inputs = clone_tree(env.reset_all())
+    snap = ([t.detach().clone() for t in train_state_tensors(ts)], [g.get_state() for g in gens])
+
+    def restore():
+        with torch.no_grad():
+            for t, v in zip(train_state_tensors(ts), snap[0]):
+                t.copy_(v)
+        ts.iteration = 0
+        for g, v in zip(gens, snap[1]):
+            g.set_state(v)
+        return clone_tree(inputs)
+
+    return env, net, ts, pc, gen, restore
+
+
+@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_joint_deploy"])
+def test_stamped_capture_replays_equal_unstamped(dev, task):
+    """The training iteration captured with the stage stamps (a tracer
+    active during the capture) against one captured without, from one
+    snapshot at 16 envs, T = 8, solver mega: 3 calls a side give the same
+    train state, env state, obs and metrics to the bit; the stamped graph
+    holds 2 stamps a stage (the terrain patches inside the physics on the
+    deploy task), and each replay's stamps never fall and rise from the
+    root's entry to its exit."""
+    from humanoid_gym_tpu_torch.algo.capture import (
+        CapturedTrainIter,
+        tensor_leaves,
+        train_state_tensors,
+    )
+    from humanoid_gym_tpu_torch.utils import tracing
+
+    env, net, ts, pc, gen, restore = _snapshot_parts(task, dev)
+
+    def side(tracer):
+        inputs = restore()
+        it = CapturedTrainIter(env, net, pc, 16)
+        outs, stamps = [], []
+        for _ in range(3):
+            with tracing.activated(tracer):
+                _, *inputs, metrics = it(ts, *inputs, gen)
+            torch.cuda.synchronize()
+            outs += [t.detach().clone() for t in train_state_tensors(ts) + tensor_leaves(inputs)]
+            outs += [metrics[k] for k in sorted(metrics)]
+            if tracer is not None:
+                stamps.append(tracer.stamps().cpu().numpy())
+        it.reset()
+        return outs, stamps
+
+    want, _ = side(None)
+    tracer = tracing.StageTracer(dev)
+    got, stamps = side(tracer)
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    names = [r.name for r in tracer.stages]
+    assert names[0] == tracing.ROOT and names[-1] == "iter.inputs"
+    assert names.count("env.physics") == 8 * (2 if "joint" in task else 1)
+    assert names.count("env.physics.terrain") == (16 if "joint" in task else 0)
+    assert tracer.slots == 2 * len(names) and len(stamps) == 3
+    root = tracer.stages[0]
+    for s in stamps:
+        assert len(s) == tracer.slots and (np.diff(s) >= 0).all()
+        assert s[root.exit] > s[root.enter]
+    assert not (stamps[0] == stamps[1]).all()  # each replay writes its own
+    offset, bracket = tracer.clock
+    assert 0 < bracket < 5_000_000
+
+
+def test_traced_learn_and_its_profile_on_the_card(dev, tmp_path, monkeypatch):
+    """`learn(3)` at 16 envs, T = 8 with HGT_PROFILE_DIR: tracing is on, each
+    fetched iteration's stamps come back through the runner's fetch, the
+    gaps between iterations are charged to runner spans, and the Chrome
+    trace of the second iteration holds the `stages` track, placed by the
+    `hgt_stamp` kernels' own times."""
+    import json
+
+    from humanoid_gym_tpu_torch import registry
+    from humanoid_gym_tpu_torch.runner import OnPolicyRunner
+
+    def mega(c):
+        c.sim.solver.solver_type = "mega"
+
+    monkeypatch.setenv("HGT_WANDB", "0")
+    monkeypatch.setenv("HGT_PROFILE_DIR", str(tmp_path / "prof"))
+    env, _ = registry.make_env("humanoid_ppo", num_envs=16, cfg_overrides=mega, device=dev, seed=0)
+    tcfg = registry.get_task("humanoid_ppo").make_train_cfg()
+    tcfg.runner.num_steps_per_env = 8
+    runner = OnPolicyRunner(env, tcfg, log_dir=None, seed=0)
+    runner.learn(3)
+    tracer = runner.tracer
+    assert tracer is not None and len(tracer.iterations) == 3
+    assert all(0 < i.covered_ns <= i.end - i.start for i in tracer.iterations)
+    assert [name for name, _ in tracer.gaps()] and all(
+        ns >= 0 for ns, _ in tracer.gaps())
+    events = json.load(open(tmp_path / "prof" / "trace_iter1.json"))["traceEvents"]
+    stamps = [e for e in events if e.get("cat") == "kernel" and e["name"].startswith("hgt_stamp")]
+    assert len(stamps) == tracer.slots
+    stages = [e for e in events if e.get("cat") == "stage"]
+    assert [e["name"] for e in stages] == [r.name for r in tracer.stages]
+    assert stages[0]["ts"] == min(e["ts"] for e in stamps)
+
+
+def test_mega_kernels_keep_their_registers_and_spills(dev, tmp_path):
+    """B1 and B1t (csrc/mega.cu, beside which the stamp kernel builds as a
+    library of its own) compile to the registers, stack frame and spill
+    stores that PERF.md's kernel table records (chip_smoke.py's ptxas
+    summary of a fresh cubin)."""
+    import importlib.util
+
+    from humanoid_gym_tpu_torch.physics.mega_sass import _cubin
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  os.path.join(here, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    proc = _cubin(os.path.join(here, "humanoid_gym_tpu_torch", "csrc"),
+                  str(tmp_path / "mega.cubin"))
+    log, _ = proc.communicate()
+    assert proc.returncode == 0, log
+    lines = {ln.split(":")[0]: ln for ln in smoke._ptxas_summary(log).split(" | ")}
+    assert lines["hgt_mega_kernel<false>"].startswith("hgt_mega_kernel<false>: Used 64 registers")
+    assert "; 112 bytes stack frame, 108 bytes spill stores" in lines["hgt_mega_kernel<false>"]
+    assert lines["hgt_mega_kernel<true>"].startswith("hgt_mega_kernel<true>: Used 64 registers")
+    assert "; 128 bytes stack frame, 148 bytes spill stores" in lines["hgt_mega_kernel<true>"]

@@ -379,6 +379,20 @@ def test_profile_dir_traces_the_second_iteration(tmp_path, monkeypatch, capsys):
     assert os.listdir(prof_dir) == ["trace_iter1.json"]
     events = json.load(open(prof_dir / "trace_iter1.json"))["traceEvents"]
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    # the stages track: one complete event per stage instance of the iteration
+    track = [e for e in events if e.get("ph") == "M" and e.get("args") == {"name": "stages"}]
+    assert len(track) == 1
+    stages = [e for e in events if e.get("cat") == "stage"]
+    assert all((e["pid"], e["tid"]) == (track[0]["pid"], track[0]["tid"]) for e in stages)
+    names = [e["name"] for e in stages]
+    assert names[0] == "iter" and names[-1] == "iter.metrics"
+    assert names.count("env.physics") == tcfg.runner.num_steps_per_env
+    assert names.count("update.adam") == (tcfg.algorithm.num_learning_epochs
+                                          * tcfg.algorithm.num_mini_batches)
+    root = stages[0]
+    # inside the root (times in us, to the ns)
+    assert all(root["ts"] <= e["ts"] + 1e-3 and e["ts"] + e["dur"] <= root["ts"] + root["dur"] + 1e-3
+               for e in stages[1:])
     assert f"[profiler] trace written to {prof_dir / 'trace_iter1.json'}" in capsys.readouterr().out
     for k, v in nets["plain"].items():
         assert torch.equal(v, nets["profiled"][k]), k

@@ -28,7 +28,10 @@ script exits non-zero):
      policy steps at the default pose: 4096 envs over
      1 and 5 policy steps, 37 and 1 envs over one, both fed from one
      `terrain_patches` call; the count of active contacts on sloped cells;
-     its launch timed beside the flat launch on the same states;
+     its launch timed beside the flat launch on the same states; the
+     terrain patches kernel against the plain chain at 4096 envs (worst
+     slope gap at most 1e-5, taps or origin differing at no more than
+     0.1 % of the points, one launch a call), both timed;
   5. the main path: XBot-L PPO training (4096 envs, T=60, solver mega)
      through `CapturedTrainIter` (the iteration as one CUDA graph): one
      warm-up iteration, which captures the graph, and 3 timed replays,
@@ -267,6 +270,7 @@ if os.path.isdir(os.path.join(HERE, "humanoid_gym_tpu_torch")):
         mega_terrain_ops,
         solve_ops,
         solve_ops_executed,
+        terrain_patches_ops,
     )
     from humanoid_gym_tpu_torch.utils.roofline import bound_ms as _bound_ms  # noqa: E402
 
@@ -700,18 +704,54 @@ def _phase4t_mega_terrain(c, records):
     turns = [_time_ms(lambda: launch(t), reps=20) for t in (False, True, True, False)]
     ms_k = 0.5 * (turns[1] + turns[2])
     ms_p = _time_ms(lambda: plain(st0, tgt, in2), reps=2)
-    ms_patches = _time_ms(lambda: step.terrain_patches(st0.qpos, st0.slope_bias), reps=20)
-    n_patches = _kernel_launches(lambda: step.terrain_patches(st0.qpos, st0.slope_bias))
     ops = mega_terrain_ops(c.dec, c.iters)
     b_ms, b_by = _bound_ms(N_ENVS * 4 * (MG.IN_ROWS + MG.IN2_ROWS + MG.OUT_ROWS), N_ENVS * ops)
     _log(f"phase 4t mega terrain timing: {N_ENVS} envs, same states, in turns flat {turns[0]:.3f} "
          f"| terrain {turns[1]:.3f} | terrain {turns[2]:.3f} | flat {turns[3]:.3f} ms per launch; "
-         f"terrain_patches {ms_patches:.3f} ms, {n_patches} kernel launches a call; plain "
-         f"{ms_p:.2f} ms; bound {b_ms:.5f} ms ({b_by}; "
-         f"{ops} operations per env)")
+         f"plain {ms_p:.2f} ms; bound {b_ms:.5f} ms ({b_by}; {ops} operations per env)")
     records["mega_terrain"] = dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                                    bound_by=b_by)
+    _terrain_patches_check(step.terrain_patches, st0)
     return st_all, tgt_all, step
+
+
+def _terrain_patches_check(patches, st):
+    """The terrain patches kernel (csrc/terrain_patches.cu) against the
+    plain chain (`patches.plain`) on the same states: the worst slope gap
+    and the points whose taps or patch origin differ (allowed where the
+    chain's xy sum lands an ulp across a grid line: at most 0.1 % of the
+    points), one launch a call; both timed, their launches counted."""
+    import torch
+
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    n = st.qpos.shape[0]
+    n0 = MG.terrain_patches_launch.launches
+    got = patches(st.qpos, st.slope_bias)
+    want = patches.plain(st.qpos, st.slope_bias)
+    torch.cuda.synchronize()
+    calls = MG.terrain_patches_launch.launches - n0
+    slope_gap = float((got[:, MG.IN2_GX:] - want[:, MG.IN2_GX:]).abs().max())
+    finite = bool(torch.isfinite(got).all())
+    points = (got[:, :MG.IN2_GX] != want[:, :MG.IN2_GX]).reshape(n, 11, MG.N_POINTS).any(1)
+    differ = int(points.sum())
+    slope_equal = int((got[:, MG.IN2_GX:] == want[:, MG.IN2_GX:]).reshape(n, 2, MG.N_POINTS)
+                      .all(1).sum())
+    ms_k = _time_ms(lambda: patches(st.qpos, st.slope_bias), reps=50)
+    ms_p = _time_ms(lambda: patches.plain(st.qpos, st.slope_bias), reps=20)
+    n_k = _kernel_launches(lambda: patches(st.qpos, st.slope_bias))
+    n_p = _kernel_launches(lambda: patches.plain(st.qpos, st.slope_bias))
+    env_bytes = 4 * (MG.NQ + 2 + MG.IN2_ROWS + 9 * MG.N_POINTS)  # rows in and out, the taps once
+    b_ms, b_by = _bound_ms(n * env_bytes, n * terrain_patches_ops())
+    _log(f"phase 4t terrain patches: {n} envs | kernel {ms_k:.4f} ms, {n_k} kernel launch(es) a "
+         f"call, {calls} on its counter | plain {ms_p:.3f} ms, {n_p} kernel launches a call | "
+         f"bound {b_ms:.5f} ms ({b_by}) | worst slope gap {slope_gap:.3e} (limit 1e-5) | taps or "
+         f"origin differ at {differ} of {n * MG.N_POINTS} points (limit 0.1 %), slope rows "
+         f"bit-equal at {slope_equal} | finite {finite}")
+    if not finite or calls != 1 or slope_gap > 1e-5 or differ > 1e-3 * n * MG.N_POINTS:
+        raise AssertionError(f"terrain patches kernel disagrees with the plain chain: slope gap "
+                             f"{slope_gap:.3e}, {differ} points differ, {calls} launches, finite "
+                             f"{finite}")
 
 
 def _phys_args(st, tgt):
@@ -3309,9 +3349,12 @@ def _phase24_captured(card, dev):
     for task in CAPTURE_TASKS:
         t0 = time.perf_counter()
         r = _captured_against_eager(task, dev, warm=CAPTURE_WARM_ITERS)
-        own = 1 if r["kind"] == "terrain" else 0  # launch_counts(): flat, terrain, the solvers
-        want = [0] * 5
+        # launch_counts(): flat, terrain, the three solvers, the terrain patches
+        own = 1 if r["kind"] == "terrain" else 0
+        want = [0] * 6
         want[own] = r["robots"] * T_STEPS * CAPTURE_ITERS
+        if r["kind"] == "terrain":
+            want[5] = want[own]
         per_iter = want[own] // CAPTURE_ITERS
         replay_ms = statistics.median(r["replay_host_ms"])
         span = r["replay_span_ms"]
@@ -4036,7 +4079,7 @@ def _phase13_ranks(card):
     for horizon, key, reduces in ((T_STEPS, "captured", RANK_ALLREDUCES),
                                   (CUT_T_STEPS, "curriculum", RANK_ALLREDUCES + CUT_T_STEPS)):
         recs = [t[key] for t in train]
-        want = [horizon * CAPTURE_ITERS, 0, 0, 0, 0]
+        want = [horizon * CAPTURE_ITERS, 0, 0, 0, 0, 0]  # capture.LAUNCH_COUNTERS
         worst = max(recs, key=lambda x: x["worst_rel"])
         _log(f"phase 13 captured vs eager: humanoid_ppo {N_ENVS} envs as {RANKS} gloo ranks x "
              f"{N_ENVS // RANKS}, T={horizon}, command curriculum "

@@ -66,7 +66,7 @@ from typing import Optional
 import torch
 
 from ..parallel.mesh import EnvGroup, all_reduce_flat
-from ..physics.mega import mega_kernel_launch
+from ..physics.mega import mega_kernel_launch, terrain_patches_launch
 from ..physics.solve import apgd_solve_kernel, fused_dense_solve, fused_solve
 from ..utils import tracing
 from .networks import ActorCritic
@@ -75,7 +75,7 @@ from .ppo import PPOConfig, TrainState, make_train_iter, make_train_pieces
 # the kernel wrappers' launch counters: (wrapper, attribute)
 LAUNCH_COUNTERS = ((mega_kernel_launch, "launches"), (mega_kernel_launch, "terrain_launches"),
                    (fused_solve, "launches"), (fused_dense_solve, "launches"),
-                   (apgd_solve_kernel, "launches"))
+                   (apgd_solve_kernel, "launches"), (terrain_patches_launch, "launches"))
 
 
 def launch_counts() -> list:

@@ -26,6 +26,7 @@ SOURCES = {
     "mega": ("mega.cu", "solve.cuh", "apgd.cuh"),
     "dense": ("dense_solve.cu", "apgd.cuh", "bulk_copy.cuh"),
     "stamp": ("stamp.cu",),
+    "patches": ("terrain_patches.cu",),
 }
 BUILD_DIR = os.path.join(HGT_ROOT_DIR, "build", "kernels")
 NVCC_FLAGS = [
@@ -36,13 +37,15 @@ NVCC_FLAGS = [
 
 class KernelLibrary:
     """The loaded libraries (`lib`: mega.cu, `dense`: dense_solve.cu,
-    `stamp`: stamp.cu) and their build record."""
+    `stamp`: stamp.cu, `patches`: terrain_patches.cu) and their build
+    record."""
 
-    def __init__(self, lib: ctypes.CDLL, dense: ctypes.CDLL, stamp: ctypes.CDLL, paths: dict,
-                 build_seconds: float, log: str):
+    def __init__(self, lib: ctypes.CDLL, dense: ctypes.CDLL, stamp: ctypes.CDLL,
+                 patches: ctypes.CDLL, paths: dict, build_seconds: float, log: str):
         self.lib = lib
         self.dense = dense
         self.stamp = stamp
+        self.patches = patches
         self.paths = paths
         self.build_seconds = build_seconds
         self.log = log
@@ -62,6 +65,9 @@ class KernelLibrary:
         dense.hgt_fused_dense.restype = ci
         stamp.hgt_stamp_launch.argtypes = [vp, ci, vp]
         stamp.hgt_stamp_launch.restype = ci
+        patches.hgt_terrain_patches.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, cf, cf, cf, cf,
+                                                vp, ci, vp]
+        patches.hgt_terrain_patches.restype = ci
 
 
 _LIBRARY: KernelLibrary | None = None
@@ -106,7 +112,8 @@ def build_library() -> KernelLibrary:
         raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
     return KernelLibrary(ctypes.CDLL(paths["mega"]), ctypes.CDLL(paths["dense"]),
-                         ctypes.CDLL(paths["stamp"]), paths, seconds, log)
+                         ctypes.CDLL(paths["stamp"]), ctypes.CDLL(paths["patches"]), paths,
+                         seconds, log)
 
 
 def kernel_library() -> KernelLibrary:

@@ -25,7 +25,8 @@ On a heightfield (`terrain_map`) both take a second input of `IN2_ROWS`
 rows per env, built once per policy step by `terrain_patches` from the
 step-start state (mega_kernel.py:1575-1664): per contact point the 3 x 3
 node patch of the grid (meters) around its step-start node, the patch
-origin, and the step-start slope plus the contact-slope DR bias. Every
+origin, and the step-start slope plus the contact-slope DR bias; on a CUDA
+tensor one launch of csrc/terrain_patches.cu builds them. Every
 substep then looks the ground up bilinearly inside that patch (a point
 that moved more than a cell clamps to the patch edge), measures the gap
 along the sloped normal, projects its J rows onto (t1, t2, n), and the
@@ -257,20 +258,30 @@ def make_contact_xy(model: RobotModel):
     return contact_xy
 
 
-def make_terrain_patches(model: RobotModel, tmap: TerrainMap):
+def make_terrain_patches(model: RobotModel, tmap: TerrainMap, consts: torch.Tensor | None = None):
     """terrain_patches(qpos (N, nq), slope_bias (N, 2)) -> (N, IN2_ROWS):
     the values of the TPU package's `terrain_patches`
-    (mega_kernel.py:1575-1664) from direct gathers on the grid. From the
-    step-start contact points' xy (`make_contact_xy`): node (px, py) = the floor of the
-    clipped grid coordinate; the 3x3 node patch at ox = clip(px - 1, 0,
-    nrow - 3), oy likewise, in meters; the slope of the bilinear cell at
-    (px, py) plus the bias."""
+    (mega_kernel.py:1575-1664). From the step-start contact points' xy:
+    node (px, py) = the floor of the clipped grid coordinate; the 3x3 node
+    patch at ox = clip(px - 1, 0, nrow - 3), oy likewise, in meters; the
+    slope of the bilinear cell at (px, py) plus the bias.
+
+    A CUDA tensor takes one launch of csrc/terrain_patches.cu
+    (`terrain_patches_launch`), which reads the model's geometry from
+    `consts`, the device constants (`model_constants_tensor`) that the mega
+    launches of this model read; `make_mega_step_batched` passes them. A
+    CPU tensor takes `terrain_patches.plain`: the xy from `make_contact_xy`,
+    then direct gathers on the grid. The kernel rounds as the plain chain
+    does on the card, its 3-term sums in the index order cuBLAS takes them;
+    where a library sums otherwise an xy moves by an ulp, and a point that
+    close to a grid line takes the neighbouring node."""
     hf = grid_tensor(tmap, model.device, scaled=True)
-    border, inv_h, gx_max, gy_max = terrain_constants(tmap)
+    terr = terrain_constants(tmap)
+    border, inv_h, gx_max, gy_max = terr
     nrow, ncol = tmap.height_field.shape
     contact_xy = make_contact_xy(model)
 
-    def terrain_patches(qpos: torch.Tensor, slope_bias: torch.Tensor) -> torch.Tensor:
+    def plain(qpos: torch.Tensor, slope_bias: torch.Tensor) -> torch.Tensor:
         xy = contact_xy(qpos)
         gxf = torch.clamp((xy[..., 0] + border) * inv_h, 0.0, gx_max)
         gyf = torch.clamp((xy[..., 1] + border) * inv_h, 0.0, gy_max)
@@ -288,7 +299,55 @@ def make_terrain_patches(model: RobotModel, tmap: TerrainMap):
         return torch.cat(taps + [ox.to(torch.float32), oy.to(torch.float32), gx, gy],
                          dim=1).contiguous()
 
+    def terrain_patches(qpos: torch.Tensor, slope_bias: torch.Tensor) -> torch.Tensor:
+        if qpos.is_cuda:
+            return terrain_patches_launch(qpos, slope_bias, consts, hf, terr)
+        return plain(qpos, slope_bias)
+
+    terrain_patches.plain = plain
     return terrain_patches
+
+
+def terrain_patches_launch(qpos: torch.Tensor, slope_bias: torch.Tensor, consts: torch.Tensor,
+                           grid: torch.Tensor, terrain) -> torch.Tensor:
+    """Launch csrc/terrain_patches.cu: the (N, IN2_ROWS) rows of
+    `make_terrain_patches` from CUDA qpos (N, NQ) and slope_bias (N, 2),
+    float32 with unit column stride (rows may be strided: the env's qpos is
+    a view of the mega kernel's output rows), the model's constants
+    (`model_constants_tensor`), the scaled grid (nrow, ncol), contiguous,
+    and the 4 floats of `terrain_constants`, all on one device. Counts
+    launches in `terrain_patches_launch.launches`."""
+    if not qpos.is_cuda:
+        raise ValueError("terrain_patches_launch takes CUDA tensors")
+    n = qpos.shape[0]
+    for name, t, width in (("qpos", qpos, NQ), ("slope_bias", slope_bias, 2)):
+        if t.device != qpos.device or t.dtype != torch.float32 or t.dim() != 2 \
+                or tuple(t.shape) != (n, width) or t.stride(1) != 1:
+            raise ValueError(f"{name} must be float32 (N, {width}) with unit column stride on the "
+                             f"device of qpos")
+    if not isinstance(consts, torch.Tensor) or consts.device != qpos.device \
+            or consts.dtype != torch.float32 or tuple(consts.shape) != (CONST_COUNT,) \
+            or not consts.is_contiguous():
+        raise ValueError(f"model constants must be a contiguous float32 ({CONST_COUNT},) tensor on "
+                         f"the device of qpos")
+    if grid.device != qpos.device or grid.dtype != torch.float32 or grid.dim() != 2 \
+            or min(grid.shape) < 3 or not grid.is_contiguous():
+        raise ValueError("the grid must be a contiguous float32 (nrow >= 3, ncol >= 3) tensor on "
+                         "the device of qpos")
+    lib = kernel_library()
+    out = torch.empty((n, IN2_ROWS), device=qpos.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(qpos.device).cuda_stream
+    err = lib.patches.hgt_terrain_patches(
+        qpos.data_ptr(), qpos.stride(0), slope_bias.data_ptr(), slope_bias.stride(0),
+        consts.data_ptr(), grid.data_ptr(), grid.shape[0], grid.shape[1],
+        *[float(t) for t in terrain], out.data_ptr(), n, stream,
+    )
+    check(err, "hgt_terrain_patches launch")
+    terrain_patches_launch.launches += 1
+    return out
+
+
+terrain_patches_launch.launches = 0
 
 
 def patch_frames(in2: torch.Tensor) -> torch.Tensor:
@@ -488,7 +547,7 @@ def make_mega_step_batched(
     terrain = terrain_patches = None
     if terrain_map is not None:
         terrain = terrain_constants(terrain_map)
-        terrain_patches = make_terrain_patches(model, terrain_map)
+        terrain_patches = make_terrain_patches(model, terrain_map, consts_dev)
 
     def step(qpos, qvel, fric, bms, cstiff, coff, kps, kds, comp, lam0, slope_bias, targets):
         in2 = None

@@ -5,9 +5,9 @@ The counterpart of humanoid_gym_tpu/utils/roofline.py, which counts the
 TPU kernel's jaxpr against TPU peaks; the port counts its CUDA kernels'
 loop nests by hand (the kernels are `csrc/*.cu`, with no jaxpr to walk).
 - `solve_ops`, `mega_ops`, `mega_terrain_ops`, `apgd_ops`,
-  `fused_dense_ops`: float32 operations a kernel's function needs for one
-  env; each multiply, add, divide, square root and comparison-select in
-  the loops counts as one. The `*_executed` variants count what one warp
+  `fused_dense_ops`, `terrain_patches_ops`: float32 operations a kernel's
+  function needs for one env; each multiply, add, divide, square root and
+  comparison-select in the loops counts as one. The `*_executed` variants count what one warp
   issues, every lane counted whether or not its result is used.
 - `bound_ms`: the least time the card could take for a kernel's work, the
   larger of its bytes over the memory rate and its operations over the
@@ -136,6 +136,18 @@ def mega_terrain_ops_executed(decimation: int, iterations: int) -> int:
 
 
 PROJ_OPS = 16 * 20 + 12  # 16 cone projections + 12 clamps
+
+
+def terrain_patches_ops() -> int:
+    """Operations of one env's IN2 rows (csrc/terrain_patches.cu
+    hgt_terrain_patches_kernel): the base rotation (30); per joint of the
+    two 6-joint legs the offset step (3 x 5 + 3), Rodrigues (sine, cosine,
+    1 - cos and 9 x 4) and the two 3 x 3 products (2 x 9 x 5); per contact
+    point the xy (2 x 5 + 4), the grid coordinates (2 x 4) and the slope
+    (2 + 2 x 8)."""
+    per_joint = 3 * 5 + 3 + 3 + 9 * 4 + 2 * 9 * 5
+    per_point = 2 * 5 + 4 + 2 * 4 + 2 + 2 * 8
+    return 30 + 2 * 6 * per_joint + 16 * per_point
 
 
 def apgd_loop_ops(iterations: int, nrow: int = 60) -> int:

@@ -141,8 +141,10 @@ def test_terrain_mega_kernel_matches_plain(dev):
     3 x 3 map (5 m border), placed by `init_state` and landed by 15 env
     steps: one policy step within the chip_smoke tolerances of the plain
     terrain step on the same IN2 rows, some active contact on a sloped
-    cell, the terrain counter counts and the flat one does not; a terrain
-    step on a CUDA tensor never takes the flat kernel."""
+    cell, the terrain counter counts and the flat one does not, the
+    patches kernel counts one launch; the same within those tolerances of
+    the plain step on the plain chain's rows; a terrain step on a CUDA
+    tensor never takes the flat kernel."""
     from humanoid_gym_tpu_torch import registry
     from humanoid_gym_tpu_torch.physics import mega as MG
 
@@ -163,14 +165,18 @@ def test_terrain_mega_kernel_matches_plain(dev):
     args = (st.qpos, st.qvel, st.friction, st.base_mass_scale, st.contact_stiffness,
             st.contact_offset, st.kp_scale, st.kd_scale, st.contact_compliance, st.contact_lam)
     flat0, ter0 = MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches
+    patches0 = MG.terrain_patches_launch.launches
     got = step(*args, st.slope_bias, tgt)
     assert (MG.mega_kernel_launch.launches, MG.mega_kernel_launch.terrain_launches) == (flat0, ter0 + 1)
+    assert MG.terrain_patches_launch.launches == patches0 + 1
     in2 = step.terrain_patches(st.qpos, st.slope_bias)
-    want = MG.mega_step_plain(env.model, 0.001, 10, env.p_gains, env.d_gains, env.torque_limits, 8,
-                              1.0, *args, tgt, in2=in2, terrain=step.terrain)
-    for g, w, tol in zip(got, want, (5e-4, 1e-2, 5e-3, 5e-2, 5e-3, 5e-4)):
-        assert g.shape == w.shape and bool(torch.isfinite(g).all())
-        assert float((g - w).abs().max()) <= tol
+    for rows in (in2, step.terrain_patches.plain(st.qpos, st.slope_bias)):
+        want = MG.mega_step_plain(env.model, 0.001, 10, env.p_gains, env.d_gains,
+                                  env.torque_limits, 8, 1.0, *args, tgt, in2=rows,
+                                  terrain=step.terrain)
+        for g, w, tol in zip(got, want, (5e-4, 1e-2, 5e-3, 5e-2, 5e-3, 5e-4)):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all())
+            assert float((g - w).abs().max()) <= tol
     slope = torch.hypot(in2[:, MG.IN2_GX:MG.IN2_GY] - st.slope_bias[:, :1],
                         in2[:, MG.IN2_GY:] - st.slope_bias[:, 1:])
     assert bool(((want[2][:, 2:48:3] > 0) & (slope > 1e-6)).any())
@@ -191,6 +197,121 @@ def _s_model_and_gains(dev):
     kp = torch.as_tensor(_match_gains(model.dof_names, cfg.control.stiffness), device=dev)
     kd = torch.as_tensor(_match_gains(model.dof_names, cfg.control.damping), device=dev)
     return model, kp, kd, model.dof_effort * 0.85
+
+
+@pytest.fixture(scope="module")
+def landed_terrain():
+    """4096 envs of `humanoid_ppo_terrain_robust` on a 3 x 3 map (5 m
+    border), placed by `init_state` and landed by 15 env steps at zero
+    actions, as `test_terrain_mega_kernel_matches_plain` lands its 64:
+    (env, the landed physics state)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build with nvcc for sm_90a and run only there")
+    from humanoid_gym_tpu_torch import registry
+
+    def ov(cfg):
+        cfg.terrain.num_rows, cfg.terrain.num_cols, cfg.terrain.border_size = 3, 3, 5.0
+        cfg.terrain.max_init_terrain_level = 2
+        cfg.sim.solver.solver_type = "mega"
+
+    dev = torch.device("cuda")
+    env, _ = registry.make_env("humanoid_ppo_terrain_robust", num_envs=4096, cfg_overrides=ov,
+                               device=dev, seed=0)
+    state = env.init_state()
+    zero = torch.zeros((4096, 12), device=dev)
+    for _ in range(15):
+        state, _ = env.step(state, zero)
+    return env, state.phys
+
+
+def _patches_step(env, robot, dev):
+    """The terrain mega step of XBot-L (the env's own) or XBot-S on the
+    env's map; its `terrain_patches` is the kernel's dispatcher."""
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    if robot == "L":
+        model, kp, kd, tl = env.model, env.p_gains, env.d_gains, env.torque_limits
+    else:
+        model, kp, kd, tl = _s_model_and_gains(dev)
+    return MG.make_mega_step_batched(model, 0.001, 10, kp, kd, tl, iterations=8,
+                                     terrain_map=env.terrain_map), model
+
+
+@pytest.mark.parametrize("robot", ["L", "S"])
+@pytest.mark.parametrize("n", [1, 37, 2048, 4096])
+def test_terrain_patches_kernel_matches_plain_chain(dev, landed_terrain, robot, n):
+    """The patches kernel (csrc/terrain_patches.cu) against the plain chain
+    on the same landed states (XBot-S's chain on XBot-L's landed poses):
+    one launch a call; taps and patch origin bit-identical at every point
+    whose grid coordinate lies more than 1e-3 cells from a grid line, and
+    at >= 99.9 % of all points (the chain's xy sums in cuBLAS's order, an
+    ulp from the kernel's); slope rows within 1e-5; all finite; a qpos
+    view with a row stride (as the env carries it) gives the same rows."""
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    env, st = landed_terrain
+    idx = torch.linspace(0, st.qpos.shape[0] - 1, n, device=dev).round().long()
+    qpos, sb = st.qpos[idx].contiguous(), st.slope_bias[idx].contiguous()
+    step, model = _patches_step(env, robot, dev)
+    patches = step.terrain_patches
+    n0 = MG.terrain_patches_launch.launches
+    got = patches(qpos, sb)
+    assert MG.terrain_patches_launch.launches == n0 + 1
+    want = patches.plain(qpos, sb)
+    assert got.shape == want.shape == (n, MG.IN2_ROWS) and got.is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    assert float((got[:, MG.IN2_GX:] - want[:, MG.IN2_GX:]).abs().max()) <= 1e-5
+    same = (got[:, :MG.IN2_GX] == want[:, :MG.IN2_GX]).reshape(n, 11, MG.N_POINTS).all(1)
+    border, inv_h, gx_max, gy_max = step.terrain
+    xy = MG.make_contact_xy(model)(qpos)
+    g = torch.stack([torch.clamp((xy[..., 0] + border) * inv_h, 0.0, gx_max),
+                     torch.clamp((xy[..., 1] + border) * inv_h, 0.0, gy_max)], -1)
+    frac = g - torch.floor(g)
+    far = torch.minimum(frac, 1.0 - frac).amin(-1) > 1e-3
+    assert bool(same[far].all())
+    assert float(same.float().mean()) >= 0.999
+    wide = torch.cat([qpos, torch.zeros_like(qpos[:, :5])], 1)[:, :MG.NQ]
+    assert wide.stride(0) == MG.NQ + 5
+    assert torch.equal(patches(wide, sb), got)
+
+
+def test_terrain_patches_of_two_robots_interleaved_on_one_stream(dev, landed_terrain):
+    """XBot-L and XBot-S patches launches, each naming its own constants,
+    queued L, S, L, S on one stream with no synchronisation between them:
+    each output bit-equal to the same launch run alone, and the two robots'
+    rows differ."""
+    env, st = landed_terrain
+    qpos, sb = st.qpos[:300].contiguous(), st.slope_bias[:300].contiguous()
+    steps = {name: _patches_step(env, name, dev)[0] for name in ("L", "S")}
+    alone = {}
+    for name, step in steps.items():
+        alone[name] = step.terrain_patches(qpos, sb)
+        torch.cuda.synchronize()
+    assert not torch.equal(alone["L"], alone["S"])
+    outs = [(name, steps[name].terrain_patches(qpos, sb)) for name in ("L", "S", "L", "S")]
+    torch.cuda.synchronize()
+    for name, out in outs:
+        assert torch.equal(out, alone[name]), name
+
+
+def test_terrain_patches_launch_rejects_bad_inputs(dev, landed_terrain):
+    """The patches wrapper raises before anything launches on a CPU grid,
+    float64 qpos, a slope bias of the wrong shape or a strided column, or
+    constants of the wrong length."""
+    from humanoid_gym_tpu_torch.physics import mega as MG
+
+    env, st = landed_terrain
+    step, _ = _patches_step(env, "L", dev)
+    grid = torch.zeros((8, 8), device=dev)
+    qpos, sb = st.qpos[:4].contiguous(), st.slope_bias[:4].contiguous()
+    n0 = MG.terrain_patches_launch.launches
+    consts = step.consts_dev
+    for args in ((qpos, sb, consts, grid.cpu()), (qpos.double(), sb, consts, grid),
+                 (qpos, sb[:, :1], consts, grid), (qpos, sb.t().contiguous().t(), consts, grid),
+                 (qpos, sb, consts[:-1], grid), (qpos, sb, consts, grid[:2])):
+        with pytest.raises(ValueError):
+            MG.terrain_patches_launch(*args, step.terrain)
+    assert MG.terrain_patches_launch.launches == n0
 
 
 def test_two_models_interleaved_on_one_stream(dev):
@@ -475,7 +596,8 @@ def test_captured_train_iter_equals_eager(dev, task):
     """The training iteration captured as one CUDA graph against the eager
     one at 16 envs, T = 8, solver mega (chip_smoke.py phase 24's comparison
     at a small size): 3 iterations a side from one snapshot, bit-equal, the
-    same mega launches on each side, counted from the replays."""
+    same mega (and on terrain patches) launches on each side, counted from
+    the replays."""
     import importlib.util
     import os
 
@@ -485,8 +607,10 @@ def test_captured_train_iter_equals_eager(dev, task):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     r = smoke._captured_against_eager(task, dev, n_envs=16, horizon=8, iters=3)
-    want = [0] * 5
+    want = [0] * 6  # capture.LAUNCH_COUNTERS: flat, terrain, three solvers, terrain patches
     want[1 if "terrain" in task else 0] = (2 if "joint" in task else 1) * 8 * 3
+    if "terrain" in task:
+        want[5] = want[1]
     assert r["launches_eager"] == r["launches_replayed"] == want
     assert r["worst_rel"] == 0.0, r["where"]
 

@@ -496,6 +496,71 @@ def test_cpu_tensors_take_the_plain_path(models):
         MG.mega_kernel_launch(torch.zeros((2, MG.IN_ROWS)), consts, 0.001, 10, 8, 1.0)
 
 
+def test_cpu_terrain_patches_take_the_plain_chain(models, terrain_maps, monkeypatch):
+    """On CPU tensors the terrain patches run the plain chain: the rows are
+    `terrain_patches.plain`'s to the bit, the kernel library is never
+    loaded and the patches kernel's launch counter stays; the counter is
+    one of the captured iteration's launch counters."""
+    from humanoid_gym_tpu_torch.algo.capture import LAUNCH_COUNTERS
+
+    jmap, tmap = terrain_maps
+    _, tm = models
+
+    def refuse():
+        raise AssertionError("the kernel library was loaded for CPU tensors")
+
+    monkeypatch.setattr(MG, "kernel_library", refuse)
+    args, sbias = _terrain_args(jmap, 6, seed=21)
+    qpos, sb = torch.from_numpy(args[0]), torch.from_numpy(sbias)
+    n0 = MG.terrain_patches_launch.launches
+    patches = MG.make_terrain_patches(tm, tmap)
+    got = patches(qpos, sb)
+    step = MG.make_mega_step_batched(tm, 0.001, 10, torch.from_numpy(KP), torch.from_numpy(KD),
+                                     tm.dof_effort * 0.85, iterations=2, terrain_map=tmap)
+    step(*[torch.from_numpy(a) for a in args[:10]], sb, torch.from_numpy(args[10]))
+    assert torch.equal(got, patches.plain(qpos, sb))
+    assert torch.equal(step.terrain_patches(qpos, sb), got)
+    assert MG.terrain_patches_launch.launches == n0
+    assert (MG.terrain_patches_launch, "launches") in LAUNCH_COUNTERS
+    consts = MG.model_constants_tensor(MG.pack_model_constants(tm, KP, KD, tm.dof_effort), "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        MG.terrain_patches_launch(qpos, sb, consts, torch.zeros((8, 8)), MG.terrain_constants(tmap))
+    assert MG.terrain_patches_launch.launches == n0
+
+
+def test_terrain_patches_kernel_is_its_own_hand_written_library():
+    """csrc/terrain_patches.cu builds as a library of its own beside
+    mega.cu's unchanged entry; its kernel's symbol is one the benchmark's
+    device trace classes as hand-written (`devtrace.HAND_WRITTEN`) and not
+    as the physics kernel (`devtrace.MEGA`, which `mega_roofline` reads)."""
+    from benchmark import devtrace
+    from humanoid_gym_tpu_torch.physics import cuda_build as CB
+
+    assert CB.SOURCES["mega"] == ("mega.cu", "solve.cuh", "apgd.cuh")
+    assert CB.SOURCES["patches"] == ("terrain_patches.cu",)
+    assert all(os.path.exists(os.path.join(CB.CSRC_DIR, f)) for fs in CB.SOURCES.values() for f in fs)
+    src = open(os.path.join(CB.CSRC_DIR, "terrain_patches.cu")).read()
+    kernels = re.findall(r"__global__ void (?:__launch_bounds__\(\w+\) )?(\w+)\(", src)
+    assert kernels == ["hgt_terrain_patches_kernel"]
+    for name in kernels + [f"void {kernels[0]}(float const*, int, float const*, int)"]:
+        assert devtrace.HAND_WRITTEN.search(name) and not devtrace.MEGA.search(name), name
+        assert devtrace.kernel_class(name) == "hand_written"
+
+
+def test_terrain_patches_source_matches_layouts():
+    """The IN2 row layout and the model-constant offsets that
+    csrc/terrain_patches.cu reads are mega.py's (IN2_*, CONST_LAYOUT) and
+    csrc/mega.cu's."""
+    d, mega = _defines("terrain_patches.cu"), _defines("mega.cu")
+    for name in ("IN2_PMIN", "IN2_OX", "IN2_OY", "IN2_GX", "IN2_GY", "IN2_ROWS"):
+        assert d[name] == getattr(MG, name) == mega[name], name
+    assert d["N_POINTS"] == MG.N_POINTS and d["DEPTH"] * 2 == MG.NJ
+    off = dict(zip([n for n, _ in MG.CONST_LAYOUT],
+                   np.cumsum([0] + [k for _, k in MG.CONST_LAYOUT])[:-1].tolist()))
+    for name in ("jpos", "jrot", "jaxis", "coff"):
+        assert d["C_" + name.upper()] == off[name] == mega["C_" + name.upper()], name
+
+
 def test_mega_fk_out_matches_fk(models):
     """The port of tests/test_mega_kernel.py:251: the plain mega step's
     end-of-step OUT_FK rows (feet p and knee xy base-relative; feet

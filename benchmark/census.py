@@ -4,7 +4,9 @@ iteration needs, and the H100's peaks they are divided by.
 A frozen copy of the port's `utils/roofline.py` counts (`solve_ops`,
 `mega_ops`, `mega_terrain_ops`, `net_flops`), kept here so that a change to
 the program cannot change what its work is counted as. The counts are of
-the work the function needs, whatever implements it.
+the work the function needs, whatever implements it. `net_flops` counts the
+MLP actor-critic; a configuration whose reference module defines its own
+`net_flops` is counted by that one (`nets_census`).
 
 Peaks: NVIDIA H100 SXM 80 GB, public data sheet, dense rates at the 700 W
 limit: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside the tensor cores, 989
@@ -115,14 +117,23 @@ def net_flops(cfg: dict, envs: int) -> int:
     return rollout + learn
 
 
+def nets_census(cfg: dict):
+    """`net_flops(cfg, envs)` of the configuration's nets: its reference
+    module's where that defines one, the MLP actor-critic's otherwise."""
+    from .reference import module
+
+    return getattr(module(cfg), "net_flops", net_flops)
+
+
 def iteration_least_s(cfg: dict, envs_per_robot) -> float:
     """The least time one training iteration's work needs on the card: the
     float32 physics operations (one call per robot a policy step) and GAE
-    at the float32 peak, plus the nets' matmul FLOPs at the bf16 peak."""
+    at the float32 peak, plus the nets' matmul FLOPs (`nets_census`) at the
+    bf16 peak."""
     T = cfg["steps_per_env"]
     terrain = cfg["terrain"] != "flat"
     envs = sum(envs_per_robot)
     phys = T * sum(physics_call(n, terrain, cfg["decimation"], cfg["solver_iterations"])[0]
                    for n in envs_per_robot)
     gae = envs * T * GAE_OPS_PER_SAMPLE
-    return (phys + gae) / PEAK_F32_FLOPS + net_flops(cfg, envs) / PEAK_BF16_FLOPS
+    return (phys + gae) / PEAK_F32_FLOPS + nets_census(cfg)(cfg, envs) / PEAK_BF16_FLOPS

@@ -66,7 +66,10 @@ def _sync(device):
 
 def check_config(cfg: dict, env_cfg, train_cfg) -> None:
     """Raise if the program's resolved task config is not the
-    configuration the benchmark's file states."""
+    configuration the benchmark's file states: its fixed keys, and each key
+    of the file's optional `"policy"` and `"algorithm"` objects against the
+    attribute of that name of `train_cfg.policy` and `train_cfg.algorithm`
+    (a configuration's own widths, such as a memory's size)."""
     est_dim = getattr(train_cfg.policy, "estimator_dim", 0)
     got = {
         "num_obs": env_cfg.env.num_observations,
@@ -87,6 +90,16 @@ def check_config(cfg: dict, env_cfg, train_cfg) -> None:
     if est_dim:
         got["estimator_hidden"] = list(train_cfg.policy.estimator_hidden_dims)
     bad = {k: (v, cfg[k]) for k, v in got.items() if v != cfg[k]}
+    for group in ("policy", "algorithm"):
+        section = getattr(train_cfg, group)
+        for k, want in cfg.get(group, {}).items():
+            if not hasattr(section, k):
+                bad[f"{group}.{k}"] = ("no such attribute", want)
+                continue
+            v = getattr(section, k)
+            v = list(v) if isinstance(v, tuple) else v  # JSON holds a tuple as a list
+            if v != want:
+                bad[f"{group}.{k}"] = (v, want)
     if bad:
         raise RuntimeError(f"the program's config departs from {cfg['name']}.json "
                            f"(program, file): {bad}")

@@ -21,6 +21,27 @@ hidden layers' matmuls in float8 (e4m3, one scale a tensor) and lets float32
 matmuls run in TF32: the nearest precisions below the configuration's bf16
 and float32; "half" leaves half of each minibatch out of the update and takes
 the mean over the rest.
+
+This module judges every configuration whose file names no `"reference"`.
+A file that names one (`"reference": "<module>"`) is judged by the module or
+package `benchmark/reference/<module>` (`benchmark.reference.module`), which
+keeps this module's contract:
+
+- `STEPS`, equal to this module's (`correct.NUMBERS` names a gap for each
+  followed step; `run.py` refuses another count before the window);
+- a class `Reference` with `__init__(cfg, wl, seed, device, steps_per_env)`
+  and the methods `start(variant)`, `steps(snap, variant)`, `frames()`,
+  `log_probs(params, roll)`, `nets(snap, variant)`, `update(snap,
+  variant)`, `total_loss(terms)`, `loss_scale(terms)` and `close()`, each
+  returning what this module's does, and every `variant` taking the values
+  "stated", "control" and "half";
+- optionally `net_flops(cfg, envs)`, the matmul FLOPs of the
+  configuration's nets in one iteration, which `census.iteration_least_s`
+  (and so `mfu`) takes in place of `census.net_flops`, the MLP
+  actor-critic's.
+
+Such a module may import `hgt_ref`, torch and numpy, and never the port or
+JAX (`benchmark/tests/test_bench_imports.py` scans every module here).
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ its configuration `benchmark/configs/<config>.json` and the metrics
 so a cell, a configuration or a metric is added as files. It drives the
 program as `scripts/train_torch.py` does (`benchmark/program.py`), times
 `--seconds` of `OnPolicyRunner.learn`, then checks what the timed path
-produced against the plain reference under `benchmark/reference/`
-(`benchmark/correct.py`), and prints one JSON line last: with `--trace 0`
+produced against the plain reference under `benchmark/reference/` (the
+module the configuration names, `follow` where it names none;
+`benchmark/correct.py`), and prints one JSON line last: with `--trace 0`
 the cell's end-to-end metrics, with `--trace 1` its per-layer metrics, read
 from a profile of two replays after the window.
 
@@ -81,6 +82,21 @@ def metric_reader(name: str):
     return mod.read
 
 
+def reference_module(cfg: dict):
+    """The configuration's reference module (`benchmark.reference.module`),
+    refused where it follows another number of env steps than the one
+    `correct.NUMBERS` names gaps for."""
+    from benchmark import correct
+    from benchmark.reference import module
+
+    mod = module(cfg)
+    steps = getattr(mod, "STEPS", None)
+    if steps != correct.STEPS:
+        raise RuntimeError(f"{mod.__name__} follows STEPS = {steps} env steps; the check "
+                           f"compares {correct.STEPS}")
+    return mod
+
+
 def cell_metrics(bench: dict, workload: str, trace: bool) -> list:
     """The entries of BENCHMARK.json this run reports: the end-to-end
     metrics, or with `trace` the per-layer ones, each where its
@@ -144,8 +160,8 @@ def main(argv=None) -> int:
 
     from benchmark import correct, program
     from benchmark.devtrace import DeviceTrace
-    from benchmark.reference.follow import Reference
 
+    ref_module = reference_module(cfg)
     log_root = tempfile.mkdtemp(prefix="hgt_bench_")
     try:
         # the control's and the rehearsal's readings need no steady card
@@ -166,7 +182,7 @@ def main(argv=None) -> int:
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref = Reference(cfg, wl, args.seed, device, steps)
+    ref = ref_module.Reference(cfg, wl, args.seed, device, steps)
     ref_start = ref.start()
     start = {k: snaps[0][k] for k in ("params", "obs", "priv_obs")}
     ref_out = correct.reference_outputs(ref, snaps, "stated")

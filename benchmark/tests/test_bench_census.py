@@ -1,5 +1,9 @@
 """The frozen census: the physics kernel's operations per env, and the
-flat iteration's least time counted term by term."""
+flat iteration's least time counted term by term; the nets counted as
+the MLP actor-critic for the configurations that name no reference module
+of their own."""
+
+import pytest
 
 from benchmark import census
 
@@ -30,3 +34,22 @@ def test_estimator_counts_only_where_the_loss_uses_it():
     est = 705 * 256 + 256 * 128 + 128 * 3
     base = census.net_flops(dict(cfg, estimator_coef=0.0), 10)
     assert census.net_flops(cfg, 10) - base == 10 * 60 * 2 * 3 * 2 * est
+
+
+@pytest.mark.parametrize("config", ["xbotl_flat", "xbot_joint_deploy"])
+def test_existing_configs_keep_follow_and_the_mlp_census(config):
+    """A configuration that names no reference module, or names `follow`,
+    is judged by follow.Reference and counted by census.net_flops."""
+    from benchmark import run
+    from benchmark.reference import follow
+
+    cfg = dict(run.load_json(run.BENCH_DIR, "configs", f"{config}.json"), steps_per_env=60)
+    assert "reference" not in cfg
+    for c in (cfg, dict(cfg, reference="follow")):
+        assert run.reference_module(c) is follow and run.reference_module(c).Reference is \
+            follow.Reference
+        assert census.nets_census(c) is census.net_flops
+    envs = [2048, 2048] if config == "xbot_joint_deploy" else [4096]
+    phys = 60 * sum(census.physics_call(n, cfg["terrain"] != "flat", 10, 8)[0] for n in envs)
+    least = (phys + 4096 * 60 * 10) / 67e12 + census.net_flops(cfg, 4096) / 989e12
+    assert census.iteration_least_s(cfg, envs) == least

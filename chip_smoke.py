@@ -3219,11 +3219,12 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
     env, cfg = registry.make_env(task, num_envs=n_envs, cfg_overrides=overrides, device=dev,
                                  seed=0, group=group)
     tcfg = registry.get_task(task).make_train_cfg()
-    net = actor_critic_from_cfg(cfg.env, tcfg.policy, seed=0).to(dev)
+    net = actor_critic_from_cfg(cfg.env, tcfg.policy, seed=0,
+                                class_name=tcfg.runner.policy_class_name).to(dev)
     replicate(list(net.parameters()), group)
     pc = PPOConfig.from_cfg(tcfg.algorithm)
     pc.num_steps_per_env = horizon
-    ts = init_train_state(net, pc.learning_rate)
+    ts = init_train_state(net, pc.learning_rate, env.num_envs)
     gen = torch.Generator(device=dev)
     gen.manual_seed(rank_seed(1, group))
     generators = [gen, *env.generators()]
@@ -3237,6 +3238,7 @@ def _captured_against_eager(task, dev, n_envs=N_ENVS, horizon=T_STEPS, iters=CAP
     snap_gens = [g.get_state() for g in generators]
     names = ([f"param {k}" for k, _ in net.named_parameters()] + [f"mu {k}" for k in ts.opt_mu]
              + [f"nu {k}" for k in ts.opt_nu] + ["opt_count", "lr"]
+             + [f"memory {i}" for i in range(len(ts.memory or ()))]
              + _leaf_names(snap_inputs, "(state, obs, priv)"))
 
     metric_names = []

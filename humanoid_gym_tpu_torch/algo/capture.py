@@ -21,9 +21,10 @@ it:
 - Warm-up. Before the capture the iteration runs once on a side stream
   (the kernel library loads, cuBLAS and autograd make their handles and
   streams), and then everything it changed is put back: the parameters,
-  Adam moments, count and learning rate of `ts`, the env state, obs and
-  priv_obs, and the state of every generator the iteration draws from. The
-  warm-up does not move the training trajectory.
+  Adam moments, count and learning rate of `ts` (and a recurrent net's
+  memory), the env state, obs and priv_obs, and the state of every
+  generator the iteration draws from. The warm-up does not move the
+  training trajectory.
 - Generators. `gen` (the action noise) and the env's own (`env.generators()`,
   one per sub-env of a joint env) are registered with every graph, so each
   replay draws the next numbers of each stream, as an eager iteration would,
@@ -126,8 +127,10 @@ def copy_into(dst_tree, src_tree) -> None:
 
 
 def train_state_tensors(ts: TrainState) -> list:
-    """Every tensor of the train state that an iteration updates."""
-    return [*ts.net.parameters(), *ts.opt_mu.values(), *ts.opt_nu.values(), ts.opt_count, ts.lr]
+    """Every tensor of the train state that an iteration updates (a
+    recurrent net's memory last)."""
+    return [*ts.net.parameters(), *ts.opt_mu.values(), *ts.opt_nu.values(), ts.opt_count, ts.lr,
+            *(ts.memory or ())]
 
 
 def warm_up(run, ts: TrainState, inputs, generators) -> None:

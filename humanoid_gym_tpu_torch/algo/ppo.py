@@ -30,6 +30,12 @@ value that changes from one iteration to the next, at any world size, so
 on the card it is captured (`algo/capture.py`: one CUDA graph at world size
 1, a chain of graphs cut at each all-reduce under several ranks); the eager
 iteration is the same body.
+
+A recurrent net (`networks.ActorCriticRecurrent`) trains by the pieces of
+`algo/recurrent.py`, which `make_train_pieces` hands it to: the same loss,
+update and metrics (`loss_terms`, `apply_update`, `normalized_gae`,
+`rollout_metrics`), with the memory's state in the train state
+(`TrainState.memory`) and minibatches of whole env rows.
 """
 
 from __future__ import annotations
@@ -98,6 +104,10 @@ class TrainState:
     opt_count: torch.Tensor  # () int32 Adam step count, advanced in place
     lr: torch.Tensor  # () adaptive learning rate, written in place
     iteration: int  # host counter: seeds each iteration's minibatch permutation
+    # a recurrent net's memory (h_a, c_a, h_c, c_c), each (layers, N, H),
+    # carried from iteration to iteration and written in place; None for
+    # a feed-forward net
+    memory: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 class Rollout(NamedTuple):
@@ -112,9 +122,16 @@ class Rollout(NamedTuple):
     dones: torch.Tensor  # (T, N) bool
 
 
-def init_train_state(net: ActorCritic, lr0: float) -> TrainState:
+def init_train_state(net: ActorCritic, lr0: float, num_envs: int = 0) -> TrainState:
+    """Zero Adam moments and count, the learning rate `lr0`, and for a
+    recurrent net the zero memory of `num_envs` envs."""
     params = dict(net.named_parameters())
     dev = next(net.parameters()).device
+    memory = None
+    if getattr(net, "is_recurrent", False):
+        if num_envs <= 0:
+            raise ValueError("a recurrent net's train state holds its memory: give num_envs")
+        memory = net.initial_memory(num_envs, dev)
     return TrainState(
         net=net,
         opt_mu={k: torch.zeros_like(p) for k, p in params.items()},
@@ -122,6 +139,7 @@ def init_train_state(net: ActorCritic, lr0: float) -> TrainState:
         opt_count=torch.zeros((), dtype=torch.int32, device=dev),
         lr=torch.tensor(lr0, dtype=torch.float32, device=dev),
         iteration=0,
+        memory=memory,
     )
 
 
@@ -201,6 +219,142 @@ def permutation_seed(seed: int, iteration: int) -> int:
     return int(np.random.SeedSequence([seed, iteration, 1]).generate_state(1)[0])
 
 
+def seeded_permutation(n: int, iteration: int, gen: torch.Generator,
+                       perm_seed: Optional[int] = None) -> torch.Tensor:
+    """A permutation of n for train iteration `iteration`, on `gen`'s
+    device, from a generator seeded by `permutation_seed(perm_seed,
+    iteration)` (`perm_seed` defaults to the seed of `gen`)."""
+    perm_gen = torch.Generator(device=gen.device)
+    perm_gen.manual_seed(permutation_seed(
+        gen.initial_seed() if perm_seed is None else perm_seed, iteration))
+    return torch.randperm(n, generator=perm_gen, device=gen.device)
+
+
+def update_epochs(cfg: PPOConfig, ts: TrainState, mbs, minibatch_update):
+    """num_learning_epochs passes of `minibatch_update` over the minibatches
+    `mbs`; returns the mean metrics."""
+    metrics_acc = None
+    for _ in range(cfg.num_learning_epochs):
+        for mb in mbs:
+            ts, mets = minibatch_update(ts, mb)
+            metrics_acc = mets if metrics_acc is None else {
+                k: metrics_acc[k] + v for k, v in mets.items()
+            }
+    n_updates = cfg.num_learning_epochs * len(mbs)
+    return ts, {k: v / n_updates for k, v in metrics_acc.items()}
+
+
+def normalized_gae(cfg: PPOConfig, roll, last_value, group: Optional[EnvGroup] = None):
+    """GAE of the rollout, then the advantages normalised by the global
+    batch's mean and population std, in two passes (the mean, then the
+    squared deviations from it), as jnp.std computes it -> (advantages,
+    returns)."""
+    advantages, returns = gae(roll.rewards, roll.values, roll.dones, last_value, cfg.gamma,
+                              cfg.lam)
+    count = torch.full((), float(advantages.numel()), device=advantages.device)
+    total, count = all_reduce_sum([advantages.sum(), count], group)
+    mean = total / count
+    (sq,) = all_reduce_sum([torch.square(advantages - mean).sum()], group)
+    adv_n = (advantages - mean) / (torch.sqrt(sq / count) + 1e-8)
+    return adv_n, returns
+
+
+def loss_terms(cfg: PPOConfig, mean, std, value, act, old_logp, old_v, adv, ret, old_mu,
+               old_sigma, row_sum):
+    """(total, surrogate, value loss, entropy, KL) of the policy at (mean,
+    std) and the values `value` against the rollout's rows, each a sum
+    over the rows by `row_sum`; the KL is detached."""
+    if cfg.schedule == "adaptive":
+        kl = torch.sum(
+            torch.log(std / old_sigma + 1e-5)
+            + (torch.square(old_sigma) + torch.square(mean - old_mu)) / (2.0 * torch.square(std))
+            - 0.5,
+            dim=-1,
+        )
+        kl_sum = row_sum(kl).detach()
+    else:
+        kl_sum = torch.zeros((), device=mean.device)
+    logp = normal_log_prob(mean, std, act)
+    ratio = torch.exp(torch.clamp(logp - old_logp, -20.0, 20.0))
+    surr = -adv * ratio
+    surr_clipped = -adv * torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param)
+    surrogate_loss = row_sum(torch.maximum(surr, surr_clipped))
+    if cfg.use_clipped_value_loss:
+        v_clipped = old_v + torch.clamp(value - old_v, -cfg.clip_param, cfg.clip_param)
+        value_loss = row_sum(
+            torch.maximum(torch.square(value - ret), torch.square(v_clipped - ret))
+        )
+    else:
+        value_loss = row_sum(torch.square(ret - value))
+    entropy = row_sum(normal_entropy(std, logp.shape))
+    total = surrogate_loss + cfg.value_loss_coef * value_loss - cfg.entropy_coef * entropy
+    return total, surrogate_loss, value_loss, entropy, kl_sum
+
+
+def apply_update(cfg: PPOConfig, ts: TrainState, names, grads, sums, rows,
+                 group: Optional[EnvGroup] = None) -> Tuple[TrainState, Dict]:
+    """The step of one minibatch from its gradient sums `grads` (in the
+    order of `names`), loss sums and row count: every rank's summed by one
+    all-reduce and divided by the global row count, the KL-adaptive
+    learning rate, the global norm clip (a non-finite norm drops the step)
+    and Adam, in place; -> (ts, the minibatch's metrics)."""
+    *grads, sums, rows = all_reduce_sum([*grads, sums, rows], group)
+    grads = {k: g / rows for k, g in zip(names, grads)}
+    surr_l, val_l, ent, kl_mean, est_l = (sums / rows).unbind()
+    lr = ts.lr
+    if cfg.schedule == "adaptive":
+        lr = torch.where(
+            kl_mean > cfg.desired_kl * 2.0,
+            torch.clamp(lr / 1.5, min=1e-5),
+            torch.where(
+                (kl_mean < cfg.desired_kl / 2.0) & (kl_mean > 0.0),
+                torch.clamp(lr * 1.5, max=1e-2),
+                lr,
+            ),
+        )
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
+    ok = torch.isfinite(gnorm)
+    scale = torch.clamp(cfg.max_grad_norm / (gnorm + 1e-12), max=1.0)
+    grads = {k: torch.where(ok, g * scale, torch.zeros_like(g)) for k, g in grads.items()}
+    _adam_step(ts, grads, lr)
+    ts.lr.copy_(lr)
+    return ts, {
+        "value_loss": val_l,
+        "surrogate_loss": surr_l,
+        "entropy": ent,
+        "kl": kl_mean,
+        "grad_norm": gnorm.detach(),
+        "estimator_loss": est_l,
+    }
+
+
+def rollout_metrics(ts: TrainState, metrics: dict, infos, batch: int,
+                    group: Optional[EnvGroup] = None) -> dict:
+    """The iteration's metrics: the update's means `metrics`, with the
+    rollout's sums over the ranks (of `batch` global samples), the learning
+    rate and the action std."""
+    stack = lambda f: torch.stack([getattr(tr, f) for tr in infos])  # noqa: E731
+    (reward_sum, ep_term_sums, ep_reset_count, ep_len_sum, ep_reward_sum, nonfinite,
+     level_sum) = all_reduce_sum([
+         stack("reward").sum(), stack("ep_term_sums").sum(dim=(0, 1)),
+         stack("ep_reset_count").sum(), stack("ep_len_at_reset").sum(),
+         stack("ep_reward_at_reset").sum(), stack("nonfinite").sum(),
+         stack("terrain_level").sum()], group)
+    metrics.update(
+        mean_step_reward=reward_sum / batch,
+        ep_term_sums=ep_term_sums,
+        ep_reset_count=ep_reset_count,
+        ep_len_sum=ep_len_sum,
+        ep_reward_sum=ep_reward_sum,
+        nonfinite_resets=nonfinite,
+        mean_terrain_level=level_sum / batch,
+        # a copy: the next iteration writes ts.lr in place
+        lr=ts.lr.clone(),
+        action_std_mean=ts.net.std.detach().abs().mean(),
+    )
+    return metrics
+
+
 def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                       group: Optional[EnvGroup] = None, perm_seed: Optional[int] = None) -> dict:
     """The train iteration and its stages: train_iter = draw_permutation,
@@ -225,7 +379,13 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
     one process over the whole batch. Each rank gathers the same fixed
     number of rows for each minibatch, `split_rows(...)`, its own rows
     first and then padding rows of weight 0 (`minibatch_rows`), so no step
-    of the iteration waits for the host."""
+    of the iteration waits for the host.
+
+    A recurrent net gets `algo/recurrent.py`'s pieces instead."""
+    if getattr(net, "is_recurrent", False):
+        from .recurrent import make_recurrent_pieces
+
+        return make_recurrent_pieces(env, net, cfg, num_envs, group, perm_seed)
     use_full_f32_matmul()
     T = cfg.num_steps_per_env
     batch = T * num_envs
@@ -318,14 +478,7 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         deviations from it), as jnp.std computes it."""
         with stage("gae"):
             last_value = ts.net.evaluate(last_priv_obs)
-            advantages, returns = gae(roll.rewards, roll.values, roll.dones, last_value,
-                                      cfg.gamma, cfg.lam)
-            count = torch.full((), float(advantages.numel()), device=advantages.device)
-            total, count = all_reduce_sum([advantages.sum(), count], group)
-            mean = total / count
-            (sq,) = all_reduce_sum([torch.square(advantages - mean).sum()], group)
-            adv_n = (advantages - mean) / (torch.sqrt(sq / count) + 1e-8)
-        return adv_n, returns
+            return normalized_gae(cfg, roll, last_value, group)
 
     def actor_apply(net: ActorCritic, obs):
         """(mean, std) of the policy at obs."""
@@ -350,30 +503,8 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         def loss_fn(net: ActorCritic):
             mean, std = actor_apply(net, obs)
             value = critic_apply(net, priv)
-            if cfg.schedule == "adaptive":
-                kl = torch.sum(
-                    torch.log(std / old_sigma + 1e-5)
-                    + (torch.square(old_sigma) + torch.square(mean - old_mu)) / (2.0 * torch.square(std))
-                    - 0.5,
-                    dim=-1,
-                )
-                kl_sum = row_sum(kl).detach()
-            else:
-                kl_sum = torch.zeros((), device=obs.device)
-            logp = normal_log_prob(mean, std, act)
-            ratio = torch.exp(torch.clamp(logp - old_logp, -20.0, 20.0))
-            surr = -adv * ratio
-            surr_clipped = -adv * torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param)
-            surrogate_loss = row_sum(torch.maximum(surr, surr_clipped))
-            if cfg.use_clipped_value_loss:
-                v_clipped = old_v + torch.clamp(value - old_v, -cfg.clip_param, cfg.clip_param)
-                value_loss = row_sum(
-                    torch.maximum(torch.square(value - ret), torch.square(v_clipped - ret))
-                )
-            else:
-                value_loss = row_sum(torch.square(ret - value))
-            entropy = row_sum(normal_entropy(std, logp.shape))
-            total = surrogate_loss + cfg.value_loss_coef * value_loss - cfg.entropy_coef * entropy
+            total, surrogate_loss, value_loss, entropy, kl_sum = loss_terms(
+                cfg, mean, std, value, act, old_logp, old_v, adv, ret, old_mu, old_sigma, row_sum)
             if cfg.estimator_coef > 0.0 and net.estimator_dim > 0:
                 lo, hi = cfg.estimator_slice
                 est = torch.square(net.estimate(obs) - priv[:, lo:hi].detach())
@@ -416,34 +547,7 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
             rows = mb[9].sum() if len(mb) > 9 else torch.full((), float(mb[0].shape[0]),
                                                               device=sums.device)
         with stage("update.adam"):
-            *grads, sums, rows = all_reduce_sum([*grads, sums, rows], group)
-            grads = {k: g / rows for k, g in zip(names, grads)}
-            surr_l, val_l, ent, kl_mean, est_l = (sums / rows).unbind()
-            lr = ts.lr
-            if cfg.schedule == "adaptive":
-                lr = torch.where(
-                    kl_mean > cfg.desired_kl * 2.0,
-                    torch.clamp(lr / 1.5, min=1e-5),
-                    torch.where(
-                        (kl_mean < cfg.desired_kl / 2.0) & (kl_mean > 0.0),
-                        torch.clamp(lr * 1.5, max=1e-2),
-                        lr,
-                    ),
-                )
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
-            ok = torch.isfinite(gnorm)
-            scale = torch.clamp(cfg.max_grad_norm / (gnorm + 1e-12), max=1.0)
-            grads = {k: torch.where(ok, g * scale, torch.zeros_like(g)) for k, g in grads.items()}
-            _adam_step(ts, grads, lr)
-            ts.lr.copy_(lr)
-            return ts, {
-                "value_loss": val_l,
-                "surrogate_loss": surr_l,
-                "entropy": ent,
-                "kl": kl_mean,
-                "grad_norm": gnorm.detach(),
-                "estimator_loss": est_l,
-            }
+            return apply_update(cfg, ts, names, grads, sums, rows, group)
 
     def gather(roll: Rollout, adv, ret, rows, weight):
         """The minibatches of `minibatch_rows`' rows and weights, gathered
@@ -474,15 +578,7 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
     def update_minibatches(ts: TrainState, mbs):
         """num_learning_epochs x num_mini_batches updates over the gathered
         minibatches `mbs`; returns the mean metrics."""
-        metrics_acc = None
-        for _ in range(cfg.num_learning_epochs):
-            for mb in mbs:
-                ts, mets = minibatch_update(ts, mb)
-                metrics_acc = mets if metrics_acc is None else {
-                    k: metrics_acc[k] + v for k, v in mets.items()
-                }
-        n_updates = cfg.num_learning_epochs * n_mb
-        return ts, {k: v / n_updates for k, v in metrics_acc.items()}
+        return update_epochs(cfg, ts, mbs, minibatch_update)
 
     def update_split(ts: TrainState, roll: Rollout, adv, ret, rows, weight):
         """`update_minibatches` over the minibatches of `minibatch_rows`."""
@@ -503,10 +599,7 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
         the global flattened batch, on `gen`'s device, from a generator
         seeded by `permutation_seed(perm_seed, ts.iteration)` (`perm_seed`
         defaults to the seed of `gen`), the same on every rank."""
-        perm_gen = torch.Generator(device=gen.device)
-        perm_gen.manual_seed(permutation_seed(
-            gen.initial_seed() if perm_seed is None else perm_seed, ts.iteration))
-        return torch.randperm(batch, generator=perm_gen, device=gen.device)
+        return seeded_permutation(batch, ts.iteration, gen, perm_seed)
 
     def iteration_body(ts: TrainState, env_state, obs, priv_obs, gen, perm: torch.Tensor):
         """One training iteration on the minibatch permutation `perm`:
@@ -526,32 +619,12 @@ def make_train_pieces(env, net: ActorCritic, cfg: PPOConfig, num_envs: int,
                 mbs = gather(roll, adv, ret, rows, weight)
             ts, metrics = update_minibatches(ts, mbs)
             with stage("iter.metrics"):
-                metrics = rollout_metrics(ts, metrics, infos, own)
+                metrics = iteration_metrics(ts, metrics, infos, own)
         return env_state, obs, priv_obs, metrics
 
-    def rollout_metrics(ts: TrainState, metrics: dict, infos, own):
-        """The iteration's metrics: the update's means `metrics`, with the
-        rollout's sums over the ranks, the learning rate and the action
-        std."""
-        stack = lambda f: torch.stack([getattr(tr, f) for tr in infos])  # noqa: E731
-        (reward_sum, ep_term_sums, ep_reset_count, ep_len_sum, ep_reward_sum, nonfinite,
-         level_sum) = all_reduce_sum([
-             stack("reward").sum(), stack("ep_term_sums").sum(dim=(0, 1)),
-             stack("ep_reset_count").sum(), stack("ep_len_at_reset").sum(),
-             stack("ep_reward_at_reset").sum(), stack("nonfinite").sum(),
-             stack("terrain_level").sum()], group)
-        metrics.update(
-            mean_step_reward=reward_sum / batch,
-            ep_term_sums=ep_term_sums,
-            ep_reset_count=ep_reset_count,
-            ep_len_sum=ep_len_sum,
-            ep_reward_sum=ep_reward_sum,
-            nonfinite_resets=nonfinite,
-            mean_terrain_level=level_sum / batch,
-            # a copy: the next iteration writes ts.lr in place
-            lr=ts.lr.clone(),
-            action_std_mean=ts.net.std.detach().abs().mean(),
-        )
+    def iteration_metrics(ts: TrainState, metrics: dict, infos, own):
+        """`rollout_metrics`, and under several ranks this rank's split."""
+        metrics = rollout_metrics(ts, metrics, infos, batch, group)
         if sharded:  # this rank's split, for check_minibatch_split
             metrics.update(minibatch_own_rows=own, minibatch_split_rows=split_size)
         return metrics

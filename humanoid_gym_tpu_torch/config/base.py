@@ -384,6 +384,18 @@ class PolicyCfg:
 
 
 @dataclass
+class RecurrentPolicyCfg(PolicyCfg):
+    """The policy block of rsl_rl's ActorCriticRecurrent (the runner's
+    `policy_class_name = "ActorCriticRecurrent"`): PolicyCfg's keys, the
+    heads' widths being the MLPs after the memory, and the memory's, with
+    rsl_rl's defaults. EXTENSION: the JAX package has no recurrent policy."""
+
+    rnn_type: str = "lstm"
+    rnn_hidden_size: int = 256
+    rnn_num_layers: int = 1
+
+
+@dataclass
 class AlgorithmCfg:
     value_loss_coef: float = 1.0
     use_clipped_value_loss: bool = True

@@ -11,6 +11,12 @@ artifacts in the same formats, so that the JAX package's tools
 `NumpyPolicy` is the framework-free actor: obs -> deterministic action mean.
 `export_checkpoint` writes the same artifacts from a port checkpoint
 (`model_N.ckpt`) without building a net.
+
+A recurrent policy (`ActorCriticRecurrent`) is exported as `policy_jit.pt`
+alone, legged_gym's `PolicyExporterLSTM`: a TorchScript module holding the
+actor's LSTM and head, which carries h and c from call to call (one robot,
+or a batch of one) and exposes `reset_memory()`. The `.npz` and `.bin`
+formats hold MLP layers only.
 """
 
 from __future__ import annotations
@@ -46,9 +52,73 @@ def _actor_layers(net) -> List[Tuple[np.ndarray, np.ndarray]]:
             for lin in net.actor.layers]
 
 
+class MemoryPolicyExporter(nn.Module):
+    """legged_gym's PolicyExporterLSTM: the actor's LSTM (`memory`) and head
+    (`actor`, Linear / ELU) in float32, with the LSTM's h and c as buffers
+    (layers, 1, H). `forward(obs)` takes one observation (O,) or a batch of
+    one (1, O), steps the memory and returns the action mean; `reset_memory`
+    zeroes h and c."""
+
+    def __init__(self, rnn: nn.LSTM, actor: nn.Sequential):
+        super().__init__()
+        self.memory = rnn
+        self.actor = actor
+        self.register_buffer("hidden_state", torch.zeros(rnn.num_layers, 1, rnn.hidden_size))
+        self.register_buffer("cell_state", torch.zeros(rnn.num_layers, 1, rnn.hidden_size))
+
+    def forward(self, x):
+        single = x.dim() == 1
+        if single:
+            x = x.unsqueeze(0)
+        out, (h, c) = self.memory(x.unsqueeze(0), (self.hidden_state, self.cell_state))
+        self.hidden_state.copy_(h)
+        self.cell_state.copy_(c)
+        y = self.actor(out.squeeze(0))
+        return y.squeeze(0) if single else y
+
+    @torch.jit.export
+    def reset_memory(self):
+        self.hidden_state.zero_()
+        self.cell_state.zero_()
+
+
+def _memory_exporter(sd: dict) -> MemoryPolicyExporter:
+    """The exporter of a recurrent net's state dict (`memory_a.rnn.*`,
+    `actor.layers.<i>.*`), on the CPU in float32."""
+    rnn_sd = {k[len("memory_a.rnn."):]: v.float() for k, v in sd.items()
+              if k.startswith("memory_a.rnn.")}
+    layers = len([k for k in rnn_sd if k.startswith("weight_ih_l")])
+    hidden, inputs = rnn_sd["weight_hh_l0"].shape[1], rnn_sd["weight_ih_l0"].shape[1]
+    rnn = nn.LSTM(inputs, hidden, layers)
+    rnn.load_state_dict(rnn_sd)
+    n = len({k.split(".")[2] for k in sd if k.startswith("actor.layers.")})
+    mods: List[nn.Module] = []
+    for i in range(n):
+        w, b = sd[f"actor.layers.{i}.weight"].float(), sd[f"actor.layers.{i}.bias"].float()
+        lin = nn.Linear(w.shape[1], w.shape[0])
+        with torch.no_grad():
+            lin.weight.copy_(w)
+            lin.bias.copy_(b)
+        mods.append(lin)
+        if i < n - 1:
+            mods.append(nn.ELU())
+    return MemoryPolicyExporter(rnn, nn.Sequential(*mods))
+
+
+def _export_memory_torchscript(sd: dict, path: str) -> List[str]:
+    os.makedirs(path, exist_ok=True)
+    f = os.path.join(path, "policy_jit.pt")
+    torch.jit.script(_memory_exporter(sd)).save(f)
+    return [f]
+
+
 def export_policy(net, path: str, torchscript: bool = True) -> List[str]:
     """Write <path>/policy.npz, policy.bin and (with `torchscript`)
-    policy_jit.pt for the actor of `net`; returns the written paths."""
+    policy_jit.pt for the actor of `net`; for a recurrent net policy_jit.pt
+    alone (`MemoryPolicyExporter`). Returns the written paths."""
+    if getattr(net, "is_recurrent", False):
+        return _export_memory_torchscript({k: v.detach().cpu() for k, v in
+                                           net.state_dict().items()}, path)
     return _write_artifacts(_actor_layers(net), path, torchscript)
 
 
@@ -58,6 +128,8 @@ def export_checkpoint(ckpt_path: str, path: str, torchscript: bool = False) -> L
     (out, in) and `.bias`); returns the written paths."""
     payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     sd = payload["train_state"]["net"]
+    if "memory_a.rnn.weight_ih_l0" in sd:  # a recurrent net: its TorchScript policy alone
+        return _export_memory_torchscript(sd, path)
     n = len({k.split(".")[2] for k in sd if k.startswith("actor.layers.")})
     if n == 0:
         raise ValueError(f"{ckpt_path}: no actor layers in the checkpoint's net")
@@ -109,7 +181,8 @@ def _export_torchscript(layers, path: str) -> str:
 
 
 class _TorchScriptPolicy(NumpyPolicy):
-    """A TorchScript actor behind NumpyPolicy's call."""
+    """A TorchScript actor behind NumpyPolicy's call; `reset()` zeroes the
+    memory of a recurrent one (`reset_memory`) and does nothing otherwise."""
 
     def __init__(self, module):
         super().__init__([])
@@ -118,6 +191,10 @@ class _TorchScriptPolicy(NumpyPolicy):
     def __call__(self, obs):
         with torch.no_grad():
             return self.module(torch.from_numpy(np.asarray(obs, np.float32))).numpy()
+
+    def reset(self) -> None:
+        if hasattr(self.module, "reset_memory"):
+            self.module.reset_memory()
 
 
 def load_policy(path: str) -> NumpyPolicy:

@@ -9,7 +9,9 @@ recipe), `humanoid_ppo_rubble`, `humanoid_ppo_deploy` (windows of the
 MuJoCo deployment heightfield); the Froude-scaled `humanoid_s_ppo`; and the
 joint XBot-L + XBot-S batches `humanoid_joint_ppo` and
 `humanoid_joint_deploy` under one policy with the estimator head, whose
-envs come from their custom factory (`make_env_custom`).
+envs come from their custom factory (`make_env_custom`). One task is the
+port's own: `humanoid_ppo_lstm`, XBot-L flat under rsl_rl's recurrent
+actor-critic as unitree_rl_gym's G1 recipe sets it.
 
 Under env sharding (`group=`) each rank builds its block of the global
 batch: `num_envs / world` envs at their global offset, drawing from a seed
@@ -89,6 +91,20 @@ def _register_builtin():
     from .config.xbotl import XBotLCfg, XBotLCfgPPO
 
     register("humanoid_ppo", XBotLCfg, XBotLCfgPPO)
+
+    def lstm_ppo():  # XBotLCfgPPO under rsl_rl's ActorCriticRecurrent with the
+        # policy block of unitree_rl_gym's G1RoughCfgPPO (legged_gym/envs/g1/g1_config.py)
+        from .config.base import RecurrentPolicyCfg
+
+        cfg = XBotLCfgPPO()
+        cfg.policy = RecurrentPolicyCfg(init_noise_std=0.8, actor_hidden_dims=[32],
+                                        critic_hidden_dims=[32], rnn_type="lstm",
+                                        rnn_hidden_size=64, rnn_num_layers=1)
+        cfg.runner.policy_class_name = "ActorCriticRecurrent"
+        cfg.runner.experiment_name = "XBot_ppo_lstm"
+        return cfg
+
+    register("humanoid_ppo_lstm", XBotLCfg, lstm_ppo)
 
     def small_flat():  # 256 envs, flat, short horizon
         cfg = XBotLCfg()

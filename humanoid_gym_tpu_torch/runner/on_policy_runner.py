@@ -49,9 +49,13 @@ changes.
 
 Checkpoints are `torch.save` files of tensors and plain Python values:
 the train state (net weights, Adam moments and count, adaptive learning
-rate, iteration), the resolved net compute dtype, and on the final
-checkpoint the env state with its observations (for a joint env, the list
-of its sub-envs' states).
+rate, iteration, and a recurrent net's memory), the resolved net compute
+dtype, and on the final checkpoint the env state with its observations
+(for a joint env, the list of its sub-envs' states).
+
+The policy is the train config's `runner.policy_class_name`:
+`ActorCritic` (the MLPs) or `ActorCriticRecurrent` (rsl_rl's LSTM
+memories, trained by `algo/recurrent.py`, on one rank).
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ from typing import Optional
 import torch
 
 from ..algo.capture import CapturedTrainIter, compiled_train_iter
-from ..algo.networks import actor_critic_from_cfg, dtype_name, resolve_compute_dtype
+from ..algo.networks import (MemoryPolicy, actor_critic_from_cfg, dtype_name,
+                              resolve_compute_dtype)
 from ..algo.ppo import PPOConfig, check_minibatch_split, init_train_state
 from ..envs.state import EnvState
 from ..parallel.mesh import replicate
@@ -194,13 +199,14 @@ class OnPolicyRunner:
 
         # the run's streams, each its own (parallel/multihost.py stream_seed),
         # as the JAX runner splits its key into k_init, k_env and the rest
-        self.net = actor_critic_from_cfg(env.cfg.env, train_cfg.policy,
-                                         seed=stream_seed(self.seed, "net_init")).to(self.device)
+        self.net = actor_critic_from_cfg(
+            env.cfg.env, train_cfg.policy, seed=stream_seed(self.seed, "net_init"),
+            class_name=train_cfg.runner.policy_class_name).to(self.device)
         replicate(list(self.net.parameters()), self.group)
         algo_cfg = PPOConfig.from_cfg(train_cfg.algorithm)
         algo_cfg.num_steps_per_env = self.num_steps_per_env
         self.algo_cfg = algo_cfg
-        self.train_state = init_train_state(self.net, algo_cfg.learning_rate)
+        self.train_state = init_train_state(self.net, algo_cfg.learning_rate, env.num_envs)
 
         # the action noise of this rank's envs; the minibatch permutation
         # and the random episode lengths draw from streams that are the same
@@ -478,6 +484,8 @@ class OnPolicyRunner:
             "iter": self.current_learning_iteration,
             "compute_dtype": self._resolved_dtype(),
         }
+        if ts.memory is not None:
+            payload["train_state"]["memory"] = [m.detach().cpu() for m in ts.memory]
         if env_shards:
             payload["env_shards"] = env_shards
         if include_env_state:
@@ -503,6 +511,16 @@ class OnPolicyRunner:
             ts.opt_count.fill_(int(saved["opt_count"]))
         ts.lr.copy_(saved["lr"])
         ts.iteration = int(saved["iteration"])
+        memory = saved.get("memory")
+        if ts.memory is not None and memory is not None:
+            # restored where the env count matches, skipped otherwise (an
+            # eval runner of another size), as the env state is
+            if [tuple(m.shape) for m in memory] == [tuple(m.shape) for m in ts.memory]:
+                for mine, theirs in zip(ts.memory, memory):
+                    mine.copy_(theirs)
+            else:
+                print(f"[runner] memory in ckpt not restored: {tuple(memory[0].shape)} against "
+                      f"{tuple(ts.memory[0].shape)}")
         self.current_learning_iteration = int(payload.get("iter", 0))
         world = 1 if self.group is None else self.group.world
         shards = payload.get("env_shards")
@@ -530,8 +548,12 @@ class OnPolicyRunner:
         return payload.get("infos")
 
     def get_inference_policy(self):
-        """Deterministic policy obs -> action mean."""
+        """Deterministic policy obs -> action mean; for a recurrent net a
+        `MemoryPolicy`, which carries its actor memory from call to call and
+        whose `reset(dones)` zeroes it where envs are done."""
         net = self.net
+        if getattr(net, "is_recurrent", False):
+            return MemoryPolicy(net)
 
         @torch.no_grad()
         def policy(obs):

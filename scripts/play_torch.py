@@ -7,7 +7,8 @@ Usage:
 
 Loads a port checkpoint (`model_N.ckpt`: the last run and its newest
 checkpoint unless --load_run / --checkpoint name others), exports its actor
-to `<log_root>/exported/policies/` (policy.npz, policy.bin, policy_jit.pt),
+to `<log_root>/exported/policies/` (policy.npz, policy.bin, policy_jit.pt; a
+recurrent policy's policy_jit.pt alone, which carries its memory),
 then runs the reference's rollout: 1200 policy steps (12 s) at one env on
 flat ground with the command fixed at vx = 0.5, observation noise on and
 no pushes, friction or mass randomization, action delay or action noise
@@ -63,19 +64,24 @@ def play_rollout(env, policy, state, obs, n_steps: int, vx: float = PLAY_VX):
     action) with the command held at (vx, 0, 0). Returns (state, obs,
     traces, falls): the traces of play.py:69-95 as NumPy arrays, gathered
     on the device one row per step and copied to the host once, and how
-    often env 0 ended an episode other than by its time limit."""
+    often env 0 ended an episode other than by its time limit. A policy
+    with a memory (the runner's `MemoryPolicy`) has it zeroed where an env
+    is done (`policy.reset(dones)`), as in training."""
     import torch
 
     j = TRACE_JOINT
     cmd = torch.tensor([vx, 0.0, 0.0, 0.0], device=env.device).expand(env.num_envs, 4).contiguous()
     feet = torch.as_tensor(env.model.feet_body_idx, device=env.device)
     rows = []
+    reset = getattr(policy, "reset", None)
     falls = torch.zeros((), dtype=torch.int32, device=env.device)
     with torch.no_grad():
         for _ in range(n_steps):
             state = state.replace(commands=cmd)
             action = policy(obs)
             state, tr = env.step(state, action)
+            if reset is not None:
+                reset(tr.done)
             obs = tr.obs
             falls += tr.done[0] & ~tr.time_out[0]
             ph = state.phys
@@ -194,8 +200,9 @@ def play(args, n_steps: int = PLAY_STEPS):
         from humanoid_gym_tpu_torch.export.sim2sim import Sim2SimCfg, run_mujoco
 
         mp4 = os.path.join(root, "exported", "gait.mp4")
-        npz = next(p for p in written if p.endswith(".npz"))
-        res = run_mujoco(load_policy(npz),
+        # the .npz actor; a recurrent policy has its TorchScript module only
+        art = next((p for p in written if p.endswith(".npz")), written[0])
+        res = run_mujoco(load_policy(art),
                          Sim2SimCfg(mujoco_model_path=XBOT_MJCF, sim_duration=10.0),
                          video_path=mp4)
         result["video"] = res["video"]

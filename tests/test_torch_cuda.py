@@ -591,13 +591,15 @@ def test_captured_entry_replays_equal_eager_steps(dev, solver):
 
 
 @pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain_robust",
-                                  "humanoid_joint_ppo"])
+                                  "humanoid_joint_ppo", "humanoid_ppo_lstm"])
 def test_captured_train_iter_equals_eager(dev, task):
     """The training iteration captured as one CUDA graph against the eager
     one at 16 envs, T = 8, solver mega (chip_smoke.py phase 24's comparison
     at a small size): 3 iterations a side from one snapshot, bit-equal, the
     same mega (and on terrain patches) launches on each side, counted from
-    the replays."""
+    the replays. The recurrent policy's memory is part of the train state
+    compared, so it carries from replay to replay as from eager iteration to
+    eager iteration."""
     import importlib.util
     import os
 

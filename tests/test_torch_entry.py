@@ -92,16 +92,18 @@ TASKS = ["humanoid_joint_deploy", "humanoid_joint_ppo", "humanoid_ppo", "humanoi
 
 def test_unknown_task_raises_keyerror_naming_the_registered(tmp_path):
     """A task name the registry does not hold raises a KeyError that names
-    the registered ones: every task of the JAX package's registry."""
+    the registered ones: every task of the JAX package's registry, and the
+    port's own recurrent-policy task."""
     from humanoid_gym_tpu import registry as jreg
 
     args = get_args(["--task", "humanoid_ppo_unknown", "--device", "cpu",
                      "--log_root", str(tmp_path)])
     with pytest.raises(KeyError) as exc:
         _train_fn()(args)
-    for name in TASKS:
+    for name in TASKS + ["humanoid_ppo_lstm"]:
         assert name in str(exc.value)
-    assert registry.task_names() == TASKS == jreg.task_names()
+    assert registry.task_names() == sorted(TASKS + ["humanoid_ppo_lstm"])
+    assert TASKS == jreg.task_names()
 
 
 def test_resume_on_empty_log_root_fails_before_env_build(tmp_path, monkeypatch):

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1-4, 4t, 10, 10t, 6 and 7, then the records; no contract line
+    python3 chip_smoke.py --kernels-only   # phases 1-4, 4t, 4r, 10, 10t, 6 and 7, then the records; no contract line
     python3 chip_smoke.py --train TASK ITERS SEED [--probe C1,C2,...]   # phases 1-2, then a training run as phase 22's, no gate; the update probe at the checkpoints given
     python3 chip_smoke.py --roll POLICY.npz N_ENVS STEPS [STEPS ...]   # phases 1-2, then phase 12 (a)'s roll
     python3 chip_smoke.py --nonfinite CKPT STEPS [ACTOR.npz]   # phases 1-2, then the non-finite probe
@@ -32,6 +32,12 @@ script exits non-zero):
      terrain patches kernel against the plain chain at 4096 envs (worst
      slope gap at most 1e-5, taps or origin differing at no more than
      0.1 % of the points, one launch a call), both timed;
+  4r. the rewards kernel (the env step's reward stage in one launch)
+     against the plain chain at 4096 and 2048 envs, on random states that
+     reach every branch of every term (`_reward_inputs`): reward and
+     episode sums within REWARD_TOLS relative, the float feet state within
+     1e-6, the flags equal, one launch a call; timed as a CUDA graph
+     beside the plain chain, eager and as a CUDA graph;
   5. the main path: XBot-L PPO training (4096 envs, T=60, solver mega)
      through `CapturedTrainIter` (the iteration as one CUDA graph): one
      warm-up iteration, which captures the graph, and 3 timed replays,
@@ -270,6 +276,8 @@ if os.path.isdir(os.path.join(HERE, "humanoid_gym_tpu_torch")):
         mega_terrain_ops,
         solve_ops,
         solve_ops_executed,
+        rewards_bytes,
+        rewards_ops,
         terrain_patches_ops,
     )
     from humanoid_gym_tpu_torch.utils.roofline import bound_ms as _bound_ms  # noqa: E402
@@ -323,11 +331,109 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, calls: int, reps: int = 20) -> float:
+    """Device ms of one fn() call: `calls` calls captured as one CUDA graph,
+    its replays timed by `_time_ms`, over `calls`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _time_ms(graph.replay, reps=reps) / calls
+
+
 def _maxerr(a, b) -> float:
     return float((a - b).abs().max().item())
 
 
 # ---- inputs ----
+
+def _reward_inputs(n, rcfg, n_cols, device, seed, feet_base=True, nj=12, nbody=13, feet=(6, 12),
+                   n_pen=3):
+    """`RewardInputs` of n envs for the reward stage of `rcfg` (a
+    RewardsCfg) with n_cols episode-sum columns, drawn from `seed` so that
+    every branch of every term is reached: rows whose state is not finite
+    (NaN and inf in qpos, qvel and the FK rows), each case of low_speed (too
+    slow, too fast and desired, each also within 2 % of its edge; a sign
+    mismatch, |command| <= 0.1, a base at rest), commands below
+    stand_still's 0.1, episode lengths over many gait cycles (so |sin| <
+    0.1 at the stance boundaries), foot forces about the 5 N contact line,
+    last contacts and zero or positive air times, feet heights in and about
+    feet_clearance's band, collision flags, done and time-out flags. Every input is a strided view of a wider array, as the
+    env passes the mega kernel's output rows (the episode length and the
+    flags too); `feet_base` as `make_rewards` takes it."""
+    import numpy as np
+    import torch
+
+    from humanoid_gym_tpu_torch.envs.rewards import RewardInputs
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    f = lambda *s: rng.normal(size=(n,) + s).astype(f32)  # noqa: E731
+    u = lambda lo, hi, *s: rng.uniform(lo, hi, (n,) + s).astype(f32)  # noqa: E731
+    b = lambda p, *s: rng.uniform(size=(n,) + s) < p  # noqa: E731
+    row = np.arange(n)
+    qpos = np.concatenate([u(-2, 2, 2), u(0.8, 1.0, 1), f(4), f(nj) * 0.2], 1)
+    qvel = f(6 + nj)
+    cmd, lin = u(-0.6, 0.6, 4), f(3) * 0.4
+    # low_speed: v / c of 0.2 and 0.49 (too slow), 2 and 1.21 (too fast), 1, 0.51 and 1.19
+    # (desired), -1 (a sign mismatch); |c| <= 0.1; a base at rest; free
+    ratio = np.array([0.2, 0.49, 2.0, 1.21, 1.0, 0.51, 1.19, -1.0], f32)
+    case = row % (len(ratio) + 3)
+    ruled = case < len(ratio)
+    lin[ruled, 0] = ratio[case[ruled]] * cmd[ruled, 0]
+    cmd[case == len(ratio), 0] = u(-0.1, 0.1)[case == len(ratio)]
+    lin[case == len(ratio) + 1, 0] = 0.0
+    cmd[row % 5 == 0, :2] *= 0.1  # stand_still's |command| < 0.1
+    rel = np.concatenate([f(2) * 0.2, f(2) * 0.2, u(-0.97, -0.8, 2), f(2) * 0.15, f(2) * 0.15,
+                          f(2) * 0.3, f(2) * 0.3], 1)
+    if not feet_base:
+        rel[:, 0:2] += qpos[:, 0:1]
+        rel[:, 2:4] += qpos[:, 1:2]
+        rel[:, 4:6] += qpos[:, 2:3]
+        rel[:, 6:8] += qpos[:, 0:1]
+        rel[:, 8:10] += qpos[:, 1:2]
+    cf = np.abs(f(nbody, 3)) * 300
+    cf[:, list(feet), 2] = u(0.0, 10.0, 2)
+    cf[row % 11 == 0, feet[0], 2] = 5.0  # on the contact line: no contact
+    fz = (rel[:, 4:6] + qpos[:, 2:3]) if feet_base else rel[:, 4:6]
+    sole_z = fz - f32(rcfg.sole_offset)
+    last_feet_z = u(0.0, 0.15, 2)
+    feet_height = (f32(rcfg.target_feet_height) - (sole_z - last_feet_z) + u(-0.015, 0.015, 2))
+    air = np.where(b(0.3, 2), f32(0.0), u(0.0, 0.6, 2)).astype(f32)
+    bad = b(0.04)
+    qpos[bad, 7] = np.nan
+    qvel[bad, 3] = np.inf
+    rel[bad, 4] = np.nan
+    done = b(0.1)
+
+    def put(x, before=1, after=2):
+        """x as a view of a wider array on the device: a row stride of its
+        width + before + after."""
+        x = np.asarray(x)
+        wide = np.zeros((n, (x.shape[1] if x.ndim == 2 else 1) + before + after), x.dtype)
+        if x.ndim == 1:
+            wide[:, before] = x
+            return torch.as_tensor(wide, device=device)[:, before]
+        wide[:, before:before + x.shape[1]] = x
+        return torch.as_tensor(wide, device=device)[:, before:before + x.shape[1]]
+
+    last_qvel = put(f(6 + nj))
+    return RewardInputs(
+        episode_length=put(rng.integers(0, 1000, n).astype(np.int32)),
+        qpos=put(qpos), qvel=put(qvel), last_dof_vel=last_qvel[:, 6:], actions=put(f(nj)),
+        last_actions=put(f(nj)), last_last_actions=put(f(nj)), torques=put(f(nj) * 30),
+        ref_dof_pos=put(f(nj) * 0.2), base_lin_vel=put(lin), base_ang_vel=put(f(3) * 0.3),
+        base_euler=put(f(3) * 0.1), projected_gravity=put(f(3) * 0.1), commands=put(cmd),
+        last_root_vel=last_qvel[:, :6], feet_rows=put(rel),
+        contact_forces=torch.as_tensor(cf, device=device), collision_flags=put(b(0.3, n_pen)),
+        feet_air_time=put(air), last_contacts=put(b(0.5, 2)), feet_height=put(feet_height),
+        last_feet_z=put(last_feet_z), episode_sums=put(f(n_cols)), finite=put(~bad),
+        done=put(done), time_out=put(done & b(0.5)))
+
 
 def _states(model, n, seed, device, z=0.9):
     """Perturbed standing states with DR values drawn as the JAX package's
@@ -752,6 +858,104 @@ def _terrain_patches_check(patches, st):
         raise AssertionError(f"terrain patches kernel disagrees with the plain chain: slope gap "
                              f"{slope_gap:.3e}, {differ} points differ, {calls} launches, finite "
                              f"{finite}")
+
+
+def _reward_gaps(stage, inp, got, want):
+    """The rewards kernel's outputs `got` against the plain chain's `want`
+    on `inp`: (the worst reward gap over |reward| plus the magnitudes of the
+    row's scaled terms, the worst episode-sum gap over |sum| plus |scaled
+    term|, the worst gap of the float feet state, last_contacts equal,
+    contact equal). The scaled terms are the plain chain's episode sums
+    from zero sums."""
+    import torch
+
+    scaled = stage.plain(inp._replace(episode_sums=torch.zeros_like(inp.episode_sums)))
+    scaled = scaled.episode_sums.abs()
+    reward = float(((got.reward - want.reward).abs()
+                    / (want.reward.abs() + scaled.sum(1)).clamp(min=1e-30)).max())
+    sums = float(((got.episode_sums - want.episode_sums).abs()
+                  / (want.episode_sums.abs() + scaled).clamp(min=1e-30)).max()) \
+        if scaled.numel() else 0.0
+    feet = max(float((g - w).abs().max()) for g, w in (
+        (got.feet.feet_air_time, want.feet.feet_air_time),
+        (got.feet.feet_height, want.feet.feet_height),
+        (got.feet.last_feet_z, want.feet.last_feet_z)))
+    return (reward, sums, feet, torch.equal(got.feet.last_contacts, want.feet.last_contacts),
+            torch.equal(got.contact, want.contact))
+
+
+REWARD_TOLS = (1e-5, 1e-5, 1e-6)  # reward and episode sums relative, float feet state absolute
+
+
+def _all_reward_terms():
+    """XBot-L's reward config with every term of REWARD_FUNCTIONS and the
+    termination term scaled (seeded scales of both signs), no clip."""
+    import numpy as np
+
+    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
+    from humanoid_gym_tpu_torch.envs.rewards import KERNEL_TERMS
+
+    rcfg = XBotLCfg().rewards
+    rng = np.random.default_rng(0)
+    for name in KERNEL_TERMS + ("termination",):
+        setattr(rcfg.scales, name, float(rng.uniform(0.5, 2.0) * rng.choice([-1.0, 1.0])))
+    rcfg.only_positive_rewards = False
+    return rcfg
+
+
+def _phase4r_rewards(c, records, build_log):
+    """Phase 4r: the rewards kernel (csrc/rewards.cu) against the plain
+    chain at 4096 and 2048 envs on `_reward_inputs` (XBot-L's reward set,
+    its model's feet bodies), one launch a call; the kernel and the plain
+    chain timed as CUDA graphs (what a replayed iteration runs; the plain
+    chain eagerly too), with the launches of each and the kernel's
+    registers, stack and spills; the bound from `rewards_bytes` /
+    `rewards_ops`."""
+    import torch
+
+    from humanoid_gym_tpu_torch.envs import rewards as R
+
+    rcfg = c.cfg.rewards
+    dflt = torch.as_tensor([c.cfg.init_state.default_joint_angles[n] for n in c.model.dof_names],
+                           dtype=torch.float32, device=c.dev)
+    stage = R.make_rewards(rcfg, c.cfg.dt, dflt, c.model.feet_body_idx, feet_base=True)
+    regs = [x for x in _ptxas_summary(build_log).split(" | ") if x.startswith("hgt_rewards")]
+    for n in (4096, 2048):
+        inp = _reward_inputs(n, rcfg, len(stage.names), c.dev, seed=4000 + n,
+                             nbody=c.model.nbody, feet=c.model.feet_body_idx)
+        n0 = R.rewards_launch.launches
+        got = stage(inp)
+        torch.cuda.synchronize()
+        calls = R.rewards_launch.launches - n0
+        want = stage.plain(inp)
+        gaps = _reward_gaps(stage, inp, got, want)
+        abs_err = max(_maxerr(a.float(), b.float()) for a, b in zip(
+            (got.reward, got.episode_sums, *got.feet, got.contact),
+            (want.reward, want.episode_sums, *want.feet, want.contact)))
+        # device ms a call: the calls captured as one CUDA graph, as a replayed
+        # iteration runs them (timing eager launches reads the wrapper's host time)
+        ms_k = _graph_ms(lambda: stage(inp), 50)
+        ms_plain = _time_ms(lambda: stage.plain(inp), reps=10)
+        ms_graph = _graph_ms(lambda: stage.plain(inp), 5)
+        n_k = _kernel_launches(lambda: stage(inp))
+        n_p = _kernel_launches(lambda: stage.plain(inp))
+        nbytes = n * rewards_bytes(len(dflt), len(stage.names), inp.collision_flags.shape[1])
+        b_ms, b_by = _bound_ms(nbytes, n * rewards_ops(len(dflt), inp.collision_flags.shape[1]))
+        _log(f"phase 4r rewards: {n} envs, {len(stage.names)} terms | kernel {ms_k:.4f} ms a "
+             f"launch (as a graph), {n_k} kernel launch(es) a call, {calls} on its counter | plain "
+             f"{ms_plain:.3f} ms eager, {ms_graph:.3f} ms as a graph, {n_p} kernel launches a call "
+             f"| bound {b_ms:.5f} ms ({b_by}, {nbytes / n:.0f} B an env) | gaps: reward "
+             f"{gaps[0]:.2e}, episode sums {gaps[1]:.2e} (limit {REWARD_TOLS[0]:.0e} relative), "
+             f"feet state {gaps[2]:.2e} (limit {REWARD_TOLS[2]:.0e}), last_contacts equal "
+             f"{gaps[3]}, contact equal {gaps[4]}, largest |difference| {abs_err:.3e} | "
+             f"{'; '.join(regs)}")
+        if calls != 1 or gaps[0] > REWARD_TOLS[0] or gaps[1] > REWARD_TOLS[1] \
+                or gaps[2] > REWARD_TOLS[2] or not (gaps[3] and gaps[4]):
+            raise AssertionError(f"rewards kernel disagrees with the plain chain at {n} envs: "
+                                 f"gaps {gaps}, {calls} launches")
+        if n == 4096:
+            records["rewards"] = dict(max_abs_err=abs_err, ms=ms_k, plain_ms=ms_plain,
+                                      bound_ms=b_ms, bound_by=b_by)
 
 
 def _phys_args(st, tgt):
@@ -3351,10 +3555,11 @@ def _phase24_captured(card, dev):
     for task in CAPTURE_TASKS:
         t0 = time.perf_counter()
         r = _captured_against_eager(task, dev, warm=CAPTURE_WARM_ITERS)
-        # launch_counts(): flat, terrain, the three solvers, the terrain patches
+        # launch_counts(): flat, terrain, the three solvers, the terrain patches, the rewards
         own = 1 if r["kind"] == "terrain" else 0
-        want = [0] * 6
+        want = [0] * 7
         want[own] = r["robots"] * T_STEPS * CAPTURE_ITERS
+        want[6] = want[own]
         if r["kind"] == "terrain":
             want[5] = want[own]
         per_iter = want[own] // CAPTURE_ITERS
@@ -4081,7 +4286,8 @@ def _phase13_ranks(card):
     for horizon, key, reduces in ((T_STEPS, "captured", RANK_ALLREDUCES),
                                   (CUT_T_STEPS, "curriculum", RANK_ALLREDUCES + CUT_T_STEPS)):
         recs = [t[key] for t in train]
-        want = [horizon * CAPTURE_ITERS, 0, 0, 0, 0, 0]  # capture.LAUNCH_COUNTERS
+        # capture.LAUNCH_COUNTERS: the flat mega kernel and the rewards kernel
+        want = [horizon * CAPTURE_ITERS, 0, 0, 0, 0, 0, horizon * CAPTURE_ITERS]
         worst = max(recs, key=lambda x: x["worst_rel"])
         _log(f"phase 13 captured vs eager: humanoid_ppo {N_ENVS} envs as {RANKS} gloo ranks x "
              f"{N_ENVS // RANKS}, T={horizon}, command curriculum "
@@ -4270,6 +4476,7 @@ def main() -> int:
     from humanoid_gym_tpu_torch.config.xbotl import XBotLCfgPPO
     from humanoid_gym_tpu_torch.envs import make_env
     from humanoid_gym_tpu_torch.physics import mega as MG, solve as SV
+    from humanoid_gym_tpu_torch.physics.cuda_build import kernel_library
 
     dev = torch.device("cuda")
     laps = _Laps()
@@ -4285,6 +4492,8 @@ def main() -> int:
     laps.lap("4")
     landed_l = _phase4t_mega_terrain(c, records)
     laps.lap("4t")
+    _phase4r_rewards(c, records, kernel_library().log)
+    laps.lap("4r")
     extra = {}  # phase 10's results for the B1 and B1t rows
     _phase10_two_models(c, _setup(dev, robot="S"), extra)
     laps.lap("10")

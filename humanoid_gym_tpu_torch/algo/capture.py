@@ -67,6 +67,7 @@ from typing import Optional
 import torch
 
 from ..parallel.mesh import EnvGroup, all_reduce_flat
+from ..envs.rewards import rewards_launch
 from ..physics.mega import mega_kernel_launch, terrain_patches_launch
 from ..physics.solve import apgd_solve_kernel, fused_dense_solve, fused_solve
 from ..utils import tracing
@@ -76,7 +77,8 @@ from .ppo import PPOConfig, TrainState, make_train_iter, make_train_pieces
 # the kernel wrappers' launch counters: (wrapper, attribute)
 LAUNCH_COUNTERS = ((mega_kernel_launch, "launches"), (mega_kernel_launch, "terrain_launches"),
                    (fused_solve, "launches"), (fused_dense_solve, "launches"),
-                   (apgd_solve_kernel, "launches"), (terrain_patches_launch, "launches"))
+                   (apgd_solve_kernel, "launches"), (terrain_patches_launch, "launches"),
+                   (rewards_launch, "launches"))
 
 
 def launch_counts() -> list:

@@ -8,7 +8,8 @@ Port of humanoid_gym_tpu/envs/env.py. One call of `step(state, actions)` keeps t
   -> episode counters, base quantities
   -> command resample / heading / push
   -> termination probes
-  -> reward terms + episode sums + only-positive clip
+  -> reward terms + episode sums + only-positive clip + feet state (on the
+     card one kernel launch, `envs/rewards.py` `make_rewards`)
   -> terrain curriculum (levels move on reset)
   -> masked auto-reset
   -> observations with frame stacking + noise
@@ -164,12 +165,13 @@ class HumanoidEnv:
         if not all(int(b) == 0 for b in m.probe_point_body):
             raise ValueError("termination probes must all sit on the base")
 
-        # reward pipeline: nonzero scales, premultiplied by dt
-        scales = cfg.rewards.scales.nonzero_terms()
-        self.reward_names: Tuple[str, ...] = tuple(n for n in scales if n != "termination")
-        self.reward_scales = t([scales[n] * self.dt for n in self.reward_names])
-        self.termination_scale = scales.get("termination", 0.0) * self.dt
-        self._reward_fns = [R.REWARD_FUNCTIONS[n] for n in self.reward_names]
+        # reward stage: nonzero scales, premultiplied by dt; on the card one
+        # kernel launch a step (envs/rewards.py make_rewards)
+        self.rewards = R.make_rewards(cfg.rewards, self.dt, self.default_dof_pos,
+                                      m.feet_body_idx, feet_base=self._kernel_fk)
+        self.reward_names: Tuple[str, ...] = self.rewards.names
+        self.reward_scales = self.rewards.scales
+        self.termination_scale = self.rewards.termination_scale
         self.n_reward_terms = len(self.reward_names)
 
         ns, os_ = cfg.noise.noise_scales, cfg.normalization.obs_scales
@@ -223,14 +225,6 @@ class HumanoidEnv:
             cmd = torch.stack([vx, vy, vyaw, old_commands[:, 3]], dim=1)
         keep = (torch.linalg.norm(cmd[:, :2], dim=1) > 0.2).to(cmd.dtype)
         return torch.cat([cmd[:, :2] * keep[:, None], cmd[:, 2:]], dim=1)
-
-    def _gait_phase(self, episode_length: torch.Tensor) -> torch.Tensor:
-        return episode_length.to(torch.float32) * self.dt / self.cfg.rewards.cycle_time
-
-    def _stance_mask(self, phase: torch.Tensor) -> torch.Tensor:
-        sin_pos = torch.sin(2 * math.pi * phase)
-        mask = torch.stack([(sin_pos >= 0).float(), (sin_pos < 0).float()], dim=1)
-        return torch.where(torch.abs(sin_pos)[:, None] < 0.1, 1.0, mask)
 
     def _ref_dof_pos(self, phase: torch.Tensor) -> torch.Tensor:
         sin_pos = torch.sin(2 * math.pi * phase)
@@ -502,22 +496,15 @@ class HumanoidEnv:
             if self._kernel_fk:
                 # the mega kernel's end-of-step rows: positions base-relative,
                 # velocities world-frame
-                rel = phys.fk_out
-                base_xy = phys.qpos[:, None, :2]
-                feet_z = rel[:, 4:6] + phys.qpos[:, 2:3]
-                feet_pos_xy = torch.stack([rel[:, 0:2], rel[:, 2:4]], dim=2) + base_xy
-                knee_pos_xy = torch.stack([rel[:, 6:8], rel[:, 8:10]], dim=2) + base_xy
-                feet_vel_xy = torch.stack([rel[:, 10:12], rel[:, 12:14]], dim=2)
+                feet_rows = phys.fk_out
             else:
+                # the same rows from fk / body_velocities, world-frame
                 kfk = fk(m, phys.qpos)
                 bv = body_velocities(m, phys.qpos, phys.qvel, kfk)
-                fidx, kidx = self._feet_idx, self._knee_idx
-                feet_z = kfk.p[:, fidx, 2]
-                feet_pos_xy = kfk.p[:, fidx, :2]
-                knee_pos_xy = kfk.p[:, kidx, :2]
-                feet_vel_xy = bv.v_origin[:, fidx, :2]
-            feet_force = phys.contact_forces[:, self._feet_idx]
-            contact = feet_force[..., 2] > 5.0
+                pf, pk = kfk.p[:, self._feet_idx], kfk.p[:, self._knee_idx]
+                vf = bv.v_origin[:, self._feet_idx]
+                feet_rows = torch.cat([pf[..., 0], pf[..., 1], pf[..., 2], pk[..., 0], pk[..., 1],
+                                       vf[..., 0], vf[..., 1]], dim=1)
             term_flags, pen_flags = self._probe_flags(phys.qpos)
 
             # ---- termination ----
@@ -535,67 +522,20 @@ class HumanoidEnv:
             projected_gravity = torch.where(finite[:, None], projected_gravity, self._gravity_dir)
 
         with stage("env.rewards"):
-            # ---- rewards ----
-            phase_rew = self._gait_phase(episode_length)
-            ctx = R.RewardCtx(
-                dt=self.dt,
-                default_dof_pos=self.default_dof_pos,
-                cycle_time=cfg.rewards.cycle_time,
-                target_joint_pos_scale=cfg.rewards.target_joint_pos_scale,
-                target_feet_height=cfg.rewards.target_feet_height,
-                base_height_target=cfg.rewards.base_height_target,
-                min_dist=cfg.rewards.min_dist,
-                max_dist=cfg.rewards.max_dist,
-                tracking_sigma=cfg.rewards.tracking_sigma,
-                max_contact_force=cfg.rewards.max_contact_force,
-                sole_offset=cfg.rewards.sole_offset,
-                dof_pos=phys.qpos[:, 7:],
-                dof_vel=phys.qvel[:, 6:],
-                last_dof_vel=state.last_dof_vel,
-                actions=actions,
-                last_actions=state.last_actions,
-                last_last_actions=state.last_last_actions,
-                torques=phys.torques,
-                base_lin_vel=base_lin_vel,
-                base_ang_vel=base_ang_vel,
-                base_euler=base_euler,
-                projected_gravity=projected_gravity,
-                commands=commands,
-                root_z=phys.qpos[:, 2],
-                root_vel=phys.qvel[:, 0:6],
-                last_root_vel=state.last_root_vel,
-                feet_z=feet_z,
-                feet_vel_xy=feet_vel_xy,
-                feet_pos_xy=feet_pos_xy,
-                knee_pos_xy=knee_pos_xy,
-                feet_contact_force=feet_force,
-                contact=contact,
-                stance_mask=self._stance_mask(phase_rew),
-                ref_dof_pos=state.ref_dof_pos,
-                collision_flags=pen_flags,
-                feet_air_time=state.feet_air_time,
-                last_contacts=state.last_contacts,
-                feet_height=state.feet_height,
-                last_feet_z=state.last_feet_z,
-            )
-            term_values = torch.stack([fn(ctx) for fn in self._reward_fns], dim=1)
-            term_values = torch.where(finite[:, None], term_values, 0.0)
-            scaled = term_values * self.reward_scales
-            episode_sums = state.episode_sums + scaled
-            reward = torch.sum(scaled, dim=1)
-            if cfg.rewards.only_positive_rewards:
-                reward = torch.clamp(reward, min=0.0)
-            if self.termination_scale != 0.0:
-                reward = reward + self.termination_scale * (done & ~time_out)
-
-            fsu = R.feet_state_update(ctx)
-            fin2 = finite[:, None]
-            fsu = R.FeetStateUpdate(
-                feet_air_time=torch.where(fin2, fsu.feet_air_time, 0.0),
-                last_contacts=fsu.last_contacts & fin2,
-                feet_height=torch.where(fin2, fsu.feet_height, 0.0),
-                last_feet_z=torch.where(fin2, fsu.last_feet_z, 0.05),
-            )
+            # ---- rewards: terms, episode sums, only-positive clip, feet state ----
+            reward, episode_sums, fsu, contact = self.rewards(R.RewardInputs(
+                episode_length=episode_length, qpos=phys.qpos, qvel=phys.qvel,
+                last_dof_vel=state.last_dof_vel, actions=actions, last_actions=state.last_actions,
+                last_last_actions=state.last_last_actions, torques=phys.torques,
+                ref_dof_pos=state.ref_dof_pos, base_lin_vel=base_lin_vel,
+                base_ang_vel=base_ang_vel, base_euler=base_euler,
+                projected_gravity=projected_gravity, commands=commands,
+                last_root_vel=state.last_root_vel, feet_rows=feet_rows,
+                contact_forces=phys.contact_forces, collision_flags=pen_flags,
+                feet_air_time=state.feet_air_time, last_contacts=state.last_contacts,
+                feet_height=state.feet_height, last_feet_z=state.last_feet_z,
+                episode_sums=state.episode_sums, finite=finite, done=done, time_out=time_out,
+            ))
 
         with stage("env.reset"):
             # ---- terrain curriculum (legged_robot.py:400-420) ----
@@ -642,11 +582,11 @@ class HumanoidEnv:
 
         with stage("env.obs"):
             # ---- observations (humanoid_env.py:200-262) ----
-            phase = self._gait_phase(episode_length)
+            phase = R.gait_phase(episode_length, self.dt, cfg.rewards.cycle_time)
             sin_pos = torch.sin(2 * math.pi * phase)
             cos_pos = torch.cos(2 * math.pi * phase)
             ref_dof_pos = self._ref_dof_pos(phase)
-            stance_mask_obs = self._stance_mask(phase)
+            stance_mask_obs = R.stance_mask(phase)
             os_ = cfg.normalization.obs_scales
             command_input = torch.cat(
                 [sin_pos[:, None], cos_pos[:, None], commands[:, :3] * self.commands_scale], dim=1

@@ -3,13 +3,22 @@
 Port of humanoid_gym_tpu/envs/rewards.py: each term is
 ``fn(ctx: RewardCtx) -> (N,)``; the stateful terms' buffer updates are
 returned by `feet_state_update`. The env multiplies by ``scale * dt``.
+
+`make_rewards` builds the env step's whole reward stage: on CUDA tensors
+one launch of csrc/rewards.cu (`rewards_launch`), on CPU tensors the plain
+chain of these functions (`.plain`).
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Callable, Dict, NamedTuple
 
+import numpy as np
 import torch
+
+from ..physics.cuda_build import check, kernel_library
 
 
 class RewardCtx(NamedTuple):
@@ -270,3 +279,289 @@ REWARD_FUNCTIONS: Dict[str, Callable[[RewardCtx], torch.Tensor]] = {
     "action_rate": action_rate,
     "stand_still": stand_still,
 }
+
+
+# ---------------------------------------------------------------- the stage
+
+# the terms csrc/rewards.cu computes (its `enum Term`), in this order
+KERNEL_TERMS = tuple(REWARD_FUNCTIONS)
+
+
+class RewardInputs(NamedTuple):
+    """The step's tensors the reward stage reads, env axis first."""
+
+    episode_length: torch.Tensor  # (N,) int32, this step's (after the increment)
+    qpos: torch.Tensor  # (N, nq): root z at 2, joints at 7
+    qvel: torch.Tensor  # (N, nv): root [lin, ang] at 0-5, joints at 6
+    last_dof_vel: torch.Tensor  # (N, nj)
+    actions: torch.Tensor  # (N, na)
+    last_actions: torch.Tensor  # (N, na)
+    last_last_actions: torch.Tensor  # (N, na)
+    torques: torch.Tensor  # (N, nj)
+    ref_dof_pos: torch.Tensor  # (N, nj)
+    base_lin_vel: torch.Tensor  # (N, 3)
+    base_ang_vel: torch.Tensor  # (N, 3)
+    base_euler: torch.Tensor  # (N, 3)
+    projected_gravity: torch.Tensor  # (N, 3)
+    commands: torch.Tensor  # (N, 4)
+    last_root_vel: torch.Tensor  # (N, 6)
+    feet_rows: torch.Tensor  # (N, 14): feet x (2), y (2), z (2), knee x, y, feet vx, vy
+    contact_forces: torch.Tensor  # (N, nbody, 3)
+    collision_flags: torch.Tensor  # (N, n_pen) bool
+    feet_air_time: torch.Tensor  # (N, 2)
+    last_contacts: torch.Tensor  # (N, 2) bool
+    feet_height: torch.Tensor  # (N, 2)
+    last_feet_z: torch.Tensor  # (N, 2)
+    episode_sums: torch.Tensor  # (N, n_terms)
+    finite: torch.Tensor  # (N,) bool
+    done: torch.Tensor  # (N,) bool
+    time_out: torch.Tensor  # (N,) bool
+
+
+class RewardOutputs(NamedTuple):
+    reward: torch.Tensor  # (N,)
+    episode_sums: torch.Tensor  # (N, n_terms)
+    feet: FeetStateUpdate  # masked where the state is not finite
+    contact: torch.Tensor  # (N, 2) bool: feet force z > 5 N
+
+
+# csrc/rewards.cu's pointer slots (`enum Slot`), float parameters (`enum
+# FParam`, then a scale per kernel term) and int parameters (`enum IParam`,
+# then an episode-sum column per kernel term)
+SLOTS = RewardInputs._fields + ("default_dof_pos",) + tuple(
+    "out_" + k for k in ("reward", "episode_sums", "feet_air_time", "last_contacts",
+                         "feet_height", "last_feet_z", "contact"))
+FPARAMS = ("dt", "inv_dt", "inv_cycle_time", "target_feet_height", "base_height_target",
+           "min_dist", "max_dist", "half_max_dist", "tracking_sigma", "max_contact_force",
+           "sole_offset", "termination_scale")
+IPARAMS = ("nj", "n_pen", "n_cols", "foot_body_0", "foot_body_1", "feet_base", "only_positive")
+
+
+def gait_phase(episode_length: torch.Tensor, dt: float, cycle_time: float) -> torch.Tensor:
+    return episode_length.to(torch.float32) * dt / cycle_time
+
+
+def stance_mask(phase: torch.Tensor) -> torch.Tensor:
+    sin_pos = torch.sin(2 * math.pi * phase)
+    mask = torch.stack([(sin_pos >= 0).float(), (sin_pos < 0).float()], dim=1)
+    return torch.where(torch.abs(sin_pos)[:, None] < 0.1, 1.0, mask)
+
+
+def make_rewards(rcfg, dt: float, default_dof_pos: torch.Tensor, feet_body_idx, feet_base: bool):
+    """rewards(inp: RewardInputs) -> RewardOutputs: the env step's reward
+    stage for the config `rcfg` (a RewardsCfg) at policy step `dt`, the
+    robot's default joint angles (nj,) and its two feet bodies.
+    `feet_base`: `inp.feet_rows` are the mega kernel's FK rows (positions
+    base-relative, so the base's xyz is added); otherwise world frame.
+
+    The terms are the config's nonzero scales (`names`, the episode sums'
+    columns in this order; `scales`, each times dt, float32); a
+    `termination` scale adds termination_scale * dt where done and not
+    time_out. A name outside KERNEL_TERMS raises here.
+
+    A CUDA tensor takes one launch of csrc/rewards.cu (`rewards_launch`);
+    a CPU tensor takes `rewards.plain`: the gait phase and stance mask, the
+    feet kinematics, a RewardCtx, the terms stacked, masked where the state
+    is not finite, scaled and summed, the only-positive clip, the
+    termination term and `feet_state_update`, masked."""
+    scales = rcfg.scales.nonzero_terms()
+    names = tuple(n for n in scales if n != "termination")
+    unknown = [n for n in names if n not in KERNEL_TERMS]
+    if unknown:
+        raise ValueError(f"reward terms {unknown} have no function; the terms are {KERNEL_TERMS}")
+    dev = default_dof_pos.device
+    scale_values = np.asarray([scales[n] * dt for n in names], np.float32)
+    reward_scales = torch.as_tensor(scale_values, device=dev)
+    termination_scale = scales.get("termination", 0.0) * dt
+    if len(feet_body_idx) != 2:
+        raise ValueError(f"the reward stage takes two feet, not {len(feet_body_idx)}")
+    fns = [REWARD_FUNCTIONS[n] for n in names]
+    feet_idx = torch.as_tensor(tuple(feet_body_idx), dtype=torch.int64, device=dev)
+
+    def plain(inp: RewardInputs) -> RewardOutputs:
+        qpos, rel = inp.qpos, inp.feet_rows
+        feet_z = rel[:, 4:6]
+        feet_pos_xy = torch.stack([rel[:, 0:2], rel[:, 2:4]], dim=2)
+        knee_pos_xy = torch.stack([rel[:, 6:8], rel[:, 8:10]], dim=2)
+        if feet_base:
+            base_xy = qpos[:, None, :2]
+            feet_z = feet_z + qpos[:, 2:3]
+            feet_pos_xy = feet_pos_xy + base_xy
+            knee_pos_xy = knee_pos_xy + base_xy
+        feet_vel_xy = torch.stack([rel[:, 10:12], rel[:, 12:14]], dim=2)
+        feet_force = inp.contact_forces[:, feet_idx]
+        contact = feet_force[..., 2] > 5.0
+        ctx = RewardCtx(
+            dt=dt,
+            default_dof_pos=default_dof_pos,
+            cycle_time=rcfg.cycle_time,
+            target_joint_pos_scale=rcfg.target_joint_pos_scale,
+            target_feet_height=rcfg.target_feet_height,
+            base_height_target=rcfg.base_height_target,
+            min_dist=rcfg.min_dist,
+            max_dist=rcfg.max_dist,
+            tracking_sigma=rcfg.tracking_sigma,
+            max_contact_force=rcfg.max_contact_force,
+            sole_offset=rcfg.sole_offset,
+            dof_pos=qpos[:, 7:],
+            dof_vel=inp.qvel[:, 6:],
+            last_dof_vel=inp.last_dof_vel,
+            actions=inp.actions,
+            last_actions=inp.last_actions,
+            last_last_actions=inp.last_last_actions,
+            torques=inp.torques,
+            base_lin_vel=inp.base_lin_vel,
+            base_ang_vel=inp.base_ang_vel,
+            base_euler=inp.base_euler,
+            projected_gravity=inp.projected_gravity,
+            commands=inp.commands,
+            root_z=qpos[:, 2],
+            root_vel=inp.qvel[:, 0:6],
+            last_root_vel=inp.last_root_vel,
+            feet_z=feet_z,
+            feet_vel_xy=feet_vel_xy,
+            feet_pos_xy=feet_pos_xy,
+            knee_pos_xy=knee_pos_xy,
+            feet_contact_force=feet_force,
+            contact=contact,
+            stance_mask=stance_mask(gait_phase(inp.episode_length, dt, rcfg.cycle_time)),
+            ref_dof_pos=inp.ref_dof_pos,
+            collision_flags=inp.collision_flags,
+            feet_air_time=inp.feet_air_time,
+            last_contacts=inp.last_contacts,
+            feet_height=inp.feet_height,
+            last_feet_z=inp.last_feet_z,
+        )
+        finite = inp.finite
+        term_values = torch.stack([fn(ctx) for fn in fns], dim=1)
+        term_values = torch.where(finite[:, None], term_values, 0.0)
+        scaled = term_values * reward_scales
+        episode_sums = inp.episode_sums + scaled
+        reward = torch.sum(scaled, dim=1)
+        if rcfg.only_positive_rewards:
+            reward = torch.clamp(reward, min=0.0)
+        if termination_scale != 0.0:
+            reward = reward + termination_scale * (inp.done & ~inp.time_out)
+
+        fsu = feet_state_update(ctx)
+        fin2 = finite[:, None]
+        fsu = FeetStateUpdate(
+            feet_air_time=torch.where(fin2, fsu.feet_air_time, 0.0),
+            last_contacts=fsu.last_contacts & fin2,
+            feet_height=torch.where(fin2, fsu.feet_height, 0.0),
+            last_feet_z=torch.where(fin2, fsu.last_feet_z, 0.05),
+        )
+        return RewardOutputs(reward, episode_sums, fsu, contact)
+
+    # the kernel's parameters: floats rounded to float32 as PyTorch rounds a
+    # Python number on the card (a division by one is a multiply by its
+    # float32 reciprocal)
+    fvals = dict(
+        dt=dt, inv_dt=np.float32(1.0) / np.float32(dt),
+        inv_cycle_time=np.float32(1.0) / np.float32(rcfg.cycle_time),
+        target_feet_height=rcfg.target_feet_height, base_height_target=rcfg.base_height_target,
+        min_dist=rcfg.min_dist, max_dist=rcfg.max_dist, half_max_dist=rcfg.max_dist / 2.0,
+        tracking_sigma=rcfg.tracking_sigma, max_contact_force=rcfg.max_contact_force,
+        sole_offset=rcfg.sole_offset, termination_scale=termination_scale)
+    col = {n: i for i, n in enumerate(names)}
+    fparams = [float(np.float32(fvals[k])) for k in FPARAMS] + [
+        float(scale_values[col[n]]) if n in col else 0.0 for n in KERNEL_TERMS]
+    ivals = dict(nj=default_dof_pos.shape[0], n_cols=len(names), foot_body_0=feet_body_idx[0],
+                 foot_body_1=feet_body_idx[1], feet_base=int(feet_base),
+                 only_positive=int(rcfg.only_positive_rewards))
+    table = (fparams, ivals, [col.get(n, -1) for n in KERNEL_TERMS])
+
+    def rewards(inp: RewardInputs) -> RewardOutputs:
+        if inp.qpos.is_cuda:
+            return rewards_launch(inp, default_dof_pos, table)
+        return plain(inp)
+
+    rewards.plain = plain
+    rewards.names = names
+    rewards.scales = reward_scales
+    rewards.termination_scale = termination_scale
+    rewards.table = table
+    rewards.default_dof_pos = default_dof_pos
+    return rewards
+
+
+def _layout_error(name: str, t: torch.Tensor, want: str) -> ValueError:
+    return ValueError(f"rewards_launch: {name} must be {want} with unit column stride on the "
+                      f"device of qpos; got {tuple(t.shape)} {t.dtype} strides {t.stride()} on "
+                      f"{t.device}")
+
+
+def rewards_launch(inp: RewardInputs, default_dof_pos: torch.Tensor, table) -> RewardOutputs:
+    """Launch csrc/rewards.cu on CUDA inputs: the reward stage of
+    `make_rewards` (whose `table` it takes: the float parameters and scales,
+    the int parameters, the episode-sum column of each KERNEL_TERMS entry).
+    Each input is read in place: float32 (bool for the flags, int32 for the
+    episode length) with the documented width, unit column stride and any
+    row stride; the outputs are new. Counts launches in
+    `rewards_launch.launches`."""
+    q = inp.qpos
+    if not q.is_cuda:
+        raise ValueError("rewards_launch takes CUDA tensors")
+    n, dev = q.shape[0], q.device
+    fparams, ivals, cols = table
+    nj = ivals["nj"]
+    if nj < 8:
+        raise ValueError(f"rewards_launch: default_joint_pos reads joints 6 and 7; nj = {nj}")
+    n_pen = inp.collision_flags.shape[1] if inp.collision_flags.dim() == 2 else -1
+    widths = dict(qpos=(7 + nj, None), qvel=(6 + nj, None), last_dof_vel=(nj, nj),
+                  actions=(nj, nj), last_actions=(nj, nj), last_last_actions=(nj, nj),
+                  torques=(nj, nj), ref_dof_pos=(nj, nj), base_lin_vel=(3, 3),
+                  base_ang_vel=(3, 3), base_euler=(3, 3), projected_gravity=(3, 3),
+                  commands=(4, 4), last_root_vel=(6, 6), feet_rows=(14, 14),
+                  collision_flags=(n_pen, n_pen), feet_air_time=(2, 2), last_contacts=(2, 2),
+                  feet_height=(2, 2), last_feet_z=(2, 2),
+                  episode_sums=(ivals["n_cols"], ivals["n_cols"]))
+    flags = ("collision_flags", "last_contacts", "finite", "done", "time_out")
+    ptrs, strides = [], []
+    for name, t in zip(RewardInputs._fields, inp):
+        dtype = torch.bool if name in flags else (
+            torch.int32 if name == "episode_length" else torch.float32)
+        if t.device != dev or t.dtype != dtype or t.shape[0] != n:
+            raise _layout_error(name, t, f"{dtype} ({n}, ...)")
+        if name == "contact_forces":
+            if t.dim() != 3 or t.shape[2] != 3 or t.stride(2) != 1 or t.stride(1) != 3 \
+                    or t.shape[1] <= max(ivals["foot_body_0"], ivals["foot_body_1"]):
+                raise _layout_error(name, t, "(N, nbody, 3), the bodies packed,")
+        elif name in widths:
+            lo, hi = widths[name]
+            if t.dim() != 2 or t.shape[1] < lo or (hi is not None and t.shape[1] != hi) \
+                    or t.stride(1) != 1:
+                raise _layout_error(name, t, f"(N, {lo}{'' if hi else '+'})")
+        elif t.dim() != 1:
+            raise _layout_error(name, t, "(N,)")
+        ptrs.append(t.data_ptr())
+        strides.append(t.stride(0))
+    if default_dof_pos.device != dev or default_dof_pos.dtype != torch.float32 \
+            or tuple(default_dof_pos.shape) != (nj,) or not default_dof_pos.is_contiguous():
+        raise _layout_error("default_dof_pos", default_dof_pos, f"contiguous ({nj},)")
+    lib = kernel_library()
+    out = RewardOutputs(
+        reward=torch.empty((n,), device=dev),
+        episode_sums=torch.empty((n, ivals["n_cols"]), device=dev),
+        feet=FeetStateUpdate(
+            feet_air_time=torch.empty((n, 2), device=dev),
+            last_contacts=torch.empty((n, 2), device=dev, dtype=torch.bool),
+            feet_height=torch.empty((n, 2), device=dev),
+            last_feet_z=torch.empty((n, 2), device=dev)),
+        contact=torch.empty((n, 2), device=dev, dtype=torch.bool))
+    outs = (out.reward, out.episode_sums, out.feet.feet_air_time, out.feet.last_contacts,
+            out.feet.feet_height, out.feet.last_feet_z, out.contact)
+    ptrs += [default_dof_pos.data_ptr()] + [t.data_ptr() for t in outs]
+    strides += [0] + [t.stride(0) for t in outs]
+    iparams = [dict(ivals, n_pen=n_pen)[k] for k in IPARAMS] + list(cols)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.rewards.hgt_rewards(
+        (ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_int * len(strides))(*strides),
+        (ctypes.c_float * len(fparams))(*fparams), (ctypes.c_int * len(iparams))(*iparams),
+        n, stream)
+    check(err, "hgt_rewards launch")
+    rewards_launch.launches += 1
+    return out
+
+
+rewards_launch.launches = 0

@@ -27,6 +27,7 @@ SOURCES = {
     "dense": ("dense_solve.cu", "apgd.cuh", "bulk_copy.cuh"),
     "stamp": ("stamp.cu",),
     "patches": ("terrain_patches.cu",),
+    "rewards": ("rewards.cu",),
 }
 BUILD_DIR = os.path.join(HGT_ROOT_DIR, "build", "kernels")
 NVCC_FLAGS = [
@@ -37,15 +38,17 @@ NVCC_FLAGS = [
 
 class KernelLibrary:
     """The loaded libraries (`lib`: mega.cu, `dense`: dense_solve.cu,
-    `stamp`: stamp.cu, `patches`: terrain_patches.cu) and their build
-    record."""
+    `stamp`: stamp.cu, `patches`: terrain_patches.cu, `rewards`: rewards.cu)
+    and their build record."""
 
     def __init__(self, lib: ctypes.CDLL, dense: ctypes.CDLL, stamp: ctypes.CDLL,
-                 patches: ctypes.CDLL, paths: dict, build_seconds: float, log: str):
+                 patches: ctypes.CDLL, rewards: ctypes.CDLL, paths: dict, build_seconds: float,
+                 log: str):
         self.lib = lib
         self.dense = dense
         self.stamp = stamp
         self.patches = patches
+        self.rewards = rewards
         self.paths = paths
         self.build_seconds = build_seconds
         self.log = log
@@ -68,6 +71,8 @@ class KernelLibrary:
         patches.hgt_terrain_patches.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, cf, cf, cf, cf,
                                                 vp, ci, vp]
         patches.hgt_terrain_patches.restype = ci
+        rewards.hgt_rewards.argtypes = [vp, vp, vp, vp, ci, vp]
+        rewards.hgt_rewards.restype = ci
 
 
 _LIBRARY: KernelLibrary | None = None
@@ -112,8 +117,8 @@ def build_library() -> KernelLibrary:
         raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
     return KernelLibrary(ctypes.CDLL(paths["mega"]), ctypes.CDLL(paths["dense"]),
-                         ctypes.CDLL(paths["stamp"]), ctypes.CDLL(paths["patches"]), paths,
-                         seconds, log)
+                         ctypes.CDLL(paths["stamp"]), ctypes.CDLL(paths["patches"]),
+                         ctypes.CDLL(paths["rewards"]), paths, seconds, log)
 
 
 def kernel_library() -> KernelLibrary:

@@ -5,7 +5,7 @@ The counterpart of humanoid_gym_tpu/utils/roofline.py, which counts the
 TPU kernel's jaxpr against TPU peaks; the port counts its CUDA kernels'
 loop nests by hand (the kernels are `csrc/*.cu`, with no jaxpr to walk).
 - `solve_ops`, `mega_ops`, `mega_terrain_ops`, `apgd_ops`,
-  `fused_dense_ops`, `terrain_patches_ops`: float32 operations a kernel's
+  `fused_dense_ops`, `terrain_patches_ops`, `rewards_ops`: float32 operations a kernel's
   function needs for one env; each multiply, add, divide, square root and
   comparison-select in the loops counts as one. The `*_executed` variants count what one warp
   issues, every lane counted whether or not its result is used.
@@ -148,6 +148,27 @@ def terrain_patches_ops() -> int:
     per_joint = 3 * 5 + 3 + 3 + 9 * 4 + 2 * 9 * 5
     per_point = 2 * 5 + 4 + 2 * 4 + 2 + 2 * 8
     return 30 + 2 * 6 * per_joint + 16 * per_point
+
+
+def rewards_ops(nj: int = 12, n_pen: int = 3) -> int:
+    """Operations of one env's reward stage (csrc/rewards.cu
+    hgt_rewards_kernel), each expf, sqrtf and sinf counted as one: per joint
+    the five differences and the nine sums of squares and magnitudes (26);
+    the phase and stance (9), the feet (2 x 17), the 26 terms (239 with 2
+    per collision flag), the sums over the 26 kernel terms (4 each) with
+    the clip and the termination term (107), the feet state (12)."""
+    return 26 * nj + 9 + 2 * 17 + 239 + 2 * n_pen + 107 + 12
+
+
+def rewards_bytes(nj: int = 12, n_cols: int = 22, n_pen: int = 3) -> int:
+    """Bytes one env's reward stage moves (csrc/rewards.cu): in, the floats
+    it reads (root xyz, qpos and qvel joints, the root velocity, six
+    nj-rows, 13 of the base quantities and commands, the last root
+    velocity, the 14 FK rows, two feet's forces, the carried feet state,
+    the episode sums), the episode length, the flags; out, the reward, the
+    sums, the float feet state and four flags."""
+    floats_in = 3 + nj + 6 + nj + 6 * nj + 13 + 6 + 14 + 6 + 6 + n_cols
+    return 4 * floats_in + 4 + n_pen + 2 + 3 + 4 * (1 + n_cols + 6) + 4
 
 
 def apgd_loop_ops(iterations: int, nrow: int = 60) -> int:

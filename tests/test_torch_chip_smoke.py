@@ -82,7 +82,7 @@ def test_kernel_records_hold_only_measured_keys_and_the_bound():
         assert isinstance(call, ast.Call) and getattr(call.func, "id", None) == "dict"
         assert {k.arg for k in call.keywords} == allowed, ast.unparse(node.targets[0])
         found += 1
-    assert found == 5
+    assert found == 6
 
 
 def test_dense_variant_patches_apply_to_the_shipped_source():
@@ -779,8 +779,8 @@ def test_compare_runs_finds_the_first_difference(smoke):
     assert run.stdout.startswith("first difference at iteration 1, key ")
 
 
-PHASES = ("1-2", "3", "4", "4t", "10", "10t", "5", "5b", "5c", "6", "7", "8", "9", "11", "12",
-          "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "22j", "23", "24", "25")
+PHASES = ("1-2", "3", "4", "4t", "4r", "10", "10t", "5", "5b", "5c", "6", "7", "8", "9", "11",
+          "12", "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "22j", "23", "24", "25")
 
 
 def test_phase25_and_phase_seconds_are_wired(smoke):

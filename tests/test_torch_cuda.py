@@ -314,6 +314,120 @@ def test_terrain_patches_launch_rejects_bad_inputs(dev, landed_terrain):
     assert MG.terrain_patches_launch.launches == n0
 
 
+@pytest.fixture(scope="module")
+def smoke():
+    import importlib.util
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  os.path.join(here, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _reward_stage(smoke, config, dev):
+    """(the reward stage, its config's rewards) of XBot-L's ("L") or XBot-S's
+    ("S") reward set, or of every term with the termination term and no
+    clip ("all", FK rows base-relative as the mega path passes them;
+    "all_world", world-frame rows as the other solvers pass them)."""
+    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
+    from humanoid_gym_tpu_torch.config.xbots import XBotSCfg
+    from humanoid_gym_tpu_torch.envs import rewards as R
+
+    cfg = XBotSCfg() if config == "S" else XBotLCfg()
+    rcfg = smoke._all_reward_terms() if config.startswith("all") else cfg.rewards
+    dflt = torch.as_tensor(list(cfg.init_state.default_joint_angles.values()), dtype=torch.float32,
+                           device=dev)
+    return R.make_rewards(rcfg, cfg.dt, dflt, (6, 12), feet_base=config != "all_world"), rcfg
+
+
+@pytest.mark.parametrize("config", ["L", "S", "all", "all_world"])
+@pytest.mark.parametrize("n", [4096, 2048, 1000, 1])
+def test_rewards_kernel_matches_plain_chain(dev, smoke, config, n):
+    """The rewards kernel (csrc/rewards.cu) against the plain chain on
+    random states that reach every branch (chip_smoke.py `_reward_inputs`:
+    rows not finite, each low_speed case, contacts, stance boundaries, the
+    clearance band; every input a strided view as the env passes them), for
+    XBot-L's and XBot-S's term sets (only-positive clip on) and for every
+    term with a termination scale (clip off): reward and episode sums within
+    1e-5 relative, the float feet state within 1e-6, last_contacts and the
+    contact flags exact; one launch a call."""
+    from humanoid_gym_tpu_torch.envs import rewards as R
+
+    stage, rcfg = _reward_stage(smoke, config, dev)
+    inp = smoke._reward_inputs(n, rcfg, len(stage.names), dev, seed=n + len(config),
+                               feet_base=config != "all_world")
+    n0 = R.rewards_launch.launches
+    got = stage(inp)
+    assert R.rewards_launch.launches == n0 + 1
+    want = stage.plain(inp)
+    reward, sums, feet, last_contacts, contact = smoke._reward_gaps(stage, inp, got, want)
+    assert reward <= 1e-5 and sums <= 1e-5 and feet <= 1e-6, (reward, sums, feet)
+    assert last_contacts and contact
+    assert got.reward.is_contiguous() and got.episode_sums.shape == (n, len(stage.names))
+
+
+def test_rewards_launch_rejects_bad_inputs(dev, smoke):
+    """The rewards wrapper raises before anything launches on an input on
+    the CPU, in float64, with a column stride, of the wrong width, or flags
+    that are not bool."""
+    from humanoid_gym_tpu_torch.envs import rewards as R
+
+    stage, rcfg = _reward_stage(smoke, "L", dev)
+    inp = smoke._reward_inputs(8, rcfg, len(stage.names), dev, seed=3)
+    n0 = R.rewards_launch.launches
+    for bad in (dict(actions=inp.actions.cpu()), dict(torques=inp.torques.double()),
+                dict(commands=inp.commands.t().contiguous().t()),
+                dict(feet_rows=inp.feet_rows[:, :13]), dict(finite=inp.finite.to(torch.uint8)),
+                dict(episode_sums=inp.episode_sums[:, :3]),
+                dict(contact_forces=inp.contact_forces.transpose(1, 2))):
+        with pytest.raises(ValueError):
+            R.rewards_launch(inp._replace(**bad), stage.default_dof_pos, stage.table)
+    assert R.rewards_launch.launches == n0
+
+
+@pytest.mark.parametrize("solver", ["mega", "apgd"])
+def test_env_step_rewards_take_the_kernel(dev, solver):
+    """An env step on the card launches the rewards kernel once; the same
+    step from the same state and generator with the plain chain in its
+    place gives the reward within 1e-5 relative, the episode sums at reset
+    likewise, and the observations, done flags and carried feet state
+    bit-equal (they read the kernel's flags and feet state)."""
+    from humanoid_gym_tpu_torch.config.xbotl import XBotLCfg
+    from humanoid_gym_tpu_torch.envs import make_env
+    from humanoid_gym_tpu_torch.envs import rewards as R
+
+    cfg = XBotLCfg()
+    cfg.sim.solver.solver_type = solver
+    env = make_env(cfg, num_envs=256, device=dev, seed=0)
+    state, _, _ = env.reset_all()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for _ in range(5):
+        state, _ = env.step(state, 0.3 * torch.randn((256, 12), device=dev, generator=gen))
+    actions = 0.3 * torch.randn((256, 12), device=dev, generator=gen)
+    g0 = env.gen.get_state()
+    n0 = R.rewards_launch.launches
+    s1, t1 = env.step(state, actions)
+    assert R.rewards_launch.launches == n0 + 1
+    kernel = env.rewards
+    env.gen.set_state(g0)
+    env.rewards = kernel.plain
+    try:
+        s2, t2 = env.step(state, actions)
+    finally:
+        env.rewards = kernel
+    scale = t2.reward.abs().max() + 1e-6
+    assert float((t1.reward - t2.reward).abs().max()) <= 1e-5 * float(scale)
+    assert float((t1.ep_term_sums - t2.ep_term_sums).abs().max()) <= 1e-5 * float(
+        t2.ep_term_sums.abs().max() + 1e-6)
+    for a, b in ((t1.obs, t2.obs), (t1.privileged_obs, t2.privileged_obs), (t1.done, t2.done),
+                 (s1.feet_air_time, s2.feet_air_time), (s1.last_contacts, s2.last_contacts),
+                 (s1.feet_height, s2.feet_height), (s1.last_feet_z, s2.last_feet_z)):
+        assert torch.equal(a, b)
+
+
 def test_two_models_interleaved_on_one_stream(dev):
     """XBot-L and XBot-S launches of the flat mega kernel, each naming its
     own constants: S within the chip_smoke tolerances of the plain S step;
@@ -609,8 +723,9 @@ def test_captured_train_iter_equals_eager(dev, task):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     r = smoke._captured_against_eager(task, dev, n_envs=16, horizon=8, iters=3)
-    want = [0] * 6  # capture.LAUNCH_COUNTERS: flat, terrain, three solvers, terrain patches
-    want[1 if "terrain" in task else 0] = (2 if "joint" in task else 1) * 8 * 3
+    # capture.LAUNCH_COUNTERS: flat, terrain, three solvers, terrain patches, rewards
+    want = [0] * 7
+    want[1 if "terrain" in task else 0] = want[6] = (2 if "joint" in task else 1) * 8 * 3
     if "terrain" in task:
         want[5] = want[1]
     assert r["launches_eager"] == r["launches_replayed"] == want
@@ -762,3 +877,21 @@ def test_mega_kernels_keep_their_registers_and_spills(dev, tmp_path):
     assert "; 112 bytes stack frame, 108 bytes spill stores" in lines["hgt_mega_kernel<false>"]
     assert lines["hgt_mega_kernel<true>"].startswith("hgt_mega_kernel<true>: Used 64 registers")
     assert "; 128 bytes stack frame, 148 bytes spill stores" in lines["hgt_mega_kernel<true>"]
+
+
+def test_rewards_kernel_keeps_its_registers_and_spills(dev, tmp_path, smoke):
+    """The rewards kernel (csrc/rewards.cu, a library of its own) compiles
+    to the registers, stack frame and spill stores that PERF.md's table of
+    the port's own kernels records (row P2)."""
+    import subprocess
+
+    from humanoid_gym_tpu_torch.physics import cuda_build as CB
+
+    cmd = [CB._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin",
+           "-Xptxas", "-v", "-o", str(tmp_path / "rewards.cubin"),
+           os.path.join(CB.CSRC_DIR, "rewards.cu")]
+    run = subprocess.run(cmd, capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
+    (line,) = smoke._ptxas_summary(run.stdout + run.stderr).split(" | ")
+    assert line.startswith("hgt_rewards_kernel: Used 64 registers"), line
+    assert "; 0 bytes stack frame, 0 bytes spill stores" in line, line
